@@ -1,0 +1,31 @@
+"""cloudscape_tpu_torch — the cloudscape engine in PyTorch, with hand-written
+CUDA kernels for Hopper.
+
+A port of `cloudscape_tpu` (JAX), which stays the reference it is tested
+against. This package imports neither `jax` nor `cloudscape_tpu`. It serves
+the default `CloudSkyEngine` loop: procedural noise pack → brick tables →
+transmittance and sky-view LUTs → per-cycle cone-density cache → dense tile
+march → composite. Two steps of that loop run as CUDA kernels on a CUDA
+device (`csrc/accum.cu`, `csrc/compact.cu`); for CPU tensors the same
+wrappers run their plain PyTorch versions.
+"""
+
+from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CloudConfig",
+    "PerfConfig",
+    "SunState",
+    "CloudSkyEngine",
+    "__version__",
+]
+
+
+def __getattr__(name):
+    if name == "CloudSkyEngine":
+        from cloudscape_tpu_torch.engine import CloudSkyEngine
+
+        return CloudSkyEngine
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,536 @@
+"""CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
+
+The port of `cloudscape_tpu.engine.CloudSkyEngine` for its default serving
+loop: `kernel="fast3"` without tile culling, on one device. It owns the
+texture rings on its device, schedules the amortized tile updates,
+integrates wind, snapshots kernel parameters once per cycle, bakes the next
+cycle's cone-density cache and sky LUT across the current cycle's ticks
+(`cone_prebake`), and exposes the user API (sun/config setters, view
+rendering, save/restore).
+
+Where the JAX engine donates buffers to jitted `dynamic_update_slice`s, this
+one writes tiles, LUT slots and bake slices into its tensors in place; each
+such site says so.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time as _time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState
+from cloudscape_tpu_torch.models import atmosphere
+from cloudscape_tpu_torch.models.compositor import composite
+from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
+from cloudscape_tpu_torch.models.march_fast import (
+    BrickPack,
+    ConeCache,
+    bake_cone_cells,
+    build_cone_cache,
+    cone_capacity,
+    cone_occupancy_finalize,
+    cone_occupancy_slice,
+    cone_table_rows,
+    march_tile_dense,
+    wrap_cone_table,
+)
+from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+from cloudscape_tpu_torch.ops.brick import brick3_grid
+from cloudscape_tpu_torch.ops.octmap import texel_directions
+from cloudscape_tpu_torch.temporal import FrameData, RingState
+
+# Tiles with at least this many rays take the staged v2 march in the JAX
+# engine (engine.py:291), which is not ported yet.
+V3_TILE_MIN_RAYS = 65536
+# Cone-bake chunk of the JAX engine; it sets the compacted capacity
+# (`cone_capacity`), so the port uses the same value.
+_CONE_CHUNK = 65536
+
+
+def _ceil_to(v: int, mult: int) -> int:
+    return (v + mult - 1) // mult * mult
+
+
+@dataclasses.dataclass
+class _PendingCycle:
+    """The NEXT cycle's state, frozen one rotation ahead and baked across the
+    current cycle's ticks, one stage step per tick (`_advance_prebake`):
+    occupancy slices → occupancy finalize (kernel K2) → cone-march slices →
+    brick-table row slices → wrap → sky-LUT row bands. `fresh` skips the
+    boundary tick itself."""
+
+    frame_data: FrameData
+    march_params: MarchParams
+    vol: Optional[torch.Tensor]       # flat [nd*nh*nw + 1] cone volume
+    occ: Any = None                   # flat bool occupancy buffer
+    occ_done: int = 0
+    idx: Any = None                   # compacted occupied-cell indices
+    slices_done: int = 0
+    table: Any = None                 # [n_bricks, 128] cone table being written
+    asm_done: int = 0
+    cone: Optional[ConeCache] = None  # assembled cache once complete
+    sky_rows: Any = None              # list of prebaked sky-LUT row bands
+    sky: Any = None                   # prebaked sky-LUT image for the pickup
+    fresh: bool = True                # created this tick — skip one advance
+
+
+class CloudSkyEngine:
+    """User-facing engine with the reference's parameter surface and
+    scheduling semantics."""
+
+    SKY_LUT_SHAPE = (100, 200, 4)
+
+    def __init__(
+        self,
+        perf: PerfConfig = PerfConfig(),
+        config: CloudConfig = CloudConfig(),
+        sun: SunState = SunState(direction=(0.0, 0.5, -1.0)),
+        noise: Optional[NoisePack] = None,
+        now: float = 0.0,
+        kernel: str = "fast3",
+        mesh=None,
+        cone_res=(32, 512, 512),
+        tile_cull: bool = False,
+        cone_prebake: Optional[bool] = None,
+        *,
+        device,
+    ):
+        """device: where every tensor of the engine lives (required; nothing
+        is guessed from what is available). noise defaults to
+        `procedural_noise_pack(0)` generated on that device, the pack the
+        JAX engine falls back to when the reference's assets are absent.
+
+        kernel: only "fast3" (dense tile arm) is ported; cone_res: (hf, z, x)
+        resolution of the per-cycle cone cache; cone_prebake (default on):
+        bake the next cycle's cone cache and sky LUT across the current
+        cycle's ticks, taking the snapshot one rotation ahead."""
+        if kernel in ("fast", "fast2", "hier", "reference"):
+            raise NotImplementedError(
+                f"kernel={kernel!r} is not ported yet (ROADMAP: fast/reference "
+                "A5, fast2 A12, hier A13)")
+        if kernel != "fast3":
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if tile_cull:
+            raise NotImplementedError("tile_cull is not ported yet (ROADMAP A11)")
+        if mesh is not None:
+            raise NotImplementedError("multi-device meshes are not ported yet "
+                                      "(ROADMAP A15)")
+        self.kernel = kernel
+        self.device = torch.device(device)
+        self.cone_res = tuple(cone_res)
+        self.cone_prebake = True if cone_prebake is None else bool(cone_prebake)
+        self._pending: Optional[_PendingCycle] = None
+        self.perf = perf.validate()
+        if self.perf.update_region_size ** 2 >= V3_TILE_MIN_RAYS:
+            raise NotImplementedError(
+                f"{self.perf.update_region_size}² tiles take the staged v2 march, "
+                "not ported yet (ROADMAP A12)")
+        self.config = config
+        self.sun = sun
+        self.noise = noise if noise is not None else \
+            procedural_noise_pack(0, device=self.device)
+        self._bricks = BrickPack.from_noise(self.noise)
+        self._cone_cache: Optional[ConeCache] = None
+
+        # Baked once at load, like `transmittance_lut.gd:51-78`.
+        self.transmittance = atmosphere.transmittance_lut(device=self.device)
+
+        n = self.perf.texture_size
+        self.cloud_ring = torch.zeros((3, n, n, 4), dtype=torch.float32,
+                                      device=self.device)
+        self.sky_ring = torch.zeros((3,) + self.SKY_LUT_SHAPE,
+                                    dtype=torch.float32, device=self.device)
+
+        self.frame_data = FrameData()
+        self._head_frame_data = self.frame_data  # replaced by a copy at refresh
+        self._picked_sky = None
+        self._sun_srgb = False
+        self._derive_prebake_schedule()
+        self.ring = RingState()
+        self._start_time: Optional[float] = None
+        self.needs_full_sky_init = True
+        self._sky_lut_needs_full_update = True  # sky_lut.gd `needs_full_update`
+        self._refresh_frame_data(now)
+
+    # ------------------------------------------------------------------ API
+
+    def set_sun(self, direction, energy: float = 1.0, color=(1.0, 1.0, 1.0),
+                srgb_color: bool = False) -> None:
+        """The `sun.gd` binding: picked up at the next texture-swap boundary
+        (`cloud_sky.gd:165-167`)."""
+        self.sun = SunState(tuple(direction), float(energy), tuple(color))
+        self._sun_srgb = srgb_color
+
+    def set_config(self, config: CloudConfig) -> None:
+        """Dynamic parameter change; snapshotted at the next cycle boundary."""
+        self.config = config
+
+    def request_full_sky_init(self) -> None:
+        """`cloud_sky.gd:120-121`."""
+        self.needs_full_sky_init = True
+
+    # ------------------------------------------------------------ scheduling
+
+    def _now(self, now: Optional[float]) -> float:
+        if now is not None:
+            return float(now)
+        if self._start_time is None:
+            self._start_time = _time.monotonic()
+        return _time.monotonic() - self._start_time
+
+    # Per-unit bake costs used ONLY to size the prebake slices; correctness
+    # never depends on them. They are the JAX engine's figures, measured on
+    # other hardware, carried over so the slice schedule matches it — not
+    # this port's costs (the card's own: ROADMAP A11).
+    _BAKE_COSTS = {
+        "cone_us_per_cell": 0.06,
+        "asm_us_per_row": 1.9,
+        "occ_us_per_cell": 0.0105,
+        "sky_ms_per_row": 0.2,
+    }
+    _BAKE_TICK_MS = 14.0
+
+    def _derive_prebake_schedule(self) -> None:
+        """Per-tick stage sizing for the amortized cycle bake: every stage
+        step is sized to ≲ _BAKE_TICK_MS of work at `_BAKE_COSTS`; when the
+        step count does not fit in frames_to_update ticks the per-tick
+        budget grows until it does. When even that fails, the pending bake
+        is not ready at the boundary and the synchronous build runs."""
+        c = self._BAKE_COSTS
+        n = int(np.prod(self.cone_res))
+        self._cone_capacity = cone_capacity(n, 0.45, _CONE_CHUNK)
+        self._n_bricks = int(np.prod(brick3_grid(self.cone_res, (7, 3, 3))))
+        sky_h = self.SKY_LUT_SHAPE[0]
+
+        def plan(budget_ms: float):
+            occ_slice = max(int(budget_ms * 1e3 / c["occ_us_per_cell"]), 1)
+            cone_slice = max(int(budget_ms * 1e3 / c["cone_us_per_cell"]), 1)
+            asm_slice = max(int(budget_ms * 1e3 / c["asm_us_per_row"]), 1)
+            sky_rows = max(int(budget_ms / c["sky_ms_per_row"]), 1)
+            occ_slice = min(_ceil_to(occ_slice, 65536), n)
+            cone_slice = min(_ceil_to(cone_slice, 16384), self._cone_capacity)
+            asm_slice = min(_ceil_to(asm_slice, 2048), self._n_bricks)
+            sky_rows = min(sky_rows, sky_h)
+            while sky_h % sky_rows:
+                sky_rows -= 1
+            counts = (-(-n // occ_slice), -(-self._cone_capacity // cone_slice),
+                      -(-self._n_bricks // asm_slice), sky_h // sky_rows)
+            # skip, idx-finalize, wrap, slack
+            total = 4 + sum(counts)
+            return total, counts, (occ_slice, cone_slice, asm_slice, sky_rows)
+
+        total_var_ms = (self._cone_capacity * c["cone_us_per_cell"]
+                        + n * c["occ_us_per_cell"]
+                        + self._n_bricks * c["asm_us_per_row"]) * 1e-3 \
+            + sky_h * c["sky_ms_per_row"]
+        avail = max(self.perf.frames_to_update - 6, 1)
+        budget = max(self._BAKE_TICK_MS, total_var_ms / avail)
+        total, counts, sizes = plan(budget)
+        while total > self.perf.frames_to_update and budget < 4096.0:
+            budget *= 1.1
+            total, counts, sizes = plan(budget)
+        self._n_occ, self._n_cone_slices, self._n_asm, self._n_sky = counts
+        self._occ_slice, self._cone_slice, self._asm_slice, self._sky_rows = sizes
+
+    def _build_cone(self, params: MarchParams) -> ConeCache:
+        return build_cone_cache(params, self._bricks, self.perf.light_steps,
+                                res=self.cone_res, chunk=_CONE_CHUNK)
+
+    def _refresh_frame_data(self, now: float) -> None:
+        """`_update_per_frame_data` (`cloud_sky.gd:165-187`) minus the LUT
+        render. With cone_prebake the snapshot pipeline is one cycle deep:
+        the snapshot frozen at this rotation becomes active at the next, its
+        cone cache and sky LUT baked across this cycle's ticks; when the
+        pending bake is not ready the cache is built synchronously."""
+        if not self.cone_prebake:
+            self.frame_data.update_light_data(self.sun, self._sun_srgb)
+            self.frame_data.update_config(self.config)
+            self.frame_data.integrate_wind(now)
+            self._march_params = self.frame_data.to_march_params(self.device)
+            self._cone_cache = self._build_cone(self._march_params)
+            return
+
+        head = self._head_frame_data
+        head.update_light_data(self.sun, self._sun_srgb)
+        head.update_config(self.config)
+        head.integrate_wind(now)
+        pend = self._pending
+        if pend is not None and pend.cone is not None and pend.sky is not None:
+            self.frame_data = pend.frame_data
+            self._march_params = pend.march_params
+            self._cone_cache = pend.cone
+            self._picked_sky = pend.sky
+        else:
+            self._picked_sky = None
+            self.frame_data = copy.deepcopy(head)
+            self._march_params = self.frame_data.to_march_params(self.device)
+            self._cone_cache = self._build_cone(self._march_params)
+        fd = copy.deepcopy(head)
+        self._pending = _PendingCycle(
+            frame_data=fd, march_params=fd.to_march_params(self.device),
+            vol=torch.zeros((int(np.prod(self.cone_res)) + 1,),
+                            dtype=torch.float32, device=self.device))
+
+    def _advance_prebake(self) -> None:
+        """One stage step of the pending cycle's bake per tick."""
+        pend = self._pending
+        if pend is None or not self.cone_prebake:
+            return
+        if pend.fresh:
+            pend.fresh = False
+            return
+        n = int(np.prod(self.cone_res))
+        params = pend.march_params
+        if pend.cone is None:
+            if pend.idx is None and pend.occ_done < self._n_occ:
+                if pend.occ is None:
+                    pend.occ = torch.zeros((n,), dtype=torch.bool,
+                                           device=self.device)
+                i0 = min(pend.occ_done * self._occ_slice,
+                         max(n - self._occ_slice, 0))
+                # In place: writes occ[i0 : i0 + slice].
+                cone_occupancy_slice(pend.occ, i0, params, self._bricks,
+                                     count=self._occ_slice, res=self.cone_res)
+                pend.occ_done += 1
+            elif pend.idx is None:
+                pend.idx = cone_occupancy_finalize(pend.occ, res=self.cone_res,
+                                                   chunk=_CONE_CHUNK)
+                pend.occ = None
+            elif pend.slices_done < self._n_cone_slices:
+                i0 = min(pend.slices_done * self._cone_slice,
+                         max(self._cone_capacity - self._cone_slice, 0))
+                # In place: writes the slice's cells into pend.vol.
+                bake_cone_cells(pend.vol, pend.idx, i0, params, self._bricks,
+                                count=self._cone_slice,
+                                light_steps=self.perf.light_steps,
+                                res=self.cone_res)
+                pend.slices_done += 1
+            elif pend.asm_done < self._n_asm:
+                if pend.table is None:
+                    pend.table = torch.zeros((self._n_bricks, 128),
+                                             dtype=torch.float32,
+                                             device=self.device)
+                b0 = min(pend.asm_done * self._asm_slice,
+                         max(self._n_bricks - self._asm_slice, 0))
+                # In place: writes table rows [b0, b0 + slice).
+                pend.table[b0:b0 + self._asm_slice] = cone_table_rows(
+                    pend.vol[:n].reshape(self.cone_res), b0, self._asm_slice)
+                pend.asm_done += 1
+            else:
+                pend.cone = wrap_cone_table(pend.table, self.cone_res)
+                pend.table = None
+                pend.vol = None
+                pend.idx = None
+        elif pend.sky is None:
+            if pend.sky_rows is None:
+                pend.sky_rows = []
+            r0 = len(pend.sky_rows) * self._sky_rows
+            pend.sky_rows.append(atmosphere.sky_lut_rows(
+                self.transmittance, self._light_dir(pend.frame_data), r0,
+                rows=self._sky_rows))
+            if len(pend.sky_rows) >= self._n_sky:
+                pend.sky = torch.cat(pend.sky_rows, dim=0)
+                pend.sky_rows = None
+
+    def _light_dir(self, frame_data: FrameData) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(frame_data.light_direction,
+                                           np.float32)).to(self.device)
+
+    def _render_sky_image(self, sun_dir) -> torch.Tensor:
+        """One full sky-view LUT through the same row bands the prebake
+        renders, so a prebaked image equals a synchronous one."""
+        rows = self._sky_rows
+        return torch.cat([
+            atmosphere.sky_lut_rows(self.transmittance, sun_dir, r0, rows=rows)
+            for r0 in range(0, self.SKY_LUT_SHAPE[0], rows)], dim=0)
+
+    def _render_sky_lut(self) -> None:
+        """One LUT render + ring rotation (`sky_lut.gd:122-148`), three times
+        on first use so all slots are valid (`sky_lut.gd:49-52`)."""
+        renders = 3 if self._sky_lut_needs_full_update else 1
+        self._sky_lut_needs_full_update = False
+        sun_dir = self._light_dir(self.frame_data)
+        picked = self._picked_sky
+        for _ in range(renders):
+            img = picked if (renders == 1 and picked is not None) \
+                else self._render_sky_image(sun_dir)
+            self.sky_ring[self.ring.sky_lut_current] = img  # in place
+            self.ring.advance_sky_lut()
+        self._picked_sky = None
+
+    def _update_tile(self, tex_idx: int, x0: int, y0: int) -> None:
+        """Render one region² tile into cloud_ring[tex_idx] at (x0, y0) — the
+        reference's per-frame compute dispatch (`cloud_sky.gd:234-248`)."""
+        region = self.perf.update_region_size
+        dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
+                                width=region, height=region, device=self.device)
+        tile = march_tile_dense(
+            dirs, self._march_params, self._bricks,
+            self.sky_ring[self.ring.cloud_kernel_sky_slot],
+            steps=self.perf.march_steps, light_steps=self.perf.light_steps,
+            chunk=min(region * region, 16384), cone_cache=self._cone_cache)
+        self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
+
+    def _update_tiles_batch(self) -> None:
+        """Render every remaining tile of the current cycle and advance the
+        cursor/frame state to the cycle end."""
+        n_frames = self.perf.frames_to_update
+        region = self.perf.update_region_size
+        tiles_per_row = self.perf.texture_size // region
+        x, y = self.ring.update_position
+        start_tile = (y // region) * tiles_per_row + (x // region)
+        remaining = n_frames - self.ring.frame
+        if remaining <= 0:
+            return
+        for k in range(remaining):
+            tile = start_tile + k
+            self._update_tile(self.ring.texture_to_update,
+                              (tile % tiles_per_row) * region,
+                              (tile // tiles_per_row) * region)
+        self.ring.update_position = (0, 0)
+        self.ring.frame = n_frames
+        self._blend_amount = 1.0
+
+    def _rotate(self, now: float) -> None:
+        self.ring.rotate_cloud()
+        self._refresh_frame_data(now)
+        self._render_sky_lut()
+
+    def update_cycle(self, now: Optional[float] = None) -> None:
+        """Complete one full amortized cycle in one call (batch/offline use);
+        the same rotation, snapshot and LUT phasing as `update_sky`."""
+        now = self._now(now)
+        if self.needs_full_sky_init:
+            self.needs_full_sky_init = False
+            self.initialize_sky(now)
+        if self.ring.frame >= self.perf.frames_to_update:
+            self._rotate(now)
+        self._update_tiles_batch()
+
+    def initialize_sky(self, now: float) -> None:
+        """Warm start (`cloud_sky.gd:123-127`): two full synchronous cycles
+        so the sky is complete on the first visible frame."""
+        self._refresh_frame_data(now)
+        self._render_sky_lut()
+        for _ in range(2):
+            if self.ring.frame >= self.perf.frames_to_update:
+                self._rotate(now)
+            self._update_tiles_batch()
+
+    def update_sky(self, now: Optional[float] = None) -> None:
+        """One per-frame tick (`cloud_sky.gd:129-163`): rotate rings at cycle
+        boundaries, refresh FrameData + sky LUT, update one tile, advance
+        the cursor, advance the pending bake."""
+        now = self._now(now)
+        if self.needs_full_sky_init:
+            self.needs_full_sky_init = False
+            self.initialize_sky(now)
+        if self.ring.frame >= self.perf.frames_to_update:
+            self._rotate(now)
+        # Captured before the update, like `cloud_sky.gd:152`.
+        self._blend_amount = self.ring.blend_amount(self.perf.frames_to_update)
+        self._update_tile(self.ring.texture_to_update, *self.ring.update_position)
+        self.ring.advance_cursor(self.perf.update_region_size,
+                                 self.perf.texture_size)
+        self._advance_prebake()
+
+    # --------------------------------------------------------------- display
+
+    @property
+    def blend_amount(self) -> float:
+        return getattr(self, "_blend_amount",
+                       self.ring.blend_amount(self.perf.frames_to_update))
+
+    def render_view(self, eyedirs, deband: bool = False) -> torch.Tensor:
+        """Composite the current sky for view directions eyedirs [..., 3]
+        (world, on the engine's device) → [..., 3] linear HDR
+        (`clouds.gdshader:104-116`)."""
+        b0, b1 = self.ring.sky_back_textures
+        return composite(
+            eyedirs.to(device=self.device, dtype=torch.float32),
+            self.cloud_ring[self.ring.texture_to_blend_from],
+            self.cloud_ring[self.ring.texture_to_blend_to],
+            self.sky_ring[b0], self.sky_ring[b1], self.transmittance,
+            self.blend_amount, self._light_dir(self.frame_data),
+            self.config.sun_disk_scale, deband=deband)
+
+    def render_frame(self, eyedirs, now: Optional[float] = None,
+                     amortized: bool = True, fused: Optional[bool] = None,
+                     deband: bool = False) -> torch.Tensor:
+        """One-call serving API: advance the sim and composite a camera
+        frame. amortized=True ticks one tile (`update_sky` + `render_view`);
+        amortized=False completes a whole cycle first."""
+        if fused:
+            raise NotImplementedError("the display-pair fused render_frame is "
+                                      "not ported yet (ROADMAP, next item)")
+        if amortized:
+            self.update_sky(now)
+        else:
+            self.update_cycle(now)
+        return self.render_view(eyedirs, deband=deband)
+
+    def render_full_hemisphere(self, *args, **kwargs):
+        raise NotImplementedError("render_full_hemisphere (v3 march) is not "
+                                  "ported yet (ROADMAP A9)")
+
+    def render_radiance_map(self, *args, **kwargs):
+        raise NotImplementedError("render_radiance_map is not ported yet "
+                                  "(ROADMAP A16)")
+
+    # ------------------------------------------------------------ checkpoint
+
+    def save(self) -> Dict[str, Any]:
+        """Checkpointable state: parameters, wind integrals, ring indices and
+        the texture rings, as numpy arrays and plain types (the JAX engine's
+        `save()` format)."""
+        return {
+            "perf": dataclasses.asdict(self.perf),
+            "config": dataclasses.asdict(self.config),
+            "sun": dataclasses.asdict(self.sun),
+            "frame_data": dataclasses.asdict(self.frame_data),
+            "ring": dataclasses.asdict(self.ring),
+            "cloud_ring": self.cloud_ring.cpu().numpy(),
+            "sky_ring": self.sky_ring.cpu().numpy(),
+            "sky_lut_needs_full_update": self._sky_lut_needs_full_update,
+            "needs_full_sky_init": self.needs_full_sky_init,
+            "blend_amount": self.blend_amount,
+        }
+
+    def restore(self, state: Dict[str, Any]) -> None:
+        """Load a `save()` dict — this engine's or the JAX engine's."""
+        def tup(v):
+            return tuple(v) if isinstance(v, (list, tuple)) else v
+
+        self.perf = PerfConfig(**state["perf"]).validate()
+        self.config = CloudConfig(**{k: tup(v) for k, v in state["config"].items()})
+        self.sun = SunState(**{k: tup(v) for k, v in state["sun"].items()})
+        fd = FrameData()
+        for k, v in state["frame_data"].items():
+            setattr(fd, k, np.asarray(v) if isinstance(v, (list, np.ndarray)) else v)
+        self.frame_data = fd
+        ring = RingState()
+        for k, v in state["ring"].items():
+            setattr(ring, k, tup(v))
+        self.ring = ring
+        # np.array copies, so the rings never alias the caller's arrays.
+        self.cloud_ring = torch.from_numpy(
+            np.array(state["cloud_ring"], np.float32)).to(self.device)
+        self.sky_ring = torch.from_numpy(
+            np.array(state["sky_ring"], np.float32)).to(self.device)
+        self._sky_lut_needs_full_update = state["sky_lut_needs_full_update"]
+        self._blend_amount = state.get("blend_amount", 0.0)
+        self.needs_full_sky_init = state.get(
+            "needs_full_sky_init", not bool(np.any(np.asarray(state["cloud_ring"]))))
+        self._march_params = self.frame_data.to_march_params(self.device)
+        # The prebake pipeline restarts from the restored snapshot (the next
+        # rotation takes the synchronous build once).
+        self._head_frame_data = copy.deepcopy(self.frame_data)
+        self._pending = None
+        self._picked_sky = None
+        self._derive_prebake_schedule()
+        self._cone_cache = self._build_cone(self._march_params)

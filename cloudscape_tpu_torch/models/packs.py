@@ -1,0 +1,63 @@
+"""NoisePack construction (torch).
+
+`procedural_noise_pack` generates the three noise textures with
+`ops/noise.py` on the requested device — on the card, the card generates its
+own noise; nothing is cached on disk. `noise_pack_from_numpy` takes the
+arrays of a JAX `NoisePack` (as numpy) unchanged, so the port can be held
+against the JAX engine on identical inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from cloudscape_tpu_torch.models.density import NoisePack
+from cloudscape_tpu_torch.ops import noise as noise_gen
+
+
+def _pyramid3d(tex: torch.Tensor):
+    """Full mip chain of a [D, H, W, C] volume by 2×2×2 box filter, on the
+    volume's own device."""
+    levels = [tex]
+    while min(tex.shape[:3]) > 1:
+        d, h, w, c = tex.shape
+        tex = tex.reshape(d // 2, 2, h // 2, 2, w // 2, 2, c).mean(dim=(1, 3, 5))
+        levels.append(tex)
+    return tuple(levels)
+
+
+def make_noise_pack(large_volume, small_volume, weather_image) -> NoisePack:
+    """Assemble a pack from level-0 volumes, building the mip chains.
+
+    large_volume: [D,H,W,4]; small_volume: [D,H,W,3]; weather: [H,W,3]
+    (weather is sampled miplessly, `weather.bmp.import: mipmaps=false`).
+    All three float32 tensors on one device."""
+    return NoisePack(large=_pyramid3d(large_volume.float()),
+                     small=_pyramid3d(small_volume.float()),
+                     weather=weather_image.float())
+
+
+def procedural_noise_pack(seed: int = 0, base_size: int = 128,
+                          detail_size: int = 32, weather_size: int = 512,
+                          device=None) -> NoisePack:
+    """Fully procedural pack, generated on `device`."""
+    return make_noise_pack(
+        noise_gen.generate_base_noise(base_size, seed, device=device),
+        noise_gen.generate_detail_noise(detail_size, seed, device=device),
+        noise_gen.generate_weather(weather_size, seed, device=device),
+    )
+
+
+def noise_pack_from_numpy(large_levels: Sequence[np.ndarray],
+                          small_levels: Sequence[np.ndarray],
+                          weather: np.ndarray, device=None) -> NoisePack:
+    """A pack from the mip levels of a JAX `NoisePack`, taken as they are."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    return NoisePack(large=tuple(t(a) for a in large_levels),
+                     small=tuple(t(a) for a in small_levels),
+                     weather=t(weather))

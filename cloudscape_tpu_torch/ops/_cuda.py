@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels of `cloudscape_tpu_torch/csrc`.
+
+The kernels are plain CUDA C++ with a C interface, compiled at first use
+with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into one shared
+library and loaded with ctypes. The library goes into `build/cloudscape_tpu_torch/`
+beside the package, named by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one loads the earlier build. Nothing here
+runs at import: a machine without `nvcc` imports the package and uses the
+kernels' plain PyTorch versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cloudscape_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _nvcc() -> str:
+    candidates = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                               "bin", "nvcc"), shutil.which("nvcc")]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels of cloudscape_tpu_torch cannot be built")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libcloudscape_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if their library is not built yet; returns its
+    path. The compiler's output (registers, spills per kernel) is kept in
+    `<library>.log`. Raises on a failed build."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(path + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(build())
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            handle.cs_accumulate.argtypes = [p, p, p, p, p, p, p, i, i, p]
+            handle.cs_accumulate.restype = i
+            handle.cs_compact_scratch.argtypes = [ll]
+            handle.cs_compact_scratch.restype = ll
+            handle.cs_compact.argtypes = [p, ll, i, i, p, p, p, ll, p]
+            handle.cs_compact.restype = i
+            _LIB = handle
+    return _LIB
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_handle(device) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,243 @@
+"""Brick-row texture tables (torch port of `cloudscape_tpu.ops.brick`).
+
+Each noise texture is reshaped into a table of 128-lane bricks:
+
+- 3D, 2 channels:  4×4×4 texels × 2ch  = 128 lanes, brick stride 3
+- 3D, 1 channel :  8×4×4 texels × 1ch  = 128 lanes, strides (7, 3, 3)
+- 2D, 2 channels:  8×8 texels   × 2ch  = 128 lanes, brick stride 7
+
+Brick stride ≤ brick_dim - 1 keeps any trilinear/bilinear footprint inside
+one brick, so a filtered sample is one gathered row reduced against lane
+weights. The layout is the JAX package's, kept as it is so that the port's
+samples match it; a native trilinear sampler can replace it behind the same
+tests. Volumes that fit one row (≤ 128 values) skip the gather
+(`TinyVolume3D`).
+
+A 96² tile at 128 steps is 1.18 M samples, so an unchunked gather pass
+would materialise ~600 MB of rows and as much again of weights; the
+samplers run in chunks of `SAMPLE_CHUNK` samples to bound peak memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+SAMPLE_CHUNK = 1 << 18
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickTable3D:
+    """[n_bricks, lanes] table of 3D bricks. Lane order: channel-major
+    blocks of (z*by + y)*bx + x."""
+
+    table: torch.Tensor
+    dims: Tuple[int, int, int]  # (D, H, W)
+    brick: Tuple[int, int, int] = (4, 4, 4)  # (bz, by, bx)
+    stride: Tuple[int, int, int] = (3, 3, 3)
+    grid: Tuple[int, int, int] = (0, 0, 0)  # brick counts
+    channels: int = 2
+    wrap: str = "repeat"  # "repeat" | "clamp"
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickTable2D:
+    table: torch.Tensor
+    dims: Tuple[int, int]  # (H, W)
+    brick: Tuple[int, int] = (8, 8)  # (by, bx)
+    stride: Tuple[int, int] = (7, 7)
+    grid: Tuple[int, int] = (0, 0)
+    channels: int = 2
+    wrap: str = "repeat"
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyVolume3D:
+    """A whole ≤1-row volume as a flat row [C*D*H*W], channel-major."""
+
+    row: torch.Tensor
+    dims: Tuple[int, int, int]
+    channels: int = 1
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def brick3_grid(dims, stride=(3, 3, 3)):
+    """Brick-grid shape (nz, ny, nx) of a volume of `dims`."""
+    return tuple(_cdiv(d, s) for d, s in zip(dims, stride))
+
+
+def _brick_idx(start, s: int, b: int, n: int, wrap: str):
+    """Texel indices [len(start), b] of bricks starting at start*s."""
+    i = start[:, None] * s + torch.arange(b, device=start.device)[None, :]
+    return torch.clamp(i, 0, n - 1) if wrap == "clamp" else torch.remainder(i, n)
+
+
+def build_brick3(volume, brick=(4, 4, 4), stride=(3, 3, 3),
+                 wrap: str = "repeat") -> BrickTable3D:
+    """volume: [D, H, W, C] float32 tensor → its brick table, on the
+    volume's device. `wrap` fills texels past the edge by "repeat" (mod) or
+    "clamp" (edge)."""
+    d, h, w, c = volume.shape
+    bz, by, bx = brick
+    sz, sy, sx = stride
+    assert sz <= bz - 1 and sy <= by - 1 and sx <= bx - 1
+    nz, ny, nx = brick3_grid((d, h, w), stride)
+    dev = volume.device
+    zz = _brick_idx(torch.arange(nz, device=dev), sz, bz, d, wrap)
+    yy = _brick_idx(torch.arange(ny, device=dev), sy, by, h, wrap)
+    xx = _brick_idx(torch.arange(nx, device=dev), sx, bx, w, wrap)
+    bricks = volume[zz[:, None, None, :, None, None],
+                    yy[None, :, None, None, :, None],
+                    xx[None, None, :, None, None, :]]  # [nz,ny,nx,bz,by,bx,c]
+    lanes = bricks.permute(0, 1, 2, 6, 3, 4, 5).reshape(nz * ny * nx,
+                                                        c * bz * by * bx)
+    return BrickTable3D(table=lanes.contiguous(), dims=(d, h, w), brick=brick,
+                        stride=stride, grid=(nz, ny, nx), channels=c, wrap=wrap)
+
+
+def build_brick3_rows(volume, b0: int, count: int, brick=(4, 4, 4),
+                      stride=(3, 3, 3), wrap: str = "repeat"):
+    """Rows [b0, b0 + count) of `build_brick3`'s table — the sliceable form
+    the engine uses to spread the cone-table build over ticks. Writing every
+    row range reproduces the whole table. Needs b0 + count ≤ n_bricks."""
+    d, h, w, c = volume.shape
+    bz, by, bx = brick
+    sz, sy, sx = stride
+    nz, ny, nx = brick3_grid((d, h, w), stride)
+    bi = b0 + torch.arange(count, device=volume.device)
+    zz = _brick_idx(bi // (ny * nx), sz, bz, d, wrap)
+    yy = _brick_idx((bi // nx) % ny, sy, by, h, wrap)
+    xx = _brick_idx(bi % nx, sx, bx, w, wrap)
+    rows = volume[zz[:, :, None, None], yy[:, None, :, None],
+                  xx[:, None, None, :]]  # [count, bz, by, bx, c]
+    return rows.permute(0, 4, 1, 2, 3).reshape(count, c * bz * by * bx)
+
+
+def build_brick2(image, brick=(8, 8), stride=(7, 7),
+                 wrap: str = "repeat") -> BrickTable2D:
+    """image: [H, W, C] float32 tensor → its 2D brick table."""
+    h, w, c = image.shape
+    by, bx = brick
+    sy, sx = stride
+    assert sy <= by - 1 and sx <= bx - 1
+    ny, nx = _cdiv(h, sy), _cdiv(w, sx)
+    dev = image.device
+    yy = _brick_idx(torch.arange(ny, device=dev), sy, by, h, wrap)
+    xx = _brick_idx(torch.arange(nx, device=dev), sx, bx, w, wrap)
+    bricks = image[yy[:, None, :, None], xx[None, :, None, :]]  # [ny,nx,by,bx,c]
+    lanes = bricks.permute(0, 1, 4, 2, 3).reshape(ny * nx, c * by * bx)
+    return BrickTable2D(table=lanes.contiguous(), dims=(h, w), brick=brick,
+                        stride=stride, grid=(ny, nx), channels=c, wrap=wrap)
+
+
+def build_tiny3(volume) -> TinyVolume3D:
+    d, h, w, c = volume.shape
+    return TinyVolume3D(row=volume.permute(3, 0, 1, 2).reshape(-1).contiguous(),
+                        dims=(d, h, w), channels=c)
+
+
+def _axis_coords(q, n: int, wrap: str = "repeat"):
+    """GL filtering coords for one axis: (cell i0 [int64], fraction)."""
+    cx = q * n - 0.5
+    i0f = torch.floor(cx)
+    f = cx - i0f
+    i0 = i0f.to(torch.int64)
+    if wrap == "clamp":
+        f = torch.where(i0 < 0, 0.0, torch.where(i0 > n - 2, 1.0, f))
+        i0 = torch.clamp(i0, 0, max(n - 2, 0))
+    else:
+        i0 = torch.remainder(i0, n)
+    return i0, f
+
+
+def _axis_weight(local0, frac, length: int):
+    """[m, length] hat weights max(0, 1 - |local0 + f - lane|): (1-f) at
+    local0, f at local0 + 1, 0 elsewhere."""
+    a = local0.to(torch.float32) + frac
+    lanes = torch.arange(length, device=a.device, dtype=torch.float32)
+    return torch.clamp(1.0 - torch.abs(a[:, None] - lanes[None, :]), min=0.0)
+
+
+def _chunked(fn, *planes):
+    """Apply fn to flattened sample planes in SAMPLE_CHUNK pieces; returns
+    [..., C] in the planes' shape."""
+    shape = planes[0].shape
+    flat = [p.reshape(-1) for p in planes]
+    n = flat[0].shape[0]
+    outs = [fn(*(p[i:i + SAMPLE_CHUNK] for p in flat))
+            for i in range(0, n, SAMPLE_CHUNK)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return out.reshape(shape + out.shape[-1:])
+
+
+def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):
+    """Trilinear fetch on component planes (x, y, z uv) → [..., C]."""
+    d, h, w = bt.dims
+    bz, by, bx = bt.brick
+    sz, sy, sx = bt.stride
+    nz, ny, nx = bt.grid
+    L = bz * by * bx
+
+    def chunk(qx, qy, qz):
+        ix0, fx = _axis_coords(qx, w, bt.wrap)
+        iy0, fy = _axis_coords(qy, h, bt.wrap)
+        iz0, fz = _axis_coords(qz, d, bt.wrap)
+        fb = ((iz0 // sz) * ny + iy0 // sy) * nx + ix0 // sx
+        rows = bt.table[fb].reshape(-1, bt.channels, L)
+        wx = _axis_weight(ix0 % sx, fx, bx)
+        wy = _axis_weight(iy0 % sy, fy, by)
+        wz = _axis_weight(iz0 % sz, fz, bz)
+        wgt = (wx[:, None, None, :] * wy[:, None, :, None]) * wz[:, :, None, None]
+        return torch.sum(rows * wgt.reshape(-1, 1, L), dim=-1)
+
+    return _chunked(chunk, qx, qy, qz)
+
+
+def sample_brick2_xy(bt: BrickTable2D, qu, qv):
+    """Bilinear fetch on component planes (u, v) → [..., C]."""
+    h, w = bt.dims
+    by, bx = bt.brick
+    sy, sx = bt.stride
+    ny, nx = bt.grid
+    L = by * bx
+
+    def chunk(qu, qv):
+        ix0, fx = _axis_coords(qu, w, bt.wrap)
+        iy0, fy = _axis_coords(qv, h, bt.wrap)
+        fb = (iy0 // sy) * nx + ix0 // sx
+        rows = bt.table[fb].reshape(-1, bt.channels, L)
+        wgt = _axis_weight(ix0 % sx, fx, bx)[:, None, :] \
+            * _axis_weight(iy0 % sy, fy, by)[:, :, None]
+        return torch.sum(rows * wgt.reshape(-1, 1, L), dim=-1)
+
+    return _chunked(chunk, qu, qv)
+
+
+def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):
+    """Gather-free trilinear fetch from a ≤1-row volume, modular wrap."""
+    d, h, w = tv.dims
+    L = d * h * w
+    row = tv.row.reshape(tv.channels, L)
+
+    def axis_w(i0, f, n):
+        lane = torch.arange(n, device=i0.device)[None, :]
+        i0e = i0[:, None]
+        fe = f[:, None]
+        return torch.where(lane == i0e, 1.0 - fe, 0.0) + torch.where(
+            lane == torch.remainder(i0e + 1, n), fe, 0.0)
+
+    def chunk(qx, qy, qz):
+        ix0, fx = _axis_coords(qx, w)
+        iy0, fy = _axis_coords(qy, h)
+        iz0, fz = _axis_coords(qz, d)
+        wgt = (axis_w(ix0, fx, w)[:, None, None, :]
+               * axis_w(iy0, fy, h)[:, None, :, None]) \
+            * axis_w(iz0, fz, d)[:, :, None, None]
+        return torch.sum(row[None] * wgt.reshape(-1, 1, L), dim=-1)
+
+    return _chunked(chunk, qx, qy, qz)

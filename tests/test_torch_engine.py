@@ -1,0 +1,223 @@
+"""The PyTorch port's serving slice ≡ the JAX package, on the CPU.
+
+Both packages get the same tiny noise pack — made by the JAX generators
+(base 16, detail 16, weather 64, as `__graft_entry__._tiny_inputs`) and
+handed to the port unchanged through `noise_pack_from_numpy` — and run the
+default "fast3" engine at PerfConfig(32, 16, march_steps=16, light_steps=2)
+with a (8, 64, 64) cone cache and the prebake on. Measured on the CPU:
+cloud ring ~104 dB and the composite ~102 dB after warm start + 20 ticks
+(the gate is 50 dB); the cone cache table ~108 dB (gate 80) and a tile
+~134 dB (gate 50). The JAX side runs its XLA forms (a CPU backend), so the port's
+kernel wrappers meet the JAX package's own CPU numerics here.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cloudscape_tpu.config import CloudConfig as JCloud, PerfConfig as JPerf
+from cloudscape_tpu.config import SunState as JSun
+from cloudscape_tpu.engine import CloudSkyEngine as JEngine
+from cloudscape_tpu.models import atmosphere as jatmo
+from cloudscape_tpu.models import march_fast as jmf
+from cloudscape_tpu.models.density import MarchParams as JParams
+from cloudscape_tpu.models.packs import make_noise_pack
+from cloudscape_tpu.ops.noise import (generate_base_noise, generate_detail_noise,
+                                      generate_weather)
+from cloudscape_tpu.ops.octmap import texel_directions as jdirs
+from cloudscape_tpu.utils.image import psnr
+from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+from cloudscape_tpu_torch.engine import CloudSkyEngine
+from cloudscape_tpu_torch.models import march_fast as tmf
+from cloudscape_tpu_torch.models.density import MarchParams
+from cloudscape_tpu_torch.models.packs import noise_pack_from_numpy
+
+# Several test workers share the host's cores: keep torch's intra-op
+# thread pool small so they do not oversubscribe them.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RES = (8, 64, 64)
+
+
+@pytest.fixture(scope="module")
+def packs():
+    jn = make_noise_pack(generate_base_noise(16, seed=1),
+                         generate_detail_noise(16, seed=2),
+                         generate_weather(64, seed=3))
+    tn = noise_pack_from_numpy([np.asarray(a) for a in jn.large],
+                               [np.asarray(a) for a in jn.small],
+                               np.asarray(jn.weather))
+    return jn, tn
+
+
+def _params():
+    """The same march parameters for both packages, the port's through
+    `MarchParams.from_numpy` of the JAX fields."""
+    sun = np.array([0.3, 0.4, -0.85])
+    jp = JParams.create(
+        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.6,
+        light_direction=sun / np.linalg.norm(sun),
+        ground_color=np.array([0.27, 0.19, 0.027]))
+    fields = {k: np.asarray(v) for k, v in vars(jp).items()}
+    return jp, MarchParams.from_numpy(fields)
+
+
+def _engines(packs):
+    jn, tn = packs
+    sun = (0.3, 0.5, -0.8)
+    je = JEngine(perf=JPerf(32, 16, march_steps=16, light_steps=2),
+                 config=JCloud(cloud_coverage=0.6), sun=JSun(direction=sun),
+                 noise=jn, cone_res=RES)
+    te = CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
+                        config=CloudConfig(cloud_coverage=0.6),
+                        sun=SunState(direction=sun), noise=tn, cone_res=RES,
+                        device="cpu")
+    return je, te
+
+
+def _view_dirs():
+    d = np.array(jdirs(40))
+    d[..., 1] -= 0.3  # include below-horizon views
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def test_package_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "sys.modules['jax'] = None  # any `import jax` now fails\n"
+        "import cloudscape_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from cloudscape_tpu_torch import CloudSkyEngine\n"
+        "new = set(sys.modules) - before\n"
+        "bad = [m for m in new if sys.modules[m] is not None and\n"
+        "       m.split('.')[0] in ('jax', 'jaxlib', 'cloudscape_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cone_cache_and_tile_match_jax(packs):
+    """build_cone_cache (occupancy through K2's plain version) and the dense
+    tile march (phase 3 through K1's plain version) against the JAX forms."""
+    jn, tn = packs
+    jp, tp = _params()
+    jb, tb = jmf.BrickPack.from_noise(jn), tmf.BrickPack.from_noise(tn)
+    jc = jmf.build_cone_cache(jp, jb, 2, res=RES, chunk=4096)
+    tc = tmf.build_cone_cache(tp, tb, 2, res=RES, chunk=4096)
+    ja, ta = np.asarray(jc.table.table), tc.table.table.numpy()
+    assert ta.shape == ja.shape and (ja > 0).any()
+    assert psnr(ta, ja) >= 80.0
+    sky = jatmo.sky_lut(jatmo.transmittance_lut(), jnp.asarray(jp.light_direction))
+    d = _view_dirs()[:24, :24]
+    want = np.asarray(jmf.march_tile_dense(jnp.asarray(d), jp, jb, sky, steps=16,
+                                           light_steps=2, chunk=256, cone_cache=jc))
+    got = tmf.march_tile_dense(torch.from_numpy(d), tp, tb,
+                               torch.from_numpy(np.array(sky)), steps=16,
+                               light_steps=2, chunk=256, cone_cache=tc).numpy()
+    assert got.shape == want.shape == (24, 24, 4)
+    assert (want[..., 3] > 0.1).mean() > 0.05
+    assert psnr(got, want) >= 50.0
+    np.testing.assert_array_equal(got[d[..., 1] <= 0.0], 0.0)
+
+
+def test_sliced_bake_matches_sync_build(packs):
+    """The engine's sliced cone bake (occupancy slices → K2 finalize →
+    cone-march slices → table rows) reproduces build_cone_cache."""
+    _, tn = packs
+    _, tp = _params()
+    tb = tmf.BrickPack.from_noise(tn)
+    n = int(np.prod(RES))
+    occ = torch.zeros(n, dtype=torch.bool)
+    for i0 in range(0, n, 10_000):
+        tmf.cone_occupancy_slice(occ, min(i0, n - 10_000), tp, tb, 10_000, res=RES)
+    idx = tmf.cone_occupancy_finalize(occ, res=RES, chunk=4096)
+    cap = tmf.cone_capacity(n, 0.45, 4096)
+    vol = torch.zeros(n + 1)
+    for i0 in range(0, cap, 3_000):
+        tmf.bake_cone_cells(vol, idx, min(i0, cap - 3_000), tp, tb, 3_000,
+                            light_steps=2, res=RES)
+    nb = tmf.brick3_grid(RES, tmf.CONE_STRIDE)
+    n_bricks = int(np.prod(nb))
+    table = torch.cat([tmf.cone_table_rows(vol[:n].reshape(RES), b0,
+                                           min(500, n_bricks - b0))
+                       for b0 in range(0, n_bricks, 500)])
+    sliced = tmf.wrap_cone_table(table, RES)
+    sync = tmf.build_cone_cache(tp, tb, 2, res=RES, chunk=4096)
+    np.testing.assert_allclose(sliced.table.table.numpy(), sync.table.table.numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_engine_matches_jax(packs):
+    """Warm start + 20 ticks with the same `now` values: the cloud ring and
+    the composite agree at ≥ 50 dB, and the port picked up a prebaked cone
+    cache at its cycle boundary."""
+    je, te = _engines(packs)
+    pickups = 0
+    for i in range(20):
+        pend = te._pending
+        boundary = te.ring.frame >= te.perf.frames_to_update
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+        if boundary and pend is not None and pend.cone is not None:
+            assert te._cone_cache is pend.cone
+            pickups += 1
+    assert pickups == 1
+    ring_j, ring_t = np.asarray(je.cloud_ring), te.cloud_ring.numpy()
+    assert (ring_j[..., 3] > 0.1).mean() > 0.02
+    assert psnr(ring_t, ring_j) >= 50.0
+    d = _view_dirs()
+    view_j = np.asarray(je.render_view(jnp.asarray(d)))
+    view_t = te.render_view(torch.from_numpy(d)).numpy()
+    assert np.isfinite(view_t).all() and view_t.min() >= 0.0
+    assert psnr(view_t, view_j) >= 50.0
+    frame_t = te.render_frame(torch.from_numpy(d), now=21 / 30.0, deband=True)
+    frame_j = np.asarray(je.render_frame(jnp.asarray(d), now=21 / 30.0,
+                                         deband=True))
+    assert psnr(frame_t.numpy(), frame_j) >= 50.0
+
+
+def test_restore_from_jax_save(packs):
+    """The JAX engine's save() dict restores into the port: the same rings
+    and schedule, then ticks that keep agreeing with the JAX engine."""
+    je, te = _engines(packs)
+    for i in range(5):
+        je.update_sky(now=i / 30.0)
+    te.restore(je.save())
+    assert vars(te.ring) == vars(je.ring)
+    assert te.blend_amount == je.blend_amount
+    np.testing.assert_array_equal(te.cloud_ring.numpy(), np.asarray(je.cloud_ring))
+    d = _view_dirs()
+    assert psnr(te.render_view(torch.from_numpy(d)).numpy(),
+                np.asarray(je.render_view(jnp.asarray(d)))) >= 50.0
+    for i in range(5, 20):  # crosses a cycle boundary
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+    assert psnr(te.cloud_ring.numpy(), np.asarray(je.cloud_ring)) >= 50.0
+    state = te.save()
+    assert set(state) == set(je.save())
+    assert isinstance(state["cloud_ring"], np.ndarray)
+
+
+def test_unported_modes_raise():
+    for kw in (dict(kernel="fast2"), dict(kernel="hier"), dict(tile_cull=True),
+               dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
+                           cone_res=(4, 16, 16), device="cpu", **kw)
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError, match="device"):
+        CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
+                       cone_res=(4, 16, 16))
