@@ -1,7 +1,8 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
 The port of `cloudscape_tpu.engine.CloudSkyEngine` for its default serving
-loop: `kernel="fast3"` without tile culling, on one device. It owns the
+loop, `kernel="fast3"` without tile culling, on one device, and for its
+full-hemisphere re-render (`render_full_hemisphere`, the v3 march). It owns the
 texture rings on its device, schedules the amortized tile updates,
 integrates wind, snapshots kernel parameters once per cycle, bakes the next
 cycle's cone-density cache and sky LUT across the current cycle's ticks
@@ -29,6 +30,7 @@ from cloudscape_tpu_torch.models.compositor import composite
 from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
 from cloudscape_tpu_torch.models.march_fast import (
     BrickPack,
+    _ceil_to,
     ConeCache,
     bake_cone_cells,
     build_cone_cache,
@@ -36,7 +38,10 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_occupancy_finalize,
     cone_occupancy_slice,
     cone_table_rows,
+    march_bricks_v3,
     march_tile_dense,
+    select_cell_keep_frac,
+    v3_auto_policy,
     wrap_cone_table,
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
@@ -50,10 +55,6 @@ V3_TILE_MIN_RAYS = 65536
 # Cone-bake chunk of the JAX engine; it sets the compacted capacity
 # (`cone_capacity`), so the port uses the same value.
 _CONE_CHUNK = 65536
-
-
-def _ceil_to(v: int, mult: int) -> int:
-    return (v + mult - 1) // mult * mult
 
 
 @dataclasses.dataclass
@@ -136,6 +137,7 @@ class CloudSkyEngine:
             procedural_noise_pack(0, device=self.device)
         self._bricks = BrickPack.from_noise(self.noise)
         self._cone_cache: Optional[ConeCache] = None
+        self._v3_policy_cache = None
 
         # Baked once at load, like `transmittance_lut.gd:51-78`.
         self.transmittance = atmosphere.transmittance_lut(device=self.device)
@@ -247,6 +249,7 @@ class CloudSkyEngine:
         the snapshot frozen at this rotation becomes active at the next, its
         cone cache and sky LUT baked across this cycle's ticks; when the
         pending bake is not ready the cache is built synchronously."""
+        self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
         if not self.cone_prebake:
             self.frame_data.update_light_data(self.sun, self._sun_srgb)
             self.frame_data.update_config(self.config)
@@ -467,16 +470,64 @@ class CloudSkyEngine:
         amortized=False completes a whole cycle first."""
         if fused:
             raise NotImplementedError("the display-pair fused render_frame is "
-                                      "not ported yet (ROADMAP, next item)")
+                                      "not ported yet (ROADMAP A17)")
         if amortized:
             self.update_sky(now)
         else:
             self.update_cycle(now)
         return self.render_view(eyedirs, deband=deband)
 
-    def render_full_hemisphere(self, *args, **kwargs):
-        raise NotImplementedError("render_full_hemisphere (v3 march) is not "
-                                  "ported yet (ROADMAP A9)")
+    def _v3_march_knobs(self):
+        """(prepass_steps, ray_stride) of the v3 march at this engine's
+        shapes: the largest divisor of march_steps ≤ steps/4, and stride 2
+        when the texture edge is even."""
+        steps = self.perf.march_steps
+        ps = max(1, steps // 4)
+        while steps % ps:
+            ps -= 1
+        return ps, (2 if self.perf.texture_size % 2 == 0 else 1)
+
+    def _v3_policy(self, params):
+        """(ray, cell, hot) capacity buckets of the v3 render:
+        `v3_auto_policy` over the full texel grid, cached for the cycle's
+        snapshot (recomputed for explicitly passed params)."""
+        cycle = params is self._march_params
+        if cycle and self._v3_policy_cache is not None:
+            return self._v3_policy_cache
+        ps, stride = self._v3_march_knobs()
+        rk, ck, hk, cell_frac, hot_frac = v3_auto_policy(
+            texel_directions(self.perf.texture_size, device=self.device),
+            params, self._bricks, steps=self.perf.march_steps,
+            ray_stride=stride, prepass_steps=ps)
+        if ps < 8:
+            # Too few probes to rank rays by max-pre: keep every ray and let
+            # the per-cell gate skip; rebase the cell/hot buckets to the
+            # unculled totals.
+            rk = 1.0
+            ck = select_cell_keep_frac(cell_frac)
+            hk = select_cell_keep_frac(hot_frac / max(ck, 1e-6), margin=1.2)
+        if cycle:
+            self._v3_policy_cache = (rk, ck, hk)
+        return rk, ck, hk
+
+    def render_full_hemisphere(self, params: Optional[MarchParams] = None,
+                               sky_img=None) -> torch.Tensor:
+        """Whole-map render with no amortization → [n, n, 4]: the v3
+        cell-gated march with the snapshot's measured capacity buckets and
+        the cycle's cone cache (K2, K3 on the card)."""
+        if params is None:
+            params = self._march_params
+        if sky_img is None:
+            sky_img = self.sky_ring[self.ring.cloud_kernel_sky_slot]
+        rk, ck, hk = self._v3_policy(params)
+        ps, stride = self._v3_march_knobs()
+        n = self.perf.texture_size ** 2
+        return march_bricks_v3(
+            texel_directions(self.perf.texture_size, device=self.device),
+            params, self._bricks, sky_img, steps=self.perf.march_steps,
+            light_steps=self.perf.light_steps, chunk=min(n, 32768),
+            cell_keep_frac=ck, hot_keep_frac=hk, cone_cache=self._cone_cache,
+            ray_keep_frac=rk, prepass_steps=ps, ray_stride=stride)
 
     def render_radiance_map(self, *args, **kwargs):
         raise NotImplementedError("render_radiance_map is not ported yet "
@@ -532,5 +583,6 @@ class CloudSkyEngine:
         self._head_frame_data = copy.deepcopy(self.frame_data)
         self._pending = None
         self._picked_sky = None
+        self._v3_policy_cache = None
         self._derive_prebake_schedule()
         self._cone_cache = self._build_cone(self._march_params)

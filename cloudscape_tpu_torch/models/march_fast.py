@@ -1,7 +1,7 @@
-"""Dense cloud march of the serving tick and the per-cycle cone cache (torch).
+"""Cloud marches on brick tables and the per-cycle cone cache (torch).
 
 The part of `cloudscape_tpu.models.march_fast` that the default engine's
-serving loop runs:
+serving loop and its full-hemisphere re-render run:
 
 - `BrickPack`: the noise pack as brick tables, channels precombined;
 - the Schneider density on brick tables (`clouds.glsl:109-137`), split at
@@ -12,12 +12,15 @@ serving loop runs:
   ticks (`cone_occupancy_slice` → `cone_occupancy_finalize` →
   `bake_cone_cells` → `cone_table_rows` → `wrap_cone_table`);
 - the dense tile march (`march_tile_dense`): every (ray, step) sample
-  evaluated, then the phase-3 accumulation through kernel K1.
+  evaluated, then the phase-3 accumulation through kernel K1;
+- the cell-gated v3 march (`march_bricks_v3`) and its capacity policy
+  (`v3_auto_policy`): ray cull, live- and hot-cell compactions, and the
+  hot-list accumulation through kernel K3 (segmented scan).
 
-Both occupancy compactions go through kernel K2 (`_compact_mask`).
+Every compaction goes through kernel K2 (`_compact_mask`).
 Sample positions use the closed form p_i = p0 + dir·ss·i; the
 accumulation is the prefix-product form of `clouds.glsl:206-210`.
-Other marches (exact, v2, v3, hierarchical) are not ported yet (ROADMAP).
+Other marches (exact, v2, hierarchical) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from cloudscape_tpu_torch.ops.brick import (
     sample_tiny3_xyz,
 )
 from cloudscape_tpu_torch.ops.compact import compact
+from cloudscape_tpu_torch.ops.segscan import segscan
 
 Volume = Union[BrickTable3D, TinyVolume3D]
 
@@ -433,3 +437,560 @@ def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
     out = _march_core_dense(above, ndir, ss, p0, phase, params, bp, atmos,
                             steps, min(chunk, max(n, 1)), cone_cache)
     return out.reshape(shape + (4,))
+
+
+# ---------------------------------------------------- v3 cell-gated march
+#
+# The full-hemisphere re-render (`march_bricks_v3`): a coarse prepass scores
+# rays and marks live coarse cells; the top rays are kept; live cells are
+# compacted (K2) and their samples run the weather + pre-erosion passes;
+# cells with any `pre > 0` sample are compacted again (K2) into the hot list,
+# which runs erosion and the cone-cache lookup; the hot list is accumulated
+# with segmented scans (K3) and reduced at its segment ends (K2). The JAX
+# package's `lax.map` over padded chunks becomes a plain loop over chunks:
+# padded rows were sliced off there, so their results are the same without
+# them.
+
+def _ceil_to(v: int, mult: int) -> int:
+    return (v + mult - 1) // mult * mult
+
+
+def _map_rows(fn, chunk: int, *arrays):
+    """fn over consecutive `chunk`-row slices of the arrays, concatenated
+    along dim 0 (a tuple result concatenates element by element)."""
+    n = arrays[0].shape[0]
+    outs = [fn(*(a[i:i + chunk] for a in arrays)) for i in range(0, n, chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+    return torch.cat(outs, dim=0)
+
+
+def _dilate_max(m2):
+    """3×3 max dilation of a 2-D grid with wrap-around, separable (rows then
+    columns). The JAX package's sharded arm (a halo exchange of one row) is
+    not ported (ROADMAP A15)."""
+    d = torch.maximum(m2, torch.maximum(torch.roll(m2, 1, 0), torch.roll(m2, -1, 0)))
+    return torch.maximum(d, torch.maximum(torch.roll(d, 1, 1), torch.roll(d, -1, 1)))
+
+
+def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
+                  steps: int, prepass_steps: int, chunk: int,
+                  cull_shape: tuple | None, ray_stride: int = 1,
+                  cell_margin: float | None = None):
+    """Coarse prepass shared by the ray cull and the v3 cell gate.
+
+    Returns (prio, occ_cells, meta):
+
+    - prio [n]: max `pre` over `prepass_steps` coarse samples per ray, with
+      a 3×3 neighbour bonus (dilation − 0.1) when the 2-D ray grid is known,
+      and −inf below the horizon;
+    - occ_cells [n_coarse, prepass_steps] bool (None when cell_margin is
+      None): `pre > -cell_margin` per (coarse ray, coarse cell), dilated 3×3
+      across rays on a grid and ±1 along the ray;
+    - meta (gh, gw, stride) mapping full rays to occ_cells rows (None without
+      a grid: occ_cells is then per ray).
+
+    Three arms: a 2-D grid with ray_stride > 1 dividing both sides scores
+    every stride-th ray per axis and nearest-upsamples the dilated priority;
+    a 2-D grid otherwise scores every ray; a flat ray list gets no dilation
+    across rays."""
+    n = ndir.shape[0]
+    dev = ndir.device
+    i_pre = (torch.arange(prepass_steps, dtype=torch.float32, device=dev) + 1.0) \
+        * float(steps // prepass_steps)
+    cells = cell_margin is not None
+
+    def prepass_chunk(p0c, ndirc, ssc):
+        tt = ssc[:, None] * i_pre[None, :]
+        px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
+        py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
+        pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
+        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        pre_p, _ = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
+        top = torch.max(pre_p, dim=1).values
+        if not cells:
+            return top
+        return top, pre_p > -cell_margin
+
+    grid = cull_shape is not None and len(cull_shape) == 2
+    sub = ray_stride > 1 and grid \
+        and cull_shape[0] % ray_stride == 0 and cull_shape[1] % ray_stride == 0
+    if sub:
+        H, W = cull_shape
+        hs, ws = H // ray_stride, W // ray_stride
+
+        def coarse(a):
+            return a.reshape((H, W) + a.shape[1:])[::ray_stride, ::ray_stride] \
+                .reshape((hs * ws,) + a.shape[1:])
+
+        above_p, ndir_p, ss_p, p0_p = coarse(above), coarse(ndir), coarse(ss), coarse(p0)
+        n_p = hs * ws
+    else:
+        above_p, ndir_p, ss_p, p0_p, n_p = above, ndir, ss, p0, n
+
+    mapped = _map_rows(prepass_chunk, min(chunk, n_p), p0_p, ndir_p, ss_p)
+    occ_cells = None
+    meta = None
+    if cells:
+        prio, occ = mapped
+        if grid:
+            gh, gw = (hs, ws) if sub else cull_shape
+            o = occ.reshape(gh, gw, prepass_steps)
+            o = o | torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
+            o = o | torch.roll(o, 1, 1) | torch.roll(o, -1, 1)
+            occ = o.reshape(n_p, prepass_steps)
+            meta = (gh, gw, ray_stride if sub else 1)
+        pad0 = torch.zeros_like(occ[:, :1])
+        occ_cells = occ | torch.cat([pad0, occ[:, :-1]], dim=1) \
+            | torch.cat([occ[:, 1:], pad0], dim=1)
+    else:
+        prio = mapped
+    neg_inf = float("-inf")
+    prio = torch.where(above_p, prio, neg_inf)
+    if sub:
+        d2 = torch.maximum(prio.reshape(hs, ws),
+                           _dilate_max(prio.reshape(hs, ws)) - 0.1)
+        prio = d2.repeat_interleave(ray_stride, dim=0) \
+            .repeat_interleave(ray_stride, dim=1).reshape(-1)
+        return torch.where(above, prio, neg_inf), occ_cells, meta
+    if grid:
+        m2 = prio.reshape(cull_shape)
+        prio = torch.where(above, torch.maximum(
+            prio, _dilate_max(m2).reshape(-1) - 0.1), neg_inf)
+    return prio, occ_cells, meta
+
+
+def _cull_priority(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
+                   steps: int, prepass_steps: int, chunk: int,
+                   cull_shape: tuple | None, ray_stride: int = 1):
+    """Priority-only view of `_cull_prepass`."""
+    return _cull_prepass(above, ndir, ss, p0, params, bp, steps, prepass_steps,
+                         chunk, cull_shape, ray_stride)[0]
+
+
+def _select_top_rays(prio, ray_cap: int, n: int):
+    """Indices (ascending, fill = n) of about the top ray_cap rays by
+    priority, without a sort: a 256-bin histogram over the useful `pre`
+    range picks the first bin whose rays from it upward fit, then the rays
+    at or above it are compacted in index order (kernel K2). Under tight
+    capacity the lowest-priority bin drops first."""
+    finite = torch.isfinite(prio)
+    pb = torch.clamp((prio + 0.5) * 256.0, 0.0, 255.0).to(torch.int64)
+    # Non-finite rays go to a spare bin 256 that the select ignores.
+    hist = torch.bincount(torch.where(finite, pb, 256), minlength=257)[:256]
+    above_cnt = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])
+    fits = (above_cnt <= ray_cap).to(torch.int32)
+    # argmax returns the first maximum: the first fitting bin. If even the
+    # top bin overflows, the drops stay inside the top bin.
+    bsel = torch.where(fits.any(), torch.argmax(fits), 255)
+    return _compact_mask(finite & (pb >= bsel), ray_cap, n)
+
+
+def _ray_capacity(n: int, ray_keep_frac: float, align: int = 256) -> int:
+    """Culled-ray capacity: ray_keep_frac·n rounded up to `align`, at least
+    `align`, at most n."""
+    cap = max(int(n * ray_keep_frac + align - 1) // align * align, align)
+    return min(cap, n)
+
+
+def v3_capacities(n: int, steps: int, chunk: int, cell_keep_frac: float,
+                  ray_keep_frac: float | None = None, prepass_steps: int = 32,
+                  hot_keep_frac: float = 0.5):
+    """(kept rays, live-cell capacity cap_c, hot-cell capacity cap_h) of
+    `march_bricks_v3` over n rays: Python ints from the JAX package's
+    expressions, so both compact to the same lengths."""
+    chunk = min(chunk, max(n, 1))
+    if ray_keep_frac is not None and ray_keep_frac < 1.0:
+        n = _ray_capacity(n, ray_keep_frac)
+        chunk = min(chunk, n)
+    total_cells = n * prepass_steps
+    cap_c = min(_ceil_to(max(int(total_cells * cell_keep_frac), chunk), chunk),
+                _ceil_to(total_cells, chunk))
+    cap_h = min(_ceil_to(max(int(cap_c * hot_keep_frac), chunk), chunk), cap_c)
+    return n, cap_c, cap_h
+
+
+def _seg_end_reduce(cellsums, incl, head, ray_h, n: int, cap_h: int):
+    """Per-ray totals of the hot list at its segment ends: segmented-scan
+    each radiance channel (K3; the log-transmittance scan `incl` already
+    ran), compact the segment-end positions (K2; at most one per ray, since
+    ray_h is sorted and the fill suffix merges into the last segment with
+    +0), gather the totals there and write them to their rays. Returns
+    ([3 × [n]] radiance, [n] log-transmittance)."""
+    dev = incl.device
+    seg_end = torch.cat([head[1:], torch.ones((1,), dtype=torch.bool, device=dev)])
+    cap_e = min(_ceil_to(n, 128), cap_h)
+    sidx = _compact_mask(seg_end, cap_e, cap_h)
+    ssafe = torch.clamp(sidx, max=cap_h - 1).to(torch.int64)
+    # Fill ends route to the spare slot n, which is sliced off.
+    rid = torch.where(sidx < cap_h, ray_h[ssafe], n)
+
+    def per_ray(tot):
+        buf = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
+        buf[rid] = tot[ssafe]
+        return buf[:n]
+
+    bufs = [per_ray(segscan(cs, head)) for cs in cellsums]
+    return bufs, per_ray(incl)
+
+
+def _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n: int,
+                          spc: int, params: MarchParams, atmos, lss: float):
+    """Hot-list accumulation (`accum="segmented"`): the per-ray
+    transmittance prefix and radiance sums computed on the [spc·cap_h] hot
+    sample list, with no [n, steps] planes. Dead samples have t = 0, so
+    dt = 1 and zero radiance: skipping them changes nothing. The prefix
+    product Π exp(A_j) becomes exp(Σ A_j), the cross-cell part a segmented
+    scan over each ray's ascending hot cells (K3), which keeps the sums
+    ray-local. The JAX package takes this segment-end form on the TPU; off
+    it, per-ray scatter-adds, which the tests hold this one against."""
+    atmosphere_sun, atmosphere_ambient, atmosphere_ground = atmos
+    cap_h = valid_h.shape[0]
+    t_l = torch.where(valid_h[None, :], t_h.reshape(spc, cap_h), 0.0)
+    cd_l = cd_h.reshape(spc, cap_h)
+    hf_l = hf_h.reshape(spc, cap_h)
+    ss_h = g_h[:, 6]
+    phase_h = g_h[:, 7]
+
+    A_l = (-params.density) * t_l * ss_h[None, :]  # log dt per lane, ≤ 0
+    excl = torch.cat([torch.zeros((1, cap_h), dtype=torch.float32, device=t_l.device),
+                      torch.cumsum(A_l[:-1], dim=0)], dim=0)
+    cell_logdt = excl[-1] + A_l[-1]  # [cap_h] per-cell total
+
+    head = torch.cat([torch.ones((1,), dtype=torch.bool, device=t_l.device),
+                      ray_h[1:] != ray_h[:-1]])
+    incl = segscan(cell_logdt, head)
+    ray_excl = incl - cell_logdt
+
+    dt_l = torch.exp(A_l)
+    t_prefix = torch.exp(ray_excl[None, :] + excl)
+    beers = torch.exp((-params.density * lss * 3.0) * cd_l)
+    powder = 1.0 - torch.exp((-params.density * lss * 6.0) * cd_l)
+    beers_total = torch.where(t_l > 0.0, 2.0 * beers * powder, 0.0)
+    sm = m.smoothstep(0.0, 1.0, hf_l)
+    bt_phase = beers_total * phase_h[None, :]
+    shared = t_prefix * (1.0 - dt_l) * (t_l / torch.clamp(t_l, min=1e-7))
+
+    cellsums = []
+    for c in range(3):
+        ambient_c = atmosphere_ground[c] + \
+            (atmosphere_ambient[c] - atmosphere_ground[c]) * sm
+        cellsums.append(torch.sum(
+            shared * (ambient_c + bt_phase * atmosphere_sun[c]), dim=0))
+
+    bufs, logT = _seg_end_reduce(cellsums, incl, head, ray_h, n, cap_h)
+    alpha = torch.clamp(1.0 - torch.exp(logT), 0.0, 1.0)
+    return torch.stack(bufs + [alpha], dim=-1)
+
+
+def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
+                 bp: BrickPack, atmos, steps: int, chunk: int,
+                 cell_keep_frac: float, cone_cache: ConeCache,
+                 ray_keep_frac: float | None = None,
+                 prepass_steps: int = 32, cull_shape: tuple | None = None,
+                 ray_stride: int = 1, cell_margin: float = 0.1,
+                 hot_keep_frac: float = 0.5, accum: str = "segmented"):
+    """Cell-gated march core (v3).
+
+    1. `_cull_prepass` scores rays and marks live coarse cells (each covers
+       steps/prepass_steps fine steps; `pre > -cell_margin` at its probe,
+       dilated). Outside a live cell `pre ≤ 0` up to the margin, so the
+       density is 0.
+    2. With ray_keep_frac < 1 the top rays are kept (`_select_top_rays`).
+    3. Live cells are compacted (K2) into cap_c slots; their samples, laid
+       out lane-major (lane l's block is a [cap_c] slice), run the weather
+       and pre-erosion passes.
+    4. Cells with any `pre > 0` sample (the exact occupancy predicate) are
+       compacted again (K2) into cap_h hot slots, which run erosion and the
+       cone-cache lookup.
+    5. accum="segmented": `_accumulate_segmented` on the hot list (K3, K2);
+       accum="planes": t and cd scattered to [n, steps] planes, hf
+       recomputed densely, phase 3 through K1.
+
+    Overflow of either capacity drops the highest-index cells (size them
+    with `v3_auto_policy`). Fine sample placement is the dense march's. The
+    JAX package's `debug_stage` probes, which serve only its TPU timing
+    scripts, are left out."""
+    n = ndir.shape[0]
+    n_out = n
+    dev = ndir.device
+    P = prepass_steps
+    if steps % P:
+        raise ValueError(f"prepass_steps {P} must divide steps {steps}")
+    spc = steps // P
+
+    prio, occ_cells, meta = _cull_prepass(
+        above, ndir, ss, p0, params, bp, steps, P, chunk, cull_shape,
+        ray_stride, cell_margin)
+
+    n_kept, cap_c, cap_h = v3_capacities(n, steps, chunk, cell_keep_frac,
+                                         ray_keep_frac, P, hot_keep_frac)
+    cull = ray_keep_frac is not None and ray_keep_frac < 1.0
+    if cull:
+        ray_cap = n_kept
+        chunk = min(chunk, ray_cap)
+        ridx = _select_top_rays(prio, ray_cap, n)
+        valid_r = ridx < n
+        safe_r = torch.clamp(ridx, max=n - 1).to(torch.int64)
+        g_r = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)[safe_r]
+        p0, ndir, ss, phase = g_r[:, 0:3], g_r[:, 3:6], g_r[:, 6], g_r[:, 7]
+        above = above[safe_r] & valid_r
+        ray_ids = safe_r
+        n = ray_cap
+    else:
+        ray_ids = None
+
+    # Per-(kept-)ray live-cell rows from the prepass's coarse grid.
+    if meta is not None:
+        gh, gw, stride = meta
+        W = cull_shape[1]
+        if ray_ids is None:
+            if stride == 1:
+                occ_rows = occ_cells
+            else:
+                occ_rows = occ_cells.reshape(gh, 1, gw, 1, P).expand(
+                    gh, stride, gw, stride, P).reshape(n, P)
+        else:
+            ci = (ray_ids // W // stride) * gw + (ray_ids % W) // stride
+            occ_rows = occ_cells[ci]
+    elif ray_ids is None:
+        occ_rows = occ_cells
+    else:
+        occ_rows = occ_cells[ray_ids]
+    live = occ_rows & above[:, None]  # [n, P]
+    total_cells = n * P
+
+    # ---- Live-cell compaction (K2).
+    cidx = _compact_mask(live.reshape(-1), cap_c, total_cells)
+    valid_c = cidx < total_cells
+    ray_i = torch.clamp(cidx // P, max=n - 1).to(torch.int64)
+    cell_k = (cidx % P).to(torch.float32)
+
+    # Per-ray geometry in one 8-wide row (p0 xyz, ndir xyz, ss, phase),
+    # gathered once per cell.
+    geom = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)
+    g = geom[ray_i]
+
+    def lane_positions(gg, ck):
+        """Sample positions of each cell's spc steps, lane-major: lane l's
+        block is a [cells] slice, in the order the JAX march lays them."""
+        return [torch.cat([gg[:, axis] + gg[:, 3 + axis]
+                           * (gg[:, 6] * (ck * spc + float(l + 1)))
+                           for l in range(spc)])
+                for axis in range(3)]
+
+    sx, sy, sz = lane_positions(g, cell_k)
+    pass_len = chunk * P  # samples per pass chunk (a prepass chunk's count)
+
+    def pre_chunk(bx, by_, bz):
+        w = _weather_rb_xy(bp, bx, bz, params.weather_pos)
+        return _density_pre_xyz(bx, by_, bz, w, 0.0, params, bp)
+
+    pre_s, _ = _map_rows(pre_chunk, pass_len, sx, sy, sz)
+    pre_s = pre_s.reshape(spc, cap_c)
+
+    # ---- Hot-cell compaction (K2): `pre > 0` is exact occupancy, so
+    # erosion and the cone lookup run only on cells with an occupied sample.
+    hot = torch.any(pre_s > 0.0, dim=0) & valid_c  # [cap_c]
+    hidx = _compact_mask(hot, cap_h, cap_c)
+    hsafe = torch.clamp(hidx, max=cap_c - 1).to(torch.int64)
+    valid_h = hidx < cap_c
+    cidx_h = torch.where(valid_h, cidx[hsafe], total_cells)
+    ray_h = torch.clamp(cidx_h // P, max=n - 1).to(torch.int64)
+    cell_h = (cidx_h % P).to(torch.float32)
+    g_h = geom[ray_h]
+    hx, hy, hz = lane_positions(g_h, cell_h)
+    pre_h = pre_s[:, hsafe].reshape(-1)
+    hf_h = m.height_fraction(torch.sqrt(hx * hx + hy * hy + hz * hz),
+                             SKY_B_RADIUS, SKY_T_RADIUS)
+
+    def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
+        t_c = torch.where(bpre > 0.0, _density_finish_xyz(
+            bpre, bhf, bx, by_, bz, 0.0, params, bp), 0.0)
+        qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
+        cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
+
+    t_h, cd_h = _map_rows(erosion_cone_chunk, pass_len, pre_h, hf_h, hx, hy, hz)
+
+    if accum == "segmented":
+        out = _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n,
+                                    spc, params, atmos, LSS)
+    elif accum == "planes":
+        # Per-lane scatters of the hot list into flat [n·steps] planes; dead
+        # samples stay 0 (radiance ∝ t and 1 − dt = 0). Fill rows point at
+        # total + l, in the spc spare slots sliced off after.
+        total = n * steps
+        base_h = torch.where(valid_h, ray_h * steps + (cidx_h % P) * spc, total)
+
+        def scatter_plane(vals):
+            vals = vals.reshape(spc, cap_h)
+            buf = torch.zeros((total + spc,), dtype=torch.float32, device=dev)
+            for l in range(spc):
+                buf[base_h + l] = vals[l]
+            return buf[:total].reshape(n, steps)
+
+        t = scatter_plane(t_h)
+        cd = scatter_plane(cd_h)
+        # hf plane: a dense recompute (positions + height fraction, no
+        # gathers), the same float ops as the gathered passes.
+        i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+
+        def hf_chunk(p0c, ndirc, ssc):
+            tt = ssc[:, None] * i_step[None, :]
+            px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
+            py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
+            pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
+            return m.height_fraction(torch.sqrt(px * px + py * py + pz * pz),
+                                     SKY_B_RADIUS, SKY_T_RADIUS)
+
+        hf = _map_rows(hf_chunk, chunk, p0, ndir, ss)
+        out = _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
+    else:
+        raise ValueError(f"unknown accum {accum!r}")
+    if cull:
+        # Kept rays back to their places; fills (ridx = n_out) land in the
+        # spare last row.
+        buf = torch.zeros((n_out + 1, 4), dtype=torch.float32, device=dev)
+        buf[ridx.to(torch.int64)] = out
+        out = buf[:n_out]
+    return out
+
+
+def march_bricks_v3(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
+                    steps: int = 128, light_steps: int = 6,
+                    chunk: int = 32768, cell_keep_frac: float = 0.5,
+                    cone_cache: ConeCache | None = None,
+                    cone_res=(32, 512, 512),
+                    ray_keep_frac: float | None = None,
+                    prepass_steps: int = 32, ray_stride: int = 1,
+                    cell_margin: float = 0.1, hot_keep_frac: float = 0.5,
+                    accum: str = "segmented"):
+    """Cell-gated march (`_march_core3`) over world directions [..., 3] →
+    [..., 4] (L rgb, alpha): the full-hemisphere re-render. Fine sample
+    placement is the dense march's; a [H, W] direction grid enables the
+    prepass dilations and ray_stride. Size the buckets with
+    `v3_auto_policy`. Builds a cone cache when none is given."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    atmos = ambient_colors(params, sky_lut_img)
+    if cone_cache is None:
+        cone_cache = build_cone_cache(params, bp, light_steps, res=cone_res,
+                                      chunk=min(chunk, max(n, 1)))
+    above, ndir, ss, p0, phase, _ = _ray_setup(flat, params, steps)
+    out = _march_core3(above, ndir, ss, p0, phase, params, bp, atmos, steps,
+                       min(chunk, max(n, 1)), cell_keep_frac, cone_cache,
+                       ray_keep_frac, prepass_steps,
+                       shape if len(shape) == 2 else None, ray_stride,
+                       cell_margin, hot_keep_frac, accum)
+    return out.reshape(shape + (4,))
+
+
+# ------------------------------------------------------------- v3 policy
+#
+# Host-side bucket selection for `march_bricks_v3`, measured once per cycle
+# snapshot or scene; the fractions come back as Python floats.
+
+RAY_KEEP_BUCKETS = (0.3, 0.35, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65, 0.7,
+                    0.75, 0.8, 0.9, 1.0)
+
+
+def select_ray_keep_frac(keep_frac: float, margin: float = 1.06,
+                         buckets=RAY_KEEP_BUCKETS) -> float:
+    """Smallest ray-capacity bucket ≥ margin × the measured keep fraction;
+    1.0 disables culling."""
+    need = keep_frac * margin
+    for b in buckets:
+        if need <= b:
+            return b
+    return 1.0
+
+
+def cull_cell_stats(dirs, params: MarchParams, bp: BrickPack,
+                    steps: int = 128, prepass_steps: int = 32,
+                    chunk: int = 32768, ray_stride: int = 2,
+                    cell_margin: float = 0.1, prepass_margin: float = 0.02):
+    """(keep_frac, cell_frac): the cull prepass's ray keep fraction and the
+    mean dilated-live-cell fraction over all rays, both from the march's own
+    `_cull_prepass`, so the buckets cover what the march gates."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    prio, occ_cells, meta = _cull_prepass(
+        above, ndir, ss, p0, params, bp, steps, prepass_steps,
+        min(chunk, max(flat.shape[0], 1)),
+        shape if len(shape) == 2 else None, ray_stride, cell_margin)
+    keep = (prio > -prepass_margin).to(torch.float32).mean()
+    if meta is not None and meta[2] > 1:
+        gh, gw, stride = meta
+        P = occ_cells.shape[-1]
+        occ_full = occ_cells.reshape(gh, 1, gw, 1, P).expand(
+            gh, stride, gw, stride, P).reshape(flat.shape[0], P)
+    else:
+        occ_full = occ_cells
+    live = occ_full & above[:, None]
+    return float(keep), float(live.to(torch.float32).mean())
+
+
+CELL_BUCKETS = (0.1, 0.125, 0.15, 0.175, 0.2, 0.225, 0.25, 0.275, 0.3,
+                0.325, 0.35, 0.375, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65, 0.7,
+                0.8, 0.9, 1.0)
+
+
+def select_cell_keep_frac(cell_frac: float, margin: float = 1.12,
+                          buckets=CELL_BUCKETS) -> float:
+    """Smallest cell-capacity bucket ≥ margin × the measured live-cell
+    fraction. Overflow in `_march_core3` drops the highest-index cells."""
+    need = cell_frac * margin
+    for b in buckets:
+        if need <= b:
+            return b
+    return 1.0
+
+
+def hot_cell_fraction(dirs, params: MarchParams, bp: BrickPack,
+                      steps: int = 128, prepass_steps: int = 32,
+                      stride: int = 8, chunk: int = 16384) -> float:
+    """Fraction of (ray, coarse-cell) blocks with any exact `pre > 0`
+    sample, the quantity that sizes the hot capacity, probed on every
+    stride-th ray at the full step count."""
+    flat = dirs.to(torch.float32).reshape(-1, 3)[::stride]
+    above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    spc = steps // prepass_steps
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=flat.device)
+
+    def dense_chunk(p0c, ndirc, ssc):
+        tt = ssc[:, None] * i_step[None, :]
+        px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
+        py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
+        pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
+        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        pre_c, _ = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
+        return pre_c > 0.0
+
+    nr = flat.shape[0]
+    occ = _map_rows(dense_chunk, min(chunk, max(nr, 1)), p0, ndir, ss)
+    hot = torch.any(occ.reshape(nr, prepass_steps, spc), dim=2) & above[:, None]
+    return float(hot.to(torch.float32).mean())
+
+
+def v3_auto_policy(dirs, params: MarchParams, bp: BrickPack,
+                   steps: int = 128, ray_stride: int = 2,
+                   cell_margin: float = 0.1, prepass_steps: int = 32):
+    """Scene-adaptive knobs for `march_bricks_v3`. Returns (ray_keep_frac,
+    cell_keep_frac, hot_keep_frac, cell_frac, hot_frac): the ray bucket from
+    the cull keep fraction, the live-cell bucket from the live-cell fraction
+    within the kept rays, the hot bucket from the exact occupied-cell
+    fraction within the live capacity (margin 1.2)."""
+    keep, cell_frac = cull_cell_stats(
+        dirs, params, bp, steps=steps, ray_stride=ray_stride,
+        cell_margin=cell_margin, prepass_steps=prepass_steps)
+    hot_frac = hot_cell_fraction(dirs, params, bp, steps=steps,
+                                 prepass_steps=prepass_steps)
+    rk = select_ray_keep_frac(keep)
+    ck = select_cell_keep_frac(cell_frac / max(rk, 1e-6))
+    hk = select_cell_keep_frac(hot_frac / max(rk * ck, 1e-6), margin=1.2)
+    return rk, ck, hk, cell_frac, hot_frac

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of `cloudscape_tpu_torch/csrc`.
 
 The kernels are plain CUDA C++ with a C interface, compiled at first use
-with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into one shared
-library and loaded with ctypes. The library goes into `build/cloudscape_tpu_torch/`
+with `nvcc -gencode arch=compute_90a,code=sm_90a -O3`, one nvcc per source,
+all started together, then linked into one shared library and loaded with
+ctypes. The library goes into `build/cloudscape_tpu_torch/`
 beside the package, named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads the earlier build. Nothing here
 runs at import: a machine without `nvcc` imports the package and uses the
@@ -25,7 +26,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cloudscape_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -58,21 +59,42 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if their library is not built yet; returns its
-    path. The compiler's output (registers, spills per kernel) is kept in
-    `<library>.log`. Raises on a failed build."""
+    path. Each source compiles in its own nvcc process, all at once; the
+    objects are then linked. The compiler's output (registers, spills per
+    kernel) is kept in `<library>.log`. Raises on a failed build."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(path + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(f"{tmp}.so", path)
     return path
 
 
@@ -89,6 +111,10 @@ def lib() -> ctypes.CDLL:
             handle.cs_compact_scratch.restype = ll
             handle.cs_compact.argtypes = [p, ll, i, i, p, p, p, ll, p]
             handle.cs_compact.restype = i
+            handle.cs_segscan_scratch.argtypes = [ll]
+            handle.cs_segscan_scratch.restype = ll
+            handle.cs_segscan.argtypes = [p, p, ll, p, p, ll, p]
+            handle.cs_segscan.restype = i
             _LIB = handle
     return _LIB
 

@@ -209,6 +209,27 @@ def test_restore_from_jax_save(packs):
     assert isinstance(state["cloud_ring"], np.ndarray)
 
 
+def test_render_full_hemisphere_matches_jax(packs):
+    """render_full_hemisphere (the v3 march with the snapshot's measured
+    buckets; 16 steps give prepass_steps 4 < 8, the policy's rebase branch)
+    against the JAX engine's after the same warm start and ticks: the same
+    buckets and ≥ 50 dB (~98 dB measured). The policy cache lives for one
+    snapshot."""
+    je, te = _engines(packs)
+    for i in range(5):
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+    want = np.asarray(je.render_full_hemisphere())
+    got = te.render_full_hemisphere().numpy()
+    assert te._v3_march_knobs() == je._v3_march_knobs() == (4, 2)
+    assert te._v3_policy_cache == je._v3_policy_cache is not None
+    assert got.shape == want.shape == (32, 32, 4)
+    assert np.isfinite(got).all() and (want[..., 3] > 0.1).mean() > 0.02
+    assert psnr(got, want) >= 50.0
+    te.restore(je.save())
+    assert te._v3_policy_cache is None
+
+
 def test_unported_modes_raise():
     for kw in (dict(kernel="fast2"), dict(kernel="hier"), dict(tile_cull=True),
                dict(mesh=object())):
