@@ -8,17 +8,23 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from cloudscape_tpu_torch/csrc with nvcc (sm_90a);
 3. K1 (accumulate) against its plain version at the serving tile's shape
-   [9216, 128], atol 2e-5, with empty and below-horizon rays exactly 0;
+   [9216, 128], atol 2e-5, with empty and below-horizon rays exactly 0
+   (phase 9 adds config 4's [kept rays, 64]);
 4. K2 (compact) against its plain version, bitwise, at the cone-occupancy
    finalize's shape (8,388,608 cells, capacity 3,801,088), plus empty,
    full and overflow masks and a length that is no multiple of 128;
+   then K4–K6 (noise) against their plain versions at the shipped sizes
+   (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
+   not powers of two (48³, 20³, 100², seed 7), atol 2e-5;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
-   steps, cone cache (32, 512, 512), procedural_noise_pack(0)) on the card:
+   steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
+   generate) on the card:
    construction and a first render_frame (warm start), then 70 more
    render_frame ticks of a 1280×720 camera, crossing a
    cycle boundary that picks up a prebaked cone cache; the launch counts of
-   K1 and K2 must show the path ran through both kernels; frames must be
-   finite, nonnegative and not black, and the cloud ring must hold clouds;
+   K1, K2 and K4–K6 must show the path ran through those kernels; frames
+   must be finite, nonnegative and not black, and the cloud ring must hold
+   clouds;
 6. K3 (segscan) against its plain version at the phase-5 engine's v3
    hot-list capacity (random heads, one segment over every tile, every
    element its own segment — bitwise), a ragged length, more tiles than
@@ -34,15 +40,30 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    procedural_noise_pack(0), `v3_auto_policy`, then
    `march_bricks_v3(chunk=32768, ray_stride=2)`: cone-build ms, the median
    of 5 renders, ≥ 40 dB against the dense march at both coverages;
-9. the same engine at a tiny size on the card and on the CPU (where the
-   wrappers take their plain versions): ring, view and
+9. bench/sweep.py config 4, fully procedural: `procedural_noise_pack(0)`
+   generated by K4–K6 (its ms), 512×256 hemisphere rays × 64 steps, sun
+   (0.3, 0.4, −0.85), coverage 0.35, cone (32, 512, 512); the v2 render
+   with `v2_auto_policy` buckets (`march_bricks_v2(chunk=32768,
+   ray_stride=2)`, median of 3) and the v3 row (`v3_auto_policy`,
+   `march_bricks_v3`), both ≥ 40 dB against the dense march, v2 with every
+   gate off ≥ 100 dB; K1 and K2 launched in the v2 call, K3 in the v3 one;
+10. a `kernel="fast2"` engine at PerfConfig() (every tile through the v2
+   march): warm start, 20 render_frame ticks that launch K1 and K2, clouds
+   in the ring, `render_full_hemisphere` (v2 over the map) ≥ 40 dB against
+   the dense march;
+11. a fast3 engine at PerfConfig(768, 4), whose 384² tiles (147,456 rays)
+   take the v2 arm: warm start, one cycle and a boundary, K1 and K2
+   launched by the ticks, frames finite and not black;
+12. the fast3 and fast2 engines at a tiny size on the card and on the CPU
+   (where the wrappers take their plain versions): ring, view and
    `render_full_hemisphere` ≥ 50 dB apart;
-10. timings (warm start, median ms per tick, each kernel beside its plain
+13. timings (warm start, median ms per tick, each kernel beside its plain
    version), a JSON line with the kernels, and as the last line
    {"ok": true, "device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
-serves: K1 and K2 around phase 5, K3 around phases 7 and 8.
+serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
+phase 5's engine construction and config 4's pack.
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -107,13 +128,29 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_accumulate(dev):
-    """Phase 3: K1 against its plain version at the serving tile's shape."""
+def events_ms(fn, reps: int):
+    """Each of `reps` calls of fn() timed by CUDA events (ms)."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def check_accumulate(dev, n: int = 9216, steps: int = 128):
+    """Phase 3: K1 against its plain version at [n, steps] (the serving
+    tile's shape by default)."""
     import torch
 
     from cloudscape_tpu_torch.ops import accum
 
-    n, steps = 9216, 128
     rng = np.random.default_rng(1)
     A = -np.abs(rng.random((n, steps))) * 0.1 * (rng.random((n, steps)) < 0.3)
     A[: n // 8] = 0.0                                   # empty rays
@@ -169,6 +206,41 @@ def check_compact(dev):
     ms = cuda_time_ms(lambda: compact.compact(mask, cap, n))
     plain_ms = cuda_time_ms(lambda: compact.compact_reference(mask, cap, n))
     return err, ms, plain_ms
+
+
+NOISE_CASES = (  # (kernel, generator, shipped size, a size not a power of two)
+    ("base", "generate_base_noise", 128, 48),
+    ("detail", "generate_detail_noise", 32, 20),
+    ("weather", "generate_weather", 512, 100),
+)
+
+
+def check_noise(dev):
+    """Phase 4: K4–K6 against their plain versions (the `ops/noise.py`
+    generators run on the card), at the shipped size with seed 0 and at a
+    size that is not a power of two with seed 7; times at the shipped
+    size."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import noise, noise_kernel
+
+    rows = {}
+    for name, fn, size, odd in NOISE_CASES:
+        err = 0.0
+        for n, seed in ((size, 0), (odd, 7)):
+            got = getattr(noise_kernel, fn)(n, seed, dev)
+            want = getattr(noise, fn)(n, seed, device=dev)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"K4–K6 {name} {n}: wrong shape or not finite")
+            e = float((got - want).abs().max())
+            require(e <= 2e-5, f"K4–K6 {name} {n} seed {seed}: max abs err {e} > 2e-5")
+            err = max(err, e)
+        ms = cuda_time_ms(lambda: getattr(noise_kernel, fn)(size, 0, dev))
+        plain_ms = cuda_time_ms(lambda: getattr(noise, fn)(size, 0, device=dev),
+                                reps=3)
+        rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    return rows
 
 
 def check_segscan(dev, n_hot: int):
@@ -253,15 +325,7 @@ def run_v3_engine(eng):
     n_tex = perf.texture_size
     require(out.shape == (n_tex, n_tex, 4) and bool(torch.isfinite(out).all()),
             "render_full_hemisphere output has the wrong shape or is not finite")
-    ms = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        eng.render_full_hemisphere()
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
+    ms = events_ms(eng.render_full_hemisphere, 3)
     rk, ck, hk = policy = eng._v3_policy(eng._march_params)
     ps, _ = eng._v3_march_knobs()
     n = n_tex * n_tex
@@ -320,13 +384,7 @@ def run_headline(dev):
             return build_cone_cache(params, bricks, 6, res=CONE_RES, chunk=65536)
 
         cone = build()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        cone = build()
-        end.record()
-        torch.cuda.synchronize()
-        cone_ms = start.elapsed_time(end)
+        cone_ms = events_ms(build, 1)[0]
 
         def render():
             return march_bricks_v3(dirs, params, bricks, sky, steps=STEPS,
@@ -335,15 +393,7 @@ def run_headline(dev):
                                    ray_keep_frac=rk, ray_stride=2)
 
         out = render()
-        ms = []
-        for _ in range(5 if cov == 0.35 else 1):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            render()
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
+        ms = events_ms(render, 5 if cov == 0.35 else 1)
         require(bool(torch.isfinite(out).all()), f"headline v3 not finite (cov {cov})")
         dense = march_tile_dense(dirs, params, bricks, sky, steps=STEPS,
                                  light_steps=6, chunk=16384, cone_cache=cone)
@@ -355,6 +405,100 @@ def run_headline(dev):
                          ms=statistics.median(ms), all_ms=ms, db=db,
                          cloud_frac=float((out[..., 3] > 0.1).float().mean())))
     return rows
+
+
+def run_config4(dev):
+    """Phase 9: bench/sweep.py config 4 (fully procedural noise), v2 and v3
+    rows, each against the dense march."""
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+    from cloudscape_tpu_torch.models.density import MarchParams
+    from cloudscape_tpu_torch.models.march_fast import (
+        BrickPack, _ray_capacity, build_cone_cache, march_bricks_v2,
+        march_bricks_v3, march_tile_dense, v2_auto_policy, v2_capacity,
+        v3_auto_policy)
+    from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    width, height, steps = 512, 256, 64
+    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    torch.cuda.synchronize()
+    pack = None
+
+    def generate():
+        nonlocal pack
+        pack = procedural_noise_pack(0, device=dev)
+
+    gen_ms = events_ms(generate, 1)[0]
+    noise_launches = dict(noise_kernel.launches)
+    require(all(v == 1 for v in noise_launches.values()),
+            f"config 4's pack did not launch K4–K6 once each: {noise_launches}")
+    bricks = BrickPack.from_noise(pack)
+    sun = np.array([0.3, 0.4, -0.85])
+    sun /= np.linalg.norm(sun)
+    sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
+                             torch.tensor(sun, dtype=torch.float32, device=dev))
+    params = MarchParams.create(
+        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.35,
+        light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]),
+        device=dev)
+    dirs = torch.from_numpy(hemisphere_dirs(width, height)).to(dev)
+    rk, cap, tc, occ = v2_auto_policy(dirs, params, bricks, steps=steps)
+    cone = build_cone_cache(params, bricks, 6, res=CONE_RES, chunk=65536)
+
+    def v2():
+        return march_bricks_v2(dirs, params, bricks, sky, steps=steps,
+                               chunk=32768, capacity_frac=cap, cone_cache=cone,
+                               ray_keep_frac=rk, ray_stride=2, t_cutoff=tc)
+
+    torch.cuda.synchronize()
+    k1_0, k2_0 = accum.launches, compact.launches
+    out2 = v2()
+    torch.cuda.synchronize()
+    k1, k2 = accum.launches - k1_0, compact.launches - k2_0
+    require(k1 >= 1 and k2 >= 1, f"config-4 v2 launched K1 {k1}, K2 {k2} times")
+    ms2 = events_ms(v2, 3)
+
+    rk3, ck, hk, cell_frac, hot_frac = v3_auto_policy(dirs, params, bricks,
+                                                      steps=steps)
+
+    def v3():
+        return march_bricks_v3(dirs, params, bricks, sky, steps=steps,
+                               chunk=32768, cell_keep_frac=ck, hot_keep_frac=hk,
+                               cone_cache=cone, ray_keep_frac=rk3, ray_stride=2)
+
+    k3_0 = segscan.launches
+    out3 = v3()
+    torch.cuda.synchronize()
+    k3 = segscan.launches - k3_0
+    require(k3 >= 4, f"config-4 v3 launched K3 {k3} < 4 times")
+    ms3 = events_ms(v3, 3)
+
+    dense = march_tile_dense(dirs, params, bricks, sky, steps=steps,
+                             light_steps=6, chunk=16384, cone_cache=cone)
+    off = march_bricks_v2(dirs, params, bricks, sky, steps=steps, chunk=32768,
+                          capacity_frac=1.0, cone_cache=cone, t_cutoff=0.0)
+    dense_np = dense.cpu().numpy()
+    for name, out in (("v2", out2), ("v3", out3)):
+        require(bool(torch.isfinite(out).all()), f"config-4 {name} not finite")
+    db2, db3 = psnr(out2.cpu().numpy(), dense_np), psnr(out3.cpu().numpy(), dense_np)
+    off_db = psnr(off.cpu().numpy(), dense_np)
+    require(db2 >= 40.0, f"config-4 v2 vs dense {db2:.2f} dB < 40")
+    require(db3 >= 40.0, f"config-4 v3 vs dense {db3:.2f} dB < 40")
+    require(off_db >= 100.0, f"config-4 gates-off v2 vs dense {off_db:.2f} dB < 100")
+    cloud_frac = float((out2[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, "config 4 rendered no clouds")
+    n = width * height
+    n_kept = _ray_capacity(n, rk) if rk < 1.0 else n
+    return dict(gen_ms=gen_ms, noise_launches=noise_launches,
+                policy=(rk, cap, tc), occ=occ, n_kept=n_kept,
+                capacity=v2_capacity(n_kept * steps, cap, min(32768, n_kept)),
+                ms2=statistics.median(ms2), all_ms2=ms2, db2=db2, off_db=off_db,
+                k1=k1, k2=k2, policy3=(rk3, ck, hk), ms3=statistics.median(ms3),
+                all_ms3=ms3, db3=db3, k3=k3, cloud_frac=cloud_frac)
 
 
 def camera_dirs(width, height, dev, fov_deg=75.0, pitch_deg=20.0, yaw_deg=-35.0):
@@ -383,17 +527,21 @@ def run_engine(dev, ticks: int):
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
-    from cloudscape_tpu_torch.ops import accum, compact
+    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel
 
     perf = PerfConfig()  # 768², 64 frames, 128 steps, 6 light steps
     eyedirs = camera_dirs(1280, 720, dev)
     accum.launches = 0
     compact.launches = 0
+    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = CloudSkyEngine(perf=perf, config=CloudConfig(cloud_coverage=0.45),
                          sun=SunState(direction=(0.3, 0.25, -0.9)),
                          device=dev)
+    noise_launches = dict(noise_kernel.launches)
+    require(all(v == 1 for v in noise_launches.values()),
+            f"the engine's pack did not launch K4–K6 once each: {noise_launches}")
     # The first frame runs the warm start (two full cycles), then its tick.
     eng.render_frame(eyedirs, now=0.0)
     torch.cuda.synchronize()
@@ -432,12 +580,73 @@ def run_engine(dev, ticks: int):
     cloud_frac = float((ring[..., 3] > 0.1).float().mean())
     require(cloud_frac > 0.0, "no clouds in the cloud ring")
     return eng, dict(warm_s=warm_s, tick_ms=tick_ms, pickups=pickups,
-                     k1=k1_launches, k2=k2_launches, cloud_frac=cloud_frac,
-                     frame_mean=float(frame.mean()))
+                     k1=k1_launches, k2=k2_launches, noise=noise_launches,
+                     cloud_frac=cloud_frac, frame_mean=float(frame.mean()))
 
 
-def tiny_parity(dev):
-    """Phase 6: a tiny engine on the card (kernels) and on the CPU (plain
+def run_staged_engine(dev, kernel: str, perf, ticks: int, hemisphere: bool):
+    """Phases 10 and 11: an engine whose tiles take the v2 march, on the
+    phase-5 scene through its serving API: warm start, then `ticks`
+    render_frame ticks that must launch K1 and K2; with `hemisphere`,
+    `render_full_hemisphere` against the dense march."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.models.march_fast import march_tile_dense
+    from cloudscape_tpu_torch.ops import accum, compact
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    eyedirs = camera_dirs(1280, 720, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CloudSkyEngine(perf=perf, config=CloudConfig(cloud_coverage=0.45),
+                         sun=SunState(direction=(0.3, 0.25, -0.9)),
+                         kernel=kernel, device=dev)
+    eng.render_frame(eyedirs, now=0.0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    k1_0, k2_0 = accum.launches, compact.launches
+    frame = None
+
+    def tick():
+        nonlocal frame
+        frame = eng.render_frame(eyedirs, now=(len(tick_ms) + 1) / 60.0)
+
+    tick_ms = []
+    for _ in range(ticks):
+        tick_ms += events_ms(tick, 1)
+    k1, k2 = accum.launches - k1_0, compact.launches - k2_0
+    require(k1 >= ticks and k2 >= ticks,
+            f"{kernel} ticks launched K1 {k1}, K2 {k2} times (< {ticks})")
+    require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+            f"{kernel} frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, f"{kernel} frame is black")
+    ring = eng.cloud_ring
+    require(bool(torch.isfinite(ring).all()), f"{kernel} cloud ring is not finite")
+    cloud_frac = float((ring[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, f"no clouds in the {kernel} cloud ring")
+    r = dict(warm_s=warm_s, tick_ms=tick_ms, k1=k1, k2=k2, cloud_frac=cloud_frac,
+             region=eng.perf.update_region_size)
+    if hemisphere:
+        out = eng.render_full_hemisphere()
+        r["hemi_ms"] = statistics.median(events_ms(eng.render_full_hemisphere, 3))
+        require(bool(torch.isfinite(out).all()),
+                f"{kernel} render_full_hemisphere is not finite")
+        dense = march_tile_dense(
+            texel_directions(eng.perf.texture_size, device=dev), eng._march_params,
+            eng._bricks, eng.sky_ring[eng.ring.cloud_kernel_sky_slot],
+            steps=eng.perf.march_steps, light_steps=eng.perf.light_steps,
+            chunk=16384, cone_cache=eng._cone_cache)
+        r["hemi_db"] = psnr(out.cpu().numpy(), dense.cpu().numpy())
+        require(r["hemi_db"] >= 40.0, f"{kernel} render_full_hemisphere vs dense "
+                f"{r['hemi_db']:.2f} dB < 40")
+    return r
+
+
+def tiny_parity(dev, kernel: str):
+    """Phase 12: a tiny engine on the card (kernels) and on the CPU (plain
     versions) from one procedural pack: PSNR of the cloud ring and a view."""
     import torch
 
@@ -457,13 +666,13 @@ def tiny_parity(dev):
         e = CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
                            config=CloudConfig(cloud_coverage=0.6),
                            sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
-                           cone_res=(8, 64, 64), device=d)
+                           cone_res=(8, 64, 64), kernel=kernel, device=d)
         for i in range(20):
             e.update_sky(now=i / 30.0)
         view = e.render_view(texel_directions(48, device=d) * torch.tensor(
             [1.0, 0.7, 1.0], device=d))
         out.append((e.cloud_ring.cpu().numpy(), view.cpu().numpy()))
-        # 16 steps: prepass_steps 4 < 8, the policy's rebase branch.
+        # fast3, 16 steps: prepass_steps 4 < 8, the policy's rebase branch.
         hemis.append(e.render_full_hemisphere().cpu().numpy())
     (ring_gpu, view_gpu), (ring_cpu, view_cpu) = out
     return psnr(ring_gpu, ring_cpu), psnr(view_gpu, view_cpu), \
@@ -501,6 +710,12 @@ def main() -> int:
     k2_err, k2_ms, k2_plain = check_compact(dev)
     print(f"K2 compact 8388608→3801088: bitwise, {k2_ms:.4f} ms kernel vs "
           f"{k2_plain:.4f} ms plain ({card})", flush=True)
+    noise_rows = check_noise(dev)
+    for kname, _, size, odd in NOISE_CASES:
+        nr = noise_rows[kname]
+        print(f"K4–K6 noise {kname} {size} (and {odd}): max_abs_err {nr['err']:.3g}, "
+              f"{nr['ms']:.4f} ms kernel vs {nr['plain_ms']:.4f} ms plain ({card})",
+              flush=True)
 
     eng, r = run_engine(dev, TICKS)
     ms = r["tick_ms"]
@@ -509,8 +724,8 @@ def main() -> int:
     print(f"engine tick (render_frame 1280x720): median {statistics.median(ms):.2f} ms, "
           f"min {min(ms):.2f}, max {max(ms):.2f} over {len(ms)} ticks, "
           f"{r['pickups']} prebaked pickup(s), cloud fraction "
-          f"{r['cloud_frac']:.4f}, frame mean {r['frame_mean']:.4f} ({card})",
-          flush=True)
+          f"{r['cloud_frac']:.4f}, frame mean {r['frame_mean']:.4f}; pack "
+          f"launches {r['noise']} ({card})", flush=True)
     print("tick ms: " + " ".join(f"{v:.1f}" for v in ms), flush=True)
 
     from cloudscape_tpu_torch.models.march_fast import v3_capacities
@@ -546,21 +761,57 @@ def main() -> int:
               f"({card})", flush=True)
     k3_launches = segscan.launches
 
-    ring_db, view_db, hemi_db, frac = tiny_parity(dev)
-    print(f"tiny engine card vs CPU: ring {ring_db:.1f} dB, view {view_db:.1f} dB, "
-          f"render_full_hemisphere {hemi_db:.1f} dB (cloud fraction {frac:.3f})",
+    c4 = run_config4(dev)
+    print(f"config 4 pack (K4–K6, 128³ + 32³ + 512²): {c4['gen_ms']:.3f} ms, "
+          f"launches {c4['noise_launches']} ({card})", flush=True)
+    print(f"config 4 v2 512x256x64: policy (ray, capacity, t_cutoff) "
+          f"{c4['policy']} (occupied {c4['occ']:.4f}), kept rays {c4['n_kept']}, "
+          f"capacity {c4['capacity']}; median {c4['ms2']:.2f} ms "
+          f"({' '.join(f'{t:.2f}' for t in c4['all_ms2'])}); {c4['db2']:.2f} dB vs "
+          f"dense ({c4['off_db']:.2f} dB with every gate off); K1 x{c4['k1']}, "
+          f"K2 x{c4['k2']}; cloud fraction {c4['cloud_frac']:.4f} ({card})",
           flush=True)
-    require(ring_db >= 50.0 and view_db >= 50.0 and hemi_db >= 50.0,
-            "card and CPU engines disagree")
-    require(frac > 0.0, "the tiny engine rendered no clouds")
+    print(f"config 4 v3 512x256x64: policy {c4['policy3']}; median {c4['ms3']:.2f} "
+          f"ms ({' '.join(f'{t:.2f}' for t in c4['all_ms3'])}); {c4['db3']:.2f} dB "
+          f"vs dense; K3 x{c4['k3']} ({card})", flush=True)
+    k1_64_err, k1_64_ms, k1_64_plain = check_accumulate(dev, c4["n_kept"], 64)
+    print(f"K1 accumulate [{c4['n_kept']},64] (config 4's kept rays): max_abs_err "
+          f"{k1_64_err:.3g}, {k1_64_ms:.4f} ms kernel vs {k1_64_plain:.4f} ms plain "
+          f"({card})", flush=True)
+
+    from cloudscape_tpu_torch import PerfConfig
+
+    for kernel, perf, ticks, hemi in (("fast2", PerfConfig(), 20, True),
+                                      ("fast3", PerfConfig(768, 4), 5, False)):
+        s = run_staged_engine(dev, kernel, perf, ticks, hemi)
+        tm = s["tick_ms"]
+        extra = (f"; render_full_hemisphere median {s['hemi_ms']:.2f} ms, "
+                 f"{s['hemi_db']:.2f} dB vs dense" if hemi else "")
+        print(f"{kernel} engine {perf.texture_size}²/{perf.frames_to_update} "
+              f"({s['region']}² tiles through v2): start {s['warm_s']:.2f} s; tick "
+              f"median {statistics.median(tm):.2f} ms, min {min(tm):.2f}, max "
+              f"{max(tm):.2f} over {len(tm)}; K1 x{s['k1']}, K2 x{s['k2']} in the "
+              f"ticks; cloud fraction {s['cloud_frac']:.4f}{extra} ({card})",
+              flush=True)
+
+    for kernel in ("fast3", "fast2"):
+        ring_db, view_db, hemi_db, frac = tiny_parity(dev, kernel)
+        print(f"tiny {kernel} engine card vs CPU: ring {ring_db:.1f} dB, view "
+              f"{view_db:.1f} dB, render_full_hemisphere {hemi_db:.1f} dB (cloud "
+              f"fraction {frac:.3f})", flush=True)
+        require(ring_db >= 50.0 and view_db >= 50.0 and hemi_db >= 50.0,
+                f"card and CPU {kernel} engines disagree")
+        require(frac > 0.0, f"the tiny {kernel} engine rendered no clouds")
 
     # launches: the counts read around each kernel's path (K1, K2: the
-    # engine ticks; K3: the full-hemisphere and headline renders).
+    # engine ticks; K3: the full-hemisphere and headline renders; K4–K6:
+    # the engine's construction and config 4's pack).
     kernels = [
         {"name": "accumulate", "route": "cuda",
          "source": "cloudscape_tpu_torch/csrc/accum.cu",
          "replaces": "cloudscape_tpu/ops/accum_pallas.py:101",
-         "launches": r["k1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": r["k1"], "max_abs_err": max(k1_err, k1_64_err), "ms": k1_ms,
+         "plain_ms": k1_plain},
         {"name": "compact", "route": "cuda",
          "source": "cloudscape_tpu_torch/csrc/compact.cu",
          "replaces": "cloudscape_tpu/ops/compact_pallas.py:184",
@@ -571,6 +822,14 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain},
     ]
+    for (kname, _, _, _), line in zip(NOISE_CASES, (187, 214, 240)):
+        nr = noise_rows[kname]
+        kernels.append({
+            "name": f"noise_{kname}", "route": "cuda",
+            "source": "cloudscape_tpu_torch/csrc/noise.cu",
+            "replaces": f"cloudscape_tpu/ops/noise_pallas.py:{line}",
+            "launches": r["noise"][kname] + c4["noise_launches"][kname],
+            "max_abs_err": nr["err"], "ms": nr["ms"], "plain_ms": nr["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,8 +1,11 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
-The port of `cloudscape_tpu.engine.CloudSkyEngine` for its default serving
-loop, `kernel="fast3"` without tile culling, on one device, and for its
-full-hemisphere re-render (`render_full_hemisphere`, the v3 march). It owns the
+The port of `cloudscape_tpu.engine.CloudSkyEngine` for its staged kernels
+without tile culling, on one device: the default `kernel="fast3"` (dense
+tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above) and
+`kernel="fast2"` (the v2 march for every tile), and for their
+full-hemisphere re-render (`render_full_hemisphere`: the v3 march for
+fast3, v2 over the whole map for fast2). It owns the
 texture rings on its device, schedules the amortized tile updates,
 integrates wind, snapshots kernel parameters once per cycle, bakes the next
 cycle's cone-density cache and sky LUT across the current cycle's ticks
@@ -38,6 +41,7 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_occupancy_finalize,
     cone_occupancy_slice,
     cone_table_rows,
+    march_bricks_v2,
     march_bricks_v3,
     march_tile_dense,
     select_cell_keep_frac,
@@ -49,12 +53,31 @@ from cloudscape_tpu_torch.ops.brick import brick3_grid
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.temporal import FrameData, RingState
 
-# Tiles with at least this many rays take the staged v2 march in the JAX
-# engine (engine.py:291), which is not ported yet.
+# fast3 tiles with at least this many rays take the staged v2 march, smaller
+# ones the dense march (the JAX engine's threshold).
 V3_TILE_MIN_RAYS = 65536
 # Cone-bake chunk of the JAX engine; it sets the compacted capacity
 # (`cone_capacity`), so the port uses the same value.
 _CONE_CHUNK = 65536
+
+
+def _march_tile(dirs, params: MarchParams, bricks: BrickPack,
+                cone_cache: ConeCache, sky_img, *, region: int, steps: int,
+                light_steps: int, kernel: str):
+    """The tile march of a staged kernel (no tile cull): "fast3" marches
+    tiles below V3_TILE_MIN_RAYS rays densely and larger ones through the
+    staged v2 march; "fast2" takes the v2 march for every tile (and for its
+    whole-map render, chunked by the tile as in the JAX engine). The v2
+    capacity is the JAX engine's 0.5 of the samples."""
+    n = int(np.prod(dirs.shape[:-1]))
+    if kernel == "fast3" and n < V3_TILE_MIN_RAYS:
+        return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
+                                light_steps=light_steps, chunk=min(n, 16384),
+                                cone_cache=cone_cache)
+    chunk = min(region * region if kernel == "fast2" else n, 16384)
+    return march_bricks_v2(dirs, params, bricks, sky_img, steps=steps,
+                           light_steps=light_steps, chunk=chunk,
+                           capacity_frac=0.5, cone_cache=cone_cache)
 
 
 @dataclasses.dataclass
@@ -106,15 +129,19 @@ class CloudSkyEngine:
         `procedural_noise_pack(0)` generated on that device, the pack the
         JAX engine falls back to when the reference's assets are absent.
 
-        kernel: only "fast3" (dense tile arm) is ported; cone_res: (hf, z, x)
-        resolution of the per-cycle cone cache; cone_prebake (default on):
-        bake the next cycle's cone cache and sky LUT across the current
-        cycle's ticks, taking the snapshot one rotation ahead."""
-        if kernel in ("fast", "fast2", "hier", "reference"):
+        kernel: the staged kernels, both against the per-cycle cone cache:
+        "fast3" (default; tiles below V3_TILE_MIN_RAYS rays march densely,
+        larger ones through the staged v2 march; the whole-map render is
+        the v3 march) or "fast2" (the v2 march for every tile and the
+        whole-map render). cone_res: (hf, z, x) resolution of the per-cycle
+        cone cache; cone_prebake (default on): bake the next cycle's cone
+        cache and sky LUT across the current cycle's ticks, taking the
+        snapshot one rotation ahead."""
+        if kernel in ("fast", "hier", "reference"):
             raise NotImplementedError(
                 f"kernel={kernel!r} is not ported yet (ROADMAP: fast/reference "
-                "A5, fast2 A12, hier A13)")
-        if kernel != "fast3":
+                "A5, hier A13)")
+        if kernel not in ("fast2", "fast3"):
             raise ValueError(f"unknown kernel {kernel!r}")
         if tile_cull:
             raise NotImplementedError("tile_cull is not ported yet (ROADMAP A11)")
@@ -127,10 +154,6 @@ class CloudSkyEngine:
         self.cone_prebake = True if cone_prebake is None else bool(cone_prebake)
         self._pending: Optional[_PendingCycle] = None
         self.perf = perf.validate()
-        if self.perf.update_region_size ** 2 >= V3_TILE_MIN_RAYS:
-            raise NotImplementedError(
-                f"{self.perf.update_region_size}² tiles take the staged v2 march, "
-                "not ported yet (ROADMAP A12)")
         self.config = config
         self.sun = sun
         self.noise = noise if noise is not None else \
@@ -372,11 +395,11 @@ class CloudSkyEngine:
         region = self.perf.update_region_size
         dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
                                 width=region, height=region, device=self.device)
-        tile = march_tile_dense(
-            dirs, self._march_params, self._bricks,
-            self.sky_ring[self.ring.cloud_kernel_sky_slot],
+        tile = _march_tile(
+            dirs, self._march_params, self._bricks, self._cone_cache,
+            self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
             steps=self.perf.march_steps, light_steps=self.perf.light_steps,
-            chunk=min(region * region, 16384), cone_cache=self._cone_cache)
+            kernel=self.kernel)
         self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
 
     def _update_tiles_batch(self) -> None:
@@ -512,13 +535,21 @@ class CloudSkyEngine:
 
     def render_full_hemisphere(self, params: Optional[MarchParams] = None,
                                sky_img=None) -> torch.Tensor:
-        """Whole-map render with no amortization → [n, n, 4]: the v3
-        cell-gated march with the snapshot's measured capacity buckets and
-        the cycle's cone cache (K2, K3 on the card)."""
+        """Whole-map render with no amortization → [n, n, 4] with the
+        cycle's cone cache: for fast3 the v3 cell-gated march with the
+        snapshot's measured capacity buckets (K2, K3 on the card); for fast2
+        the v2 march over the whole map at the tiles' settings (K2, K1)."""
         if params is None:
             params = self._march_params
         if sky_img is None:
             sky_img = self.sky_ring[self.ring.cloud_kernel_sky_slot]
+        if self.kernel == "fast2":
+            return _march_tile(
+                texel_directions(self.perf.texture_size, device=self.device),
+                params, self._bricks, self._cone_cache, sky_img,
+                region=self.perf.update_region_size,
+                steps=self.perf.march_steps,
+                light_steps=self.perf.light_steps, kernel=self.kernel)
         rk, ck, hk = self._v3_policy(params)
         ps, stride = self._v3_march_knobs()
         n = self.perf.texture_size ** 2

@@ -15,12 +15,16 @@ serving loop and its full-hemisphere re-render run:
   evaluated, then the phase-3 accumulation through kernel K1;
 - the cell-gated v3 march (`march_bricks_v3`) and its capacity policy
   (`v3_auto_policy`): ray cull, live- and hot-cell compactions, and the
-  hot-list accumulation through kernel K3 (segmented scan).
+  hot-list accumulation through kernel K3 (segmented scan);
+- the staged v2 march (`march_bricks_v2`) and its policy
+  (`v2_auto_policy`): ray cull, one shared occupied-sample compaction,
+  erosion and cone lookup on that list, phase 3 through K1. It serves the
+  engine's "fast2" kernel and the "fast3" tiles of ≥ 65,536 rays.
 
-Every compaction goes through kernel K2 (`_compact_mask`).
+Every compaction goes through kernel K2 (`compact`).
 Sample positions use the closed form p_i = p0 + dir·ss·i; the
 accumulation is the prefix-product form of `clouds.glsl:206-210`.
-Other marches (exact, v2, hierarchical) are not ported yet (ROADMAP).
+Other marches (exact, hierarchical) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -164,6 +168,12 @@ def _ray_setup(dirs, params: MarchParams, steps: int):
                       m.henyey_greenstein(costheta, 0.4 - 1.4 * ldir[1])),
         m.henyey_greenstein(costheta, -0.2))
     return above, ndir, ss, p0, phase, ldir
+
+
+def _sample_xyz(p0, ndir, tt):
+    """World positions (px, py, pz) = p0 + ndir·t of the ray samples at
+    distances tt [n, k]."""
+    return tuple(p0[:, a, None] + ndir[:, a, None] * tt for a in range(3))
 
 
 def _light_offsets(ldir, light_steps: int):
@@ -402,10 +412,7 @@ def _march_core_dense(above, ndir, ss, p0, phase, params: MarchParams,
     hf = torch.empty_like(t)
     for r0 in range(0, n, chunk):
         sl = slice(r0, r0 + chunk)
-        tt = ss[sl, None] * i_step[None, :]
-        px = p0[sl, 0, None] + ndir[sl, 0, None] * tt
-        py = p0[sl, 1, None] + ndir[sl, 1, None] * tt
-        pz = p0[sl, 2, None] + ndir[sl, 2, None] * tt
+        px, py, pz = _sample_xyz(p0[sl], ndir[sl], ss[sl, None] * i_step[None, :])
         weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
         pre, hf_c = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
         t_c = torch.where(pre > 0.0, _density_finish_xyz(
@@ -501,11 +508,8 @@ def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
     cells = cell_margin is not None
 
     def prepass_chunk(p0c, ndirc, ssc):
-        tt = ssc[:, None] * i_pre[None, :]
-        px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
-        py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
-        pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
-        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_pre[None, :])
+        w =_weather_rb_xy(bp, px, pz, params.weather_pos)
         pre_p, _ = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
         top = torch.max(pre_p, dim=1).values
         if not cells:
@@ -837,10 +841,7 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
 
         def hf_chunk(p0c, ndirc, ssc):
-            tt = ssc[:, None] * i_step[None, :]
-            px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
-            py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
-            pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
+            px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
             return m.height_fraction(torch.sqrt(px * px + py * py + pz * pz),
                                      SKY_B_RADIUS, SKY_T_RADIUS)
 
@@ -963,11 +964,8 @@ def hot_cell_fraction(dirs, params: MarchParams, bp: BrickPack,
     i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=flat.device)
 
     def dense_chunk(p0c, ndirc, ssc):
-        tt = ssc[:, None] * i_step[None, :]
-        px = p0c[:, 0, None] + ndirc[:, 0, None] * tt
-        py = p0c[:, 1, None] + ndirc[:, 1, None] * tt
-        pz = p0c[:, 2, None] + ndirc[:, 2, None] * tt
-        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
+        w =_weather_rb_xy(bp, px, pz, params.weather_pos)
         pre_c, _ = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
         return pre_c > 0.0
 
@@ -994,3 +992,248 @@ def v3_auto_policy(dirs, params: MarchParams, bp: BrickPack,
     ck = select_cell_keep_frac(cell_frac / max(rk, 1e-6))
     hk = select_cell_keep_frac(hot_frac / max(rk * ck, 1e-6), margin=1.2)
     return rk, ck, hk, cell_frac, hot_frac
+
+
+# ------------------------------------------------------ v2 staged march
+#
+# The row-lean staged march (`march_bricks_v2`): a dense weather + pre pass
+# over every (ray, step) sample, one shared compaction (K2) of the occupied
+# samples, erosion and the cone-cache lookup on that list only, scatter
+# back to [n, steps] planes and the phase-3 accumulation (K1). Optional
+# ray cull (prepass priority or a given priority map) and a conservative
+# occlusion cutoff. The JAX package's separate weather pass (two gather
+# streams on the TPU) evaluates the same positions, so it is fused here.
+
+
+def _occlusion_live(pre, hf, ss, params: MarchParams, t_cutoff: float):
+    """Samples the conservative occlusion cutoff keeps: erosion only
+    reduces density and is largest at hfbm = 1, so t ≥ t_lb below and the
+    prefix transmittance T_ub ≥ the true prefix. Samples with T_ub ≤
+    t_cutoff are provably invisible, and since T_ub only falls along the
+    ray every later sample is dropped too (alpha error ≤ t_cutoff)."""
+    t_lb = torch.pow(torch.clamp(m.remap(pre, 0.4 * hf, 1.0, 0.0, 1.0), 0.0, 1.0),
+                     (1.0 - hf) * 0.8 + 0.5)
+    dt_ub = torch.exp(-params.density * t_lb * ss[:, None])
+    T_ub = torch.cat([torch.ones_like(dt_ub[:, :1]),
+                      torch.cumprod(dt_ub, dim=1)[:, :-1]], dim=1)
+    return T_ub > t_cutoff
+
+
+def v2_capacity(total: int, capacity_frac: float, chunk: int) -> int:
+    """Occupied-sample capacity of `_march_core2` over `total` samples: a
+    Python int from the JAX package's expression, so both compact to the
+    same length."""
+    capacity = max(int(total * capacity_frac), chunk)
+    return capacity + (-capacity) % chunk
+
+
+def _march_core2(above, ndir, ss, p0, phase, params: MarchParams,
+                 bp: BrickPack, atmos, steps: int, chunk: int,
+                 capacity_frac: float, cone_cache: ConeCache,
+                 weather_every: int = 1, ray_keep_frac: float | None = None,
+                 prepass_steps: int = 32, cull_shape: tuple | None = None,
+                 ray_stride: int = 1, t_cutoff: float = 0.0, cull_prio=None):
+    """Staged march core (v2).
+
+    1. With ray_keep_frac < 1, rays are scored by `_cull_priority` (or by a
+       given `cull_prio` map, which skips the prepass) and the top
+       `_ray_capacity` rays are kept (`_select_top_rays`, K2); the rest
+       render as empty sky.
+    2. Dense pass in chunks of `chunk` rays: weather and the pre-erosion
+       density `pre` (and hf) at every sample; with t_cutoff > 0 the
+       occlusion bound (`_occlusion_live`) masks samples out.
+    3. The occupied samples (`pre > 0`, the exact occupancy predicate) are
+       compacted (K2) into `v2_capacity` slots; erosion and the cone-cache
+       lookup run on that list and are scattered back to [n, steps] planes.
+    4. Capacity overflow (K2's rank ≥ capacity) takes an ALU-only fallback:
+       erosion at the detail noise's mean (hfbm = 0.5) and no sun term.
+    5. Phase 3 through K1.
+
+    Only `weather_every=1` is ported: the along-ray weather lerp is a
+    measured loss in the JAX package and is left out."""
+    if weather_every != 1:
+        raise NotImplementedError("weather_every > 1 (the along-ray weather "
+                                  "lerp) is not ported (ROADMAP, Leave out)")
+    n = ndir.shape[0]
+    n_out = n
+    dev = ndir.device
+    cull = ray_keep_frac is not None and ray_keep_frac < 1.0
+    if cull:
+        if cull_prio is not None:
+            prio = torch.where(above, cull_prio.reshape(-1), float("-inf"))
+        else:
+            if steps % prepass_steps:
+                raise ValueError(f"prepass_steps {prepass_steps} must divide "
+                                 f"steps {steps}")
+            prio = _cull_priority(above, ndir, ss, p0, params, bp, steps,
+                                  prepass_steps, chunk, cull_shape, ray_stride)
+        ray_cap = _ray_capacity(n, ray_keep_frac)
+        chunk = min(chunk, ray_cap)
+        ridx = _select_top_rays(prio, ray_cap, n)
+        safe_r = torch.clamp(ridx, max=n - 1).to(torch.int64)
+        g_r = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)[safe_r]
+        p0, ndir, ss, phase = g_r[:, 0:3], g_r[:, 3:6], g_r[:, 6], g_r[:, 7]
+        above = above[safe_r] & (ridx < n)
+        n = ray_cap
+    total = n * steps
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+
+    # ---- Dense pass: weather + pre (+ hf), chunked over rays.
+    def pre_chunk(p0c, ndirc, ssc):
+        px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
+        w =_weather_rb_xy(bp, px, pz, params.weather_pos)
+        pre_c, hf_c = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
+        occ = pre_c > 0.0
+        if t_cutoff > 0.0:
+            occ &= _occlusion_live(pre_c, hf_c, ssc, params, t_cutoff)
+        return pre_c, hf_c, occ
+
+    pre, hf, occupied = _map_rows(pre_chunk, chunk, p0, ndir, ss)
+    occupied &= above[:, None]
+
+    # ---- One shared compaction (K2): erosion → t, cone cache → cd.
+    capacity = v2_capacity(total, capacity_frac, chunk)
+    idx, rank = compact(occupied.reshape(-1), capacity, total)
+    idx_l = idx.to(torch.int64)
+    geom = torch.cat([p0, ndir, ss[:, None]], dim=1)  # [n, 7]
+    g = geom[torch.clamp(idx_l // steps, max=n - 1)]
+    tt_e = g[:, 6] * ((idx_l % steps).to(torch.float32) + 1.0)
+    epx = g[:, 0] + g[:, 3] * tt_e
+    epy = g[:, 1] + g[:, 4] * tt_e
+    epz = g[:, 2] + g[:, 5] * tt_e
+    pre_e = pre.reshape(-1)[torch.clamp(idx_l, max=total - 1)]
+    hf_e = m.height_fraction(torch.sqrt(epx * epx + epy * epy + epz * epz),
+                             SKY_B_RADIUS, SKY_T_RADIUS)
+
+    def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
+        t_c = _density_finish_xyz(bpre, bhf, bx, by_, bz, 0.0, params, bp)
+        qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
+        cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
+
+    # Elementwise per sample: chunks of a dense chunk's sample count.
+    t_e, cd_e = _map_rows(erosion_cone_chunk, chunk * steps, pre_e, hf_e,
+                          epx, epy, epz)
+
+    def scatter_back(vals):
+        # Fill entries (idx = total) land in the spare last slot, sliced off.
+        buf = torch.zeros((total + 1,), dtype=torch.float32, device=dev)
+        buf[idx_l] = vals
+        return buf[:total].reshape(n, steps)
+
+    covered = occupied & (rank.reshape(n, steps) < capacity)
+    t_fb = torch.pow(torch.clamp(m.remap(pre, 0.5 * 0.4 * hf, 1.0, 0.0, 1.0),
+                                 0.0, 1.0), (1.0 - hf) * 0.8 + 0.5)
+    t = torch.where(covered, scatter_back(t_e),
+                    torch.where(occupied, t_fb, 0.0))
+    cd = scatter_back(cd_e)  # uncovered samples: 0, no sun term
+
+    out = _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
+    if cull:
+        # Kept rays back to their places; fills (ridx = n_out) land in the
+        # spare last row.
+        buf = torch.zeros((n_out + 1, 4), dtype=torch.float32, device=dev)
+        buf[ridx.to(torch.int64)] = out
+        out = buf[:n_out]
+    return out
+
+
+def march_bricks_v2(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
+                    steps: int = 128, light_steps: int = 6,
+                    chunk: int = 32768, capacity_frac: float = 0.25,
+                    weather_every: int = 1,
+                    cone_cache: ConeCache | None = None,
+                    cone_res=(32, 512, 512),
+                    ray_keep_frac: float | None = None,
+                    prepass_steps: int = 32, ray_stride: int = 1,
+                    t_cutoff: float = 1e-4, cull_prio=None):
+    """Staged march (`_march_core2`) over world directions [..., 3] →
+    [..., 4] (L rgb, alpha). Fine sample placement is the dense march's; a
+    [H, W] direction grid enables the prepass dilation and ray_stride.
+    With ray culling on, capacity_frac is a fraction of the kept samples:
+    size both with `v2_auto_policy`. Builds a cone cache when none is
+    given."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    atmos = ambient_colors(params, sky_lut_img)
+    if cone_cache is None:
+        cone_cache = build_cone_cache(params, bp, light_steps, res=cone_res,
+                                      chunk=min(chunk, max(n, 1)))
+    above, ndir, ss, p0, phase, _ = _ray_setup(flat, params, steps)
+    out = _march_core2(above, ndir, ss, p0, phase, params, bp, atmos, steps,
+                       min(chunk, max(n, 1)), capacity_frac, cone_cache,
+                       weather_every, ray_keep_frac, prepass_steps,
+                       shape if len(shape) == 2 else None, ray_stride,
+                       t_cutoff, cull_prio)
+    return out.reshape(shape + (4,))
+
+
+# ------------------------------------------------------------- v2 policy
+
+def occupied_sample_fraction(dirs, params: MarchParams, bp: BrickPack,
+                             steps: int = 16, stride: int = 8,
+                             t_cutoff: float = 1e-4) -> float:
+    """Staged (ray, step) occupancy — `pre > 0` minus the occlusion cutoff
+    at this coarse step count — probed on every stride-th ray: the quantity
+    that sizes v2's capacity (match the march's t_cutoff)."""
+    flat = dirs.to(torch.float32).reshape(-1, 3)[::stride]
+    above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=flat.device)
+    px, py, pz = _sample_xyz(p0, ndir, ss[:, None] * i_step[None, :])
+    weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
+    pre, hf = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
+    occ = (pre > 0.0) & above[:, None]
+    if t_cutoff > 0.0:
+        occ &= _occlusion_live(pre, hf, ss, params, t_cutoff)
+    return float(occ.to(torch.float32).mean())
+
+
+def ray_keep_fraction(dirs, params: MarchParams, bp: BrickPack,
+                      steps: int = 128, prepass_steps: int = 32,
+                      chunk: int = 32768, prepass_margin: float = 0.02,
+                      ray_stride: int = 1) -> float:
+    """Fraction of rays whose `_march_core2` cull priority exceeds
+    −prepass_margin, from the march's own `_cull_priority` (dilation bonus
+    included): the quantity that sizes ray_keep_frac."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    prio = _cull_priority(above, ndir, ss, p0, params, bp, steps, prepass_steps,
+                          min(chunk, max(flat.shape[0], 1)),
+                          shape if len(shape) == 2 else None, ray_stride)
+    return float((prio > -prepass_margin).to(torch.float32).mean())
+
+
+CAPACITY_BUCKETS = (0.09, 0.12, 0.15, 0.18, 0.2, 0.22, 0.25, 0.3, 0.35, 0.5)
+
+
+def select_capacity_frac(occupied_frac: float, margin: float = 1.3,
+                         buckets=CAPACITY_BUCKETS) -> float:
+    """Smallest capacity bucket ≥ margin × the measured occupancy; above
+    the last bucket, the last (overflow takes `_march_core2`'s fallback)."""
+    need = occupied_frac * margin
+    for b in buckets:
+        if need <= b:
+            return b
+    return buckets[-1]
+
+
+def v2_auto_policy(dirs, params: MarchParams, bp: BrickPack,
+                   steps: int = 128, ray_stride: int = 2):
+    """Scene-adaptive knobs for `march_bricks_v2`. Returns (ray_keep_frac,
+    capacity_frac, t_cutoff, occupied_frac): the ray bucket from the cull
+    keep fraction, the capacity bucket from the staged occupancy within the
+    kept rays, and the occlusion cutoff only where it shrinks the capacity
+    bucket."""
+    keep = ray_keep_fraction(dirs, params, bp, steps=steps, ray_stride=ray_stride)
+    rk = select_ray_keep_frac(keep)
+    occ_plain = occupied_sample_fraction(dirs, params, bp, t_cutoff=0.0)
+    occ_cut = occupied_sample_fraction(dirs, params, bp)
+    cap_plain = select_capacity_frac(occ_plain / max(rk, 1e-6))
+    cap_cut = select_capacity_frac(occ_cut / max(rk, 1e-6))
+    if cap_cut < cap_plain:
+        return rk, cap_cut, 1e-4, occ_cut
+    return rk, cap_plain, 0.0, occ_plain

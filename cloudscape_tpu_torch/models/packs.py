@@ -1,10 +1,11 @@
 """NoisePack construction (torch).
 
-`procedural_noise_pack` generates the three noise textures with
-`ops/noise.py` on the requested device — on the card, the card generates its
-own noise; nothing is cached on disk. `noise_pack_from_numpy` takes the
-arrays of a JAX `NoisePack` (as numpy) unchanged, so the port can be held
-against the JAX engine on identical inputs.
+`procedural_noise_pack` generates the three noise textures through
+`ops/noise_kernel.py` on the requested device — on the card, kernels K4–K6
+generate them; on the CPU, their plain versions; nothing is cached on
+disk. `noise_pack_from_numpy` takes the arrays of a JAX `NoisePack` (as
+numpy) unchanged, so the port can be held against the JAX engine on
+identical inputs.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from cloudscape_tpu_torch.models.density import NoisePack
-from cloudscape_tpu_torch.ops import noise as noise_gen
+from cloudscape_tpu_torch.ops import noise_kernel
 
 
 def _pyramid3d(tex: torch.Tensor):
@@ -43,11 +44,11 @@ def make_noise_pack(large_volume, small_volume, weather_image) -> NoisePack:
 def procedural_noise_pack(seed: int = 0, base_size: int = 128,
                           detail_size: int = 32, weather_size: int = 512,
                           device=None) -> NoisePack:
-    """Fully procedural pack, generated on `device`."""
+    """Fully procedural pack, generated on `device` (K4–K6 on the card)."""
     return make_noise_pack(
-        noise_gen.generate_base_noise(base_size, seed, device=device),
-        noise_gen.generate_detail_noise(detail_size, seed, device=device),
-        noise_gen.generate_weather(weather_size, seed, device=device),
+        noise_kernel.generate_base_noise(base_size, seed, device=device),
+        noise_kernel.generate_detail_noise(detail_size, seed, device=device),
+        noise_kernel.generate_weather(weather_size, seed, device=device),
     )
 
 

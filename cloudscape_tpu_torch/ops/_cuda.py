@@ -115,6 +115,10 @@ def lib() -> ctypes.CDLL:
             handle.cs_segscan_scratch.restype = ll
             handle.cs_segscan.argtypes = [p, p, ll, p, p, ll, p]
             handle.cs_segscan.restype = i
+            for fn in (handle.cs_noise_base, handle.cs_noise_detail,
+                       handle.cs_noise_weather):
+                fn.argtypes = [p, i, ctypes.c_uint, p]
+                fn.restype = i
             _LIB = handle
     return _LIB
 

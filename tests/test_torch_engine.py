@@ -7,8 +7,12 @@ default "fast3" engine at PerfConfig(32, 16, march_steps=16, light_steps=2)
 with a (8, 64, 64) cone cache and the prebake on. Measured on the CPU:
 cloud ring ~104 dB and the composite ~102 dB after warm start + 20 ticks
 (the gate is 50 dB); the cone cache table ~108 dB (gate 80) and a tile
-~134 dB (gate 50). The JAX side runs its XLA forms (a CPU backend), so the port's
-kernel wrappers meet the JAX package's own CPU numerics here.
+~134 dB (gate 50). The "fast2" engine (the staged v2 march for every
+tile): ring ~104 dB, view ~102 dB, `render_full_hemisphere` ~104 dB; the
+fast3 v2 tile arm (a 40² map, threshold lowered to its 10² tiles): ring
+~97 dB, view ~102 dB (gates 50 dB). The JAX side runs its XLA forms (a CPU
+backend), so the port's kernel wrappers meet the JAX package's own CPU
+numerics here.
 """
 
 import os
@@ -22,6 +26,7 @@ import torch
 
 from cloudscape_tpu.config import CloudConfig as JCloud, PerfConfig as JPerf
 from cloudscape_tpu.config import SunState as JSun
+from cloudscape_tpu import engine as jengine
 from cloudscape_tpu.engine import CloudSkyEngine as JEngine
 from cloudscape_tpu.models import atmosphere as jatmo
 from cloudscape_tpu.models import march_fast as jmf
@@ -32,6 +37,7 @@ from cloudscape_tpu.ops.noise import (generate_base_noise, generate_detail_noise
 from cloudscape_tpu.ops.octmap import texel_directions as jdirs
 from cloudscape_tpu.utils.image import psnr
 from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+from cloudscape_tpu_torch import engine as tengine
 from cloudscape_tpu_torch.engine import CloudSkyEngine
 from cloudscape_tpu_torch.models import march_fast as tmf
 from cloudscape_tpu_torch.models.density import MarchParams
@@ -69,16 +75,16 @@ def _params():
     return jp, MarchParams.from_numpy(fields)
 
 
-def _engines(packs):
+def _engines(packs, kernel="fast3", size=32):
     jn, tn = packs
     sun = (0.3, 0.5, -0.8)
-    je = JEngine(perf=JPerf(32, 16, march_steps=16, light_steps=2),
+    je = JEngine(perf=JPerf(size, 16, march_steps=16, light_steps=2),
                  config=JCloud(cloud_coverage=0.6), sun=JSun(direction=sun),
-                 noise=jn, cone_res=RES)
-    te = CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
+                 noise=jn, cone_res=RES, kernel=kernel)
+    te = CloudSkyEngine(perf=PerfConfig(size, 16, march_steps=16, light_steps=2),
                         config=CloudConfig(cloud_coverage=0.6),
                         sun=SunState(direction=sun), noise=tn, cone_res=RES,
-                        device="cpu")
+                        device="cpu", kernel=kernel)
     return je, te
 
 
@@ -230,8 +236,63 @@ def test_render_full_hemisphere_matches_jax(packs):
     assert te._v3_policy_cache is None
 
 
+def test_fast2_engine_matches_jax(packs):
+    """kernel="fast2" (the staged v2 march for every tile, K2 and K1 on the
+    card) against the JAX fast2 engine: warm start + 20 ticks, then the
+    ring, a view and `render_full_hemisphere` (v2 over the whole map) at
+    ≥ 50 dB."""
+    je, te = _engines(packs, kernel="fast2")
+    for i in range(20):
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+    ring_j, ring_t = np.asarray(je.cloud_ring), te.cloud_ring.numpy()
+    assert (ring_j[..., 3] > 0.1).mean() > 0.02
+    assert psnr(ring_t, ring_j) >= 50.0
+    d = _view_dirs()
+    view_t = te.render_view(torch.from_numpy(d)).numpy()
+    assert np.isfinite(view_t).all() and view_t.min() >= 0.0
+    assert psnr(view_t, np.asarray(je.render_view(jnp.asarray(d)))) >= 50.0
+    want = np.asarray(je.render_full_hemisphere())
+    got = te.render_full_hemisphere().numpy()
+    assert got.shape == want.shape == (32, 32, 4)
+    assert psnr(got, want) >= 50.0
+
+
+def test_fast3_v2_tile_arm_matches_jax(packs, monkeypatch):
+    """fast3 tiles at or above V3_TILE_MIN_RAYS take the staged v2 march.
+    The threshold is lowered to a 10² tile in both packages (a 40² map,
+    which no other test traces, so JAX traces its tile kernel with the
+    lowered threshold); both engines' tiles then call `march_bricks_v2`,
+    and the ring and a view agree at ≥ 50 dB after warm start + 20 ticks."""
+    monkeypatch.setattr(jengine, "V3_TILE_MIN_RAYS", 100)
+    monkeypatch.setattr(tengine, "V3_TILE_MIN_RAYS", 100)
+    calls = {"jax": 0, "port": 0}
+
+    def spy(fn, key):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(jmf, "march_bricks_v2", spy(jmf.march_bricks_v2, "jax"))
+    monkeypatch.setattr(tengine, "march_bricks_v2",
+                        spy(tengine.march_bricks_v2, "port"))
+    je, te = _engines(packs, size=40)
+    assert te.perf.update_region_size == 10
+    for i in range(20):
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+    assert calls["jax"] >= 1 and calls["port"] >= 20
+    ring_j, ring_t = np.asarray(je.cloud_ring), te.cloud_ring.numpy()
+    assert (ring_j[..., 3] > 0.1).mean() > 0.02
+    assert psnr(ring_t, ring_j) >= 50.0
+    d = _view_dirs()
+    assert psnr(te.render_view(torch.from_numpy(d)).numpy(),
+                np.asarray(je.render_view(jnp.asarray(d)))) >= 50.0
+
+
 def test_unported_modes_raise():
-    for kw in (dict(kernel="fast2"), dict(kernel="hier"), dict(tile_cull=True),
+    for kw in (dict(kernel="hier"), dict(tile_cull=True),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
