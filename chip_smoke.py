@@ -8,12 +8,18 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from cloudscape_tpu_torch/csrc with nvcc (sm_90a);
 3. K1 (accumulate) against its plain version at the serving tile's shape
-   [9216, 128], atol 2e-5, with empty and below-horizon rays exactly 0
-   (phase 9 adds config 4's [kept rays, 64]);
-4. K2 (compact) against its plain version, bitwise, at the cone-occupancy
-   finalize's shape (8,388,608 cells, capacity 3,801,088), plus empty,
-   full and overflow masks and a length that is no multiple of 128;
-   then K4–K6 (noise) against their plain versions at the shipped sizes
+   [9216, 128] and at the shapes of K1_CASES (planes off 16-B alignment and
+   102 or 30 steps, which take the scalar loads; 100 steps; one ray; a
+   partly empty last block; 64, 16 and 256 steps), atol 2e-5, with empty
+   and below-horizon rays exactly 0 (phase 9 adds config 4's [kept rays,
+   64]);
+4. K2 (compact) against its plain version, bitwise, with and without rank,
+   at the cone-occupancy finalize's shape (8,388,608 cells, capacity
+   3,801,088), plus empty, full and overflow masks, a length that is no
+   multiple of 128, views at byte offsets 3 and 4, uint8 values, masks of
+   one and two blocks' ranges, capacity 0, one and no elements and 40 M
+   elements (more than the blocks' shared memory holds); then K4–K6
+   (noise) against their plain versions at the shipped sizes
    (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
    not powers of two (48³, 20³, 100², seed 7), atol 2e-5;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
@@ -57,13 +63,22 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 12. the fast3 and fast2 engines at a tiny size on the card and on the CPU
    (where the wrappers take their plain versions): ring, view and
    `render_full_hemisphere` ≥ 50 dB apart;
-13. timings (warm start, median ms per tick, each kernel beside its plain
-   version), a JSON line with the kernels, and as the last line
-   {"ok": true, "device": {...}}.
+13. each kernel's device time with a cold L2 (`device_us`: torch.profiler
+   over 20 calls, a 64 MB read between them; and again with a 64 MB
+   overwrite between them, `device_us_write_flush`) beside its bound (bytes
+   over 3.35 TB/s or instructions over 33.5 T/s) at the shapes the paths
+   above gave it: K1 [9216, 128] and config 4's [kept rays, 64]; K2 at the
+   finalize's shape without rank (as the path asks) and with it (as v2's
+   compaction asks) and at the compactions of one
+   phase-7 re-render, recorded as they ran; K3 at the engine's and the
+   headline's hot-list capacities; K4–K6 at the shipped sizes. Then the
+   ranking launches per pass × (device time − bound), a JSON line with
+   the kernels, and as the last line {"ok": true, "device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
-phase 5's engine construction and config 4's pack.
+phase 5's engine construction and config 4's pack. `launches_per_pass`
+counts one pass: phase 5 and phase 7's first render_full_hemisphere.
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -97,6 +112,45 @@ CONE_RES = (32, 512, 512)
 # gate (with every gate off the port meets the dense march at ~159 dB), so
 # the gate here is 30 dB, and the gates-off render is held at 100 dB.
 V3_ENGINE_DB = 30.0
+# Yardsticks of a kernel's bound (the H100 SXM's published peak rates):
+# HBM at 3.35 TB/s, and 32-bit ALU instructions at 33.5 T/s, the
+# float32 peak of 67 TFLOP/s counted as one instruction per FMA (132 SMs x
+# 128 lanes x 1.98 GHz; the integer instructions of the noise kernels issue
+# through the same 128 lanes).
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12 / 2
+# Between timed calls a 64 MB tensor is read (a dot product with itself),
+# so the 50 MB L2 holds none of a kernel's inputs, only clean lines, and HBM
+# is the right yardstick. Overwriting the tensor instead (`zero_`) leaves
+# the L2 full of dirty lines, and the timed kernel then pays for writing
+# them back as it pulls its inputs in; each row also carries that time
+# (`device_us_write_flush`), which is what the kernels were first measured
+# with.
+L2_FLUSH_BYTES = 64 << 20
+# 32-bit instructions per lattice point of csrc/noise.cu, counted from its
+# source: a PCG3D hash is 9 IMADs and 3 shift-xor pairs (15), its three
+# to_unit conversions (shift, I2F, FMUL) 9 more; a Worley neighbour adds its
+# offset, squared distance and min (10); a Perlin corner adds the gradient
+# remap (3), its norm (3 + ~7 for the IEEE sqrtf), three IEEE divisions
+# (~8 each), the dot product and the trilinear weight (~9).
+WORLEY_NEIGHBOUR_OPS = 34
+PERLIN_CORNER_OPS = 70
+# (Perlin corners, Worley neighbours) per texel: K4 7 octaves x 8 corners and
+# four 3-octave Worley FBMs x 27 neighbours; K5 three Worley octaves; K6
+# 4 + 4 + 5 Perlin octaves.
+NOISE_LATTICE = {"base": (56, 324), "detail": (0, 81), "weather": (104, 0)}
+# Bytes per texel written, and dimensions: [n]^3 x 4, [n]^3 x 3, [n]^2 x 3.
+NOISE_OUT = {"base": (16, 3), "detail": (12, 3), "weather": (12, 2)}
+# Device kernel names of each wrapper, for picking its launches out of a
+# profiler trace.
+KERNEL_NAMES = {
+    "accumulate": ("accumulate_kernel",),
+    "compact": ("compact_kernel",),
+    "segscan": ("reduce_kernel", "scan_kernel", "downsweep_kernel"),
+    "noise_base": ("base_kernel",),
+    "noise_detail": ("detail_kernel",),
+    "noise_weather": ("weather_kernel",),
+}
 
 
 def require(cond, msg: str) -> None:
@@ -128,6 +182,117 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_us(nbytes: int, ops: int = 0):
+    """(µs, what bounds it): the least time the card could take, the larger
+    of `nbytes` over the HBM rate and `ops` over the ALU rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    by_ops = ops / ALU_OPS_PER_S * 1e6
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def accum_bytes(n: int, steps: int) -> int:
+    """K1 reads three [n, steps] f32 planes, phase (f32), above (u8) and 12
+    scalars once and writes [n, 4] f32."""
+    return 12 * n * steps + 5 * n + 48 + 16 * n
+
+
+def compact_bytes(n: int, capacity: int, with_rank: bool) -> int:
+    """K2 reads the u8 mask once and writes idx [capacity] and, when asked,
+    rank [n] (int32)."""
+    return n + 4 * capacity + (4 * n if with_rank else 0)
+
+
+def noise_work(name: str, size: int):
+    """(bytes written, instructions) of one K4–K6 call at `size`: they read
+    nothing, and their instructions are counted from csrc/noise.cu
+    (NOISE_LATTICE)."""
+    per_texel, dims = NOISE_OUT[name]
+    texels = size ** dims
+    corners, neighbours = NOISE_LATTICE[name]
+    return texels * per_texel, texels * (corners * PERLIN_CORNER_OPS
+                                         + neighbours * WORLEY_NEIGHBOUR_OPS)
+
+
+def device_us(fn, names, write_flush: bool = False, reps: int = 20):
+    """Device time of one fn() call with a cold L2, from torch.profiler.
+
+    Runs `reps` calls, each after reading (or, with `write_flush`,
+    overwriting) an L2-sized scratch tensor, and picks out of the trace the
+    device kernels whose names are in `names`; the flush's kernels between
+    two calls separate them. Per call:
+    `span_us` from the first kernel's start to the last one's end (the gaps
+    between a multi-pass kernel's launches count) and `sum_us` the kernels'
+    own times; the medians over the calls. If the profiler sees no device
+    activity, each call is captured once in a CUDA graph and its replays
+    are timed by CUDA events instead (`how` says which)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(r"(?:^|[\s:])(?:%s)[<(]" % "|".join(map(re.escape, names)))
+    scratch = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flush():
+        if write_flush:
+            scratch.zero_()
+        else:
+            torch.dot(scratch, scratch)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    calls, cur = [], []
+    for e in events:
+        if pat.search(e.name):
+            cur.append(e)
+        elif cur:
+            calls.append(cur)
+            cur = []
+    if cur:
+        calls.append(cur)
+    if events:
+        require(len(calls) == reps,
+                f"profiler: {len(calls)} calls of {names} in the trace, not {reps}")
+        spans = [max(e.time_range.end for e in c) - min(e.time_range.start for e in c)
+                 for c in calls]
+        sums = [sum(e.time_range.elapsed_us() for e in c) for c in calls]
+        return dict(span_us=statistics.median(spans), sum_us=statistics.median(sums),
+                    kernels=len(calls[0]), how="profiler")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    us = []
+    for _ in range(reps):
+        flush()
+        us.append(events_ms(graph.replay, 1)[0] * 1e3)
+    return dict(span_us=statistics.median(us), sum_us=statistics.median(us),
+                kernels=None, how="cuda graph")
+
+
+def timed_row(shape: str, fn, names, nbytes: int, ops: int = 0, **extra):
+    """One row of the kernel table: device µs (cold L2) against the bound."""
+    d = device_us(fn, names)
+    b, by = bound_us(nbytes, ops)
+    return dict(shape=shape, device_us=d["span_us"], kernel_sum_us=d["sum_us"],
+                kernels_per_call=d["kernels"], timing=d["how"], bound_us=b,
+                bound_by=by, bound_share=b / d["span_us"],
+                device_us_write_flush=device_us(fn, names, write_flush=True)["span_us"],
+                **extra)
+
+
 def events_ms(fn, reps: int):
     """Each of `reps` calls of fn() timed by CUDA events (ms)."""
     import torch
@@ -144,15 +309,30 @@ def events_ms(fn, reps: int):
     return ms
 
 
-def check_accumulate(dev, n: int = 9216, steps: int = 128):
-    """Phase 3: K1 against its plain version at [n, steps] (the serving
-    tile's shape by default)."""
+# K1 cases (rays, steps, float offset of each plane's base, what it covers).
+K1_CASES = (
+    (9216, 128, 0, "the serving tile"),
+    (9216, 128, 1, "planes 4 B past 16-B alignment: scalar loads"),
+    (9216, 100, 0, "100 steps: 16-byte loads, 25 of 32 lanes"),
+    (9216, 102, 0, "102 steps: scalar loads"),
+    (50, 30, 0, "steps no multiple of 4: scalar loads, 8 lanes per ray"),
+    (1, 128, 0, "one ray"),
+    (1001, 128, 0, "a partly empty last block"),
+    (4097, 64, 0, "64 steps, two rays per warp, odd count"),
+    (333, 16, 0, "16 steps, eight rays per warp"),
+    (257, 256, 0, "two 128-step windows"),
+)
+
+
+def accum_args(dev, n: int, steps: int, offset: int = 0):
+    """K1 inputs: 1/8 of the rays empty, 1/8 below the horizon, the rest
+    with an optical depth that saturates alpha; each [n, steps] plane's base
+    `offset` floats into its buffer."""
     import torch
 
-    from cloudscape_tpu_torch.ops import accum
-
     rng = np.random.default_rng(1)
-    A = -np.abs(rng.random((n, steps))) * 0.1 * (rng.random((n, steps)) < 0.3)
+    A = -np.abs(rng.random((n, steps))) * (12.8 / steps) \
+        * (rng.random((n, steps)) < 0.3)
     A[: n // 8] = 0.0                                   # empty rays
     cd3 = -rng.random((n, steps)) * 0.5
     hf = rng.random((n, steps))
@@ -160,52 +340,119 @@ def check_accumulate(dev, n: int = 9216, steps: int = 128):
     above = np.ones(n, bool)
     above[n // 8: n // 4] = False                       # below the horizon
     scal = rng.random(12)
-    t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-         for x in (A, cd3, hf, phase, scal)]
-    above_t = torch.from_numpy(above).to(dev)
-    args = (t[0], t[1], t[2], t[3], above_t, t[4])
+
+    def plane(x):
+        flat = torch.zeros(offset + x.size, dtype=torch.float32, device=dev)
+        flat[offset:] = torch.from_numpy(x.astype(np.float32).reshape(-1)).to(dev)
+        return flat[offset:].view(x.shape)
+
+    def vec(x, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+    return (plane(A), plane(cd3), plane(hf), vec(phase), vec(above, bool), vec(scal))
+
+
+def check_accumulate(dev, n: int, steps: int, offset: int = 0) -> float:
+    """Phase 3: K1 against its plain version at [n, steps]; returns the max
+    abs error."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import accum
+
+    args = accum_args(dev, n, steps, offset)
     got = accum.accumulate(*args)
     want = accum.accumulate_reference(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    what = f"K1 [{n},{steps}] offset {offset}"
     require(got.shape == (n, 4) and bool(torch.isfinite(got).all()),
-            "K1 output has the wrong shape or is not finite")
-    require(err <= 2e-5, f"K1 max abs err {err} > 2e-5")
-    require(bool((got[: n // 4] == 0).all()), "empty/below-horizon rays not 0")
-    require(float(want[n // 4:, 3].max()) > 0.5, "test input saturates nothing")
-    ms = cuda_time_ms(lambda: accum.accumulate(*args))
-    plain_ms = cuda_time_ms(lambda: accum.accumulate_reference(*args))
-    return err, ms, plain_ms
+            f"{what}: output has the wrong shape or is not finite")
+    require(err <= 2e-5, f"{what}: max abs err {err} > 2e-5")
+    require(bool((got[: n // 4] == 0).all()), f"{what}: empty/below-horizon rays not 0")
+    require(float(want[n // 4:, 3].max()) > 0.5, f"{what}: test input saturates nothing")
+    return err
+
+
+def time_accumulate(dev, n: int, steps: int):
+    """K1's device µs and bound at [n, steps], and the wrapper's and the
+    plain version's CUDA-event ms (20 back-to-back calls)."""
+    from cloudscape_tpu_torch.ops import accum
+
+    args = accum_args(dev, n, steps)
+    row = timed_row(f"[{n},{steps}]", lambda: accum.accumulate(*args),
+                    KERNEL_NAMES["accumulate"], accum_bytes(n, steps))
+    row["event_ms"] = cuda_time_ms(lambda: accum.accumulate(*args))
+    row["plain_ms"] = cuda_time_ms(lambda: accum.accumulate_reference(*args))
+    return row
+
+
+# The cone-occupancy finalize's compaction: cells and slots.
+K2_N, K2_CAP = 8_388_608, 3_801_088
 
 
 def check_compact(dev):
-    """Phase 4: K2 against its plain version, bitwise."""
+    """Phase 4: K2 against its plain version, bitwise, with and without
+    rank; returns the finalize-shaped mask for the timings."""
     import torch
 
     from cloudscape_tpu_torch.ops import compact
 
-    n, cap = 8_388_608, 3_801_088
+    n, cap = K2_N, K2_CAP
     g = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(k):
+        return torch.rand(k, generator=g, device=dev)
+
     cases = [
-        ("sparse", torch.rand(n, generator=g, device=dev) < 0.3, cap),
-        ("overflow", torch.rand(n, generator=g, device=dev) < 0.6, cap),
+        ("sparse", rand(n) < 0.3, cap),
+        ("overflow", rand(n) < 0.6, cap),
         ("empty", torch.zeros(n, dtype=torch.bool, device=dev), cap),
         ("full", torch.ones(n, dtype=torch.bool, device=dev), cap),
-        ("ragged", torch.rand(1_000_003, generator=g, device=dev) < 0.5, 300_000),
+        ("ragged", rand(1_000_003) < 0.5, 300_000),
+        ("view at offset 3", (rand(1_000_006) < 0.5)[3:], 400_000),
+        ("view at offset 4", (rand(1_000_007) < 0.5)[4:], 400_000),
+        ("uint8 values 0-3", torch.randint(0, 4, (65_539,), generator=g, device=dev,
+                                           dtype=torch.uint8), 30_000),
+        ("shorter than one block's range", rand(3_001) < 0.5, 2_000),
+        ("two blocks", rand(5_000) < 0.5, 4_000),
+        ("capacity 0", rand(100_000) < 0.5, 0),
+        ("one set element", torch.ones(1, dtype=torch.bool, device=dev), 1),
+        ("one unset element", torch.zeros(1, dtype=torch.bool, device=dev), 3),
+        ("no elements", torch.zeros(0, dtype=torch.bool, device=dev), 5),
+        # Beyond what the blocks' shared memory holds at once.
+        ("40 M elements", rand(40_000_000) < 0.1, 4_500_000),
     ]
-    err = 0.0
     for name, mask, c in cases:
-        idx, rank = compact.compact(mask, c, mask.shape[0])
-        ridx, rrank = compact.compact_reference(mask, c, mask.shape[0])
+        total = mask.shape[0]
+        ridx, rrank = compact.compact_reference(mask, c, total)
+        idx, rank = compact.compact(mask, c, total)
         torch.cuda.synchronize()
         require(torch.equal(idx, ridx), f"K2 idx differs ({name})")
         require(torch.equal(rank, rrank), f"K2 rank differs ({name})")
-        err = max(err, float((idx - ridx).abs().max()),
-                  float((rank - rrank).abs().max()))
-    mask = cases[0][1]
-    ms = cuda_time_ms(lambda: compact.compact(mask, cap, n))
-    plain_ms = cuda_time_ms(lambda: compact.compact_reference(mask, cap, n))
-    return err, ms, plain_ms
+        idx, rank = compact.compact(mask, c, total, with_rank=False)
+        torch.cuda.synchronize()
+        require(rank is None, f"K2 returned a rank it was not asked for ({name})")
+        require(torch.equal(idx, ridx), f"K2 idx differs without rank ({name})")
+    return cases[0][1]
+
+
+def time_compact(mask, capacity: int, with_rank: bool, plain: bool = False):
+    """K2's device µs and bound on `mask`; with `plain`, the wrapper's and
+    the plain version's CUDA-event ms."""
+    from cloudscape_tpu_torch.ops import compact
+
+    n = mask.shape[0]
+
+    def call():
+        compact.compact(mask, capacity, n, with_rank=with_rank)
+
+    row = timed_row(f"{n}->{capacity}{'' if with_rank else ', no rank'}", call,
+                    KERNEL_NAMES["compact"], compact_bytes(n, capacity, with_rank))
+    if plain:
+        row["event_ms"] = cuda_time_ms(call)
+        row["plain_ms"] = cuda_time_ms(
+            lambda: compact.compact_reference(mask, capacity, n, with_rank))
+    return row
 
 
 NOISE_CASES = (  # (kernel, generator, shipped size, a size not a power of two)
@@ -283,10 +530,35 @@ def check_segscan(dev, n_hot: int):
         if name == "own segments":
             require(torch.equal(got, v), "K3 not bitwise on one-element segments")
         err = max(err, e)
-    v, h = cases[0][1], cases[0][2]
-    ms = cuda_time_ms(lambda: segscan.segscan(v, h))
-    plain_ms = cuda_time_ms(lambda: segscan.segscan_reference(v, h))
-    return err, ms, plain_ms
+    return err
+
+
+def time_segscan(dev, n: int, plain: bool = False):
+    """K3's device µs and bound at n elements (f32 values and u8 heads read,
+    f32 written); with `plain`, the wrapper's and the plain version's
+    CUDA-event ms."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import segscan
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    v = torch.randn(n, generator=g, device=dev)
+    h = torch.rand(n, generator=g, device=dev) < 0.1
+    row = timed_row(f"N={n}", lambda: segscan.segscan(v, h), KERNEL_NAMES["segscan"],
+                    9 * n)
+    if plain:
+        row["event_ms"] = cuda_time_ms(lambda: segscan.segscan(v, h))
+        row["plain_ms"] = cuda_time_ms(lambda: segscan.segscan_reference(v, h))
+    return row
+
+
+def time_noise(dev, name: str, fn: str, size: int):
+    """K4–K6's device µs at `size` against the instruction count."""
+    from cloudscape_tpu_torch.ops import noise_kernel
+
+    return timed_row(f"{size}^{NOISE_OUT[name][1]}",
+                     lambda: getattr(noise_kernel, fn)(size, 0, dev),
+                     KERNEL_NAMES[f"noise_{name}"], *noise_work(name, size))
 
 
 def hemisphere_dirs(width: int, height: int) -> np.ndarray:
@@ -306,19 +578,21 @@ def run_v3_engine(eng):
     counts around the call, against the dense march."""
     import torch
 
+    from cloudscape_tpu_torch.models import march_fast
     from cloudscape_tpu_torch.models.march_fast import (
         march_bricks_v3, march_tile_dense, v3_capacities)
-    from cloudscape_tpu_torch.ops import compact, segscan
+    from cloudscape_tpu_torch.ops import accum, compact, segscan
     from cloudscape_tpu_torch.ops.octmap import texel_directions
     from cloudscape_tpu_torch.utils.image import psnr
 
     perf = eng.perf
     torch.cuda.synchronize()
-    k2_0, k3_0 = compact.launches, segscan.launches
+    k1_0, k2_0, k3_0 = accum.launches, compact.launches, segscan.launches
     t0 = time.perf_counter()
     out = eng.render_full_hemisphere()
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
+    k1 = accum.launches - k1_0
     k2, k3 = compact.launches - k2_0, segscan.launches - k3_0
     require(k3 >= 4, f"render_full_hemisphere launched K3 {k3} < 4 times")
     require(k2 >= 3, f"render_full_hemisphere launched K2 {k2} < 3 times")
@@ -326,6 +600,20 @@ def run_v3_engine(eng):
     require(out.shape == (n_tex, n_tex, 4) and bool(torch.isfinite(out).all()),
             "render_full_hemisphere output has the wrong shape or is not finite")
     ms = events_ms(eng.render_full_hemisphere, 3)
+    # One more call with its compactions recorded (mask, capacity, rank
+    # asked for), for the K2 timings at the re-render's own shapes.
+    compactions = []
+    real = march_fast.compact
+
+    def recorder(mask, capacity, total, with_rank=True):
+        compactions.append((mask.clone(), capacity, with_rank))
+        return real(mask, capacity, total, with_rank)
+
+    march_fast.compact = recorder
+    try:
+        eng.render_full_hemisphere()
+    finally:
+        march_fast.compact = real
     rk, ck, hk = policy = eng._v3_policy(eng._march_params)
     ps, _ = eng._v3_march_knobs()
     n = n_tex * n_tex
@@ -348,7 +636,8 @@ def run_v3_engine(eng):
     off_db = psnr(off.cpu().numpy(), dense.cpu().numpy())
     require(off_db >= 100.0, f"gates-off v3 vs dense march {off_db:.2f} dB < 100")
     return dict(policy=policy, caps=caps, first_ms=first_ms,
-                ms=statistics.median(ms), db=db, off_db=off_db, k2=k2, k3=k3,
+                ms=statistics.median(ms), db=db, off_db=off_db, k1=k1, k2=k2, k3=k3,
+                compactions=compactions,
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
@@ -656,7 +945,7 @@ def tiny_parity(dev, kernel: str):
     from cloudscape_tpu_torch.ops.octmap import texel_directions
     from cloudscape_tpu_torch.utils.image import psnr
 
-    noise = procedural_noise_pack(1, 16, 16, 64)
+    noise = procedural_noise_pack(1, 16, 16, 64, device=dev)
     out = []
     hemis = []
     for d in (dev, torch.device("cpu")):
@@ -704,12 +993,13 @@ def main() -> int:
     with open(lib_path + ".log") as f:
         print(f.read(), flush=True)
 
-    k1_err, k1_ms, k1_plain = check_accumulate(dev)
-    print(f"K1 accumulate [9216,128]: max_abs_err {k1_err:.3g}, "
-          f"{k1_ms:.4f} ms kernel vs {k1_plain:.4f} ms plain ({card})", flush=True)
-    k2_err, k2_ms, k2_plain = check_compact(dev)
-    print(f"K2 compact 8388608→3801088: bitwise, {k2_ms:.4f} ms kernel vs "
-          f"{k2_plain:.4f} ms plain ({card})", flush=True)
+    k1_err = 0.0
+    for n, steps, offset, what in K1_CASES:
+        e = check_accumulate(dev, n, steps, offset)
+        print(f"K1 accumulate [{n},{steps}] ({what}): max_abs_err {e:.3g}", flush=True)
+        k1_err = max(k1_err, e)
+    k2_mask = check_compact(dev)
+    print("K2 compact: bitwise with and without rank on every case", flush=True)
     noise_rows = check_noise(dev)
     for kname, _, size, odd in NOISE_CASES:
         nr = noise_rows[kname]
@@ -735,10 +1025,9 @@ def main() -> int:
     rk, ck, hk = eng._v3_policy(eng._march_params)
     _, _, cap_h = v3_capacities(n_tex * n_tex, eng.perf.march_steps,
                                 min(n_tex * n_tex, 32768), ck, rk, ps, hk)
-    k3_err, k3_ms, k3_plain = check_segscan(dev, cap_h)
+    k3_err = check_segscan(dev, cap_h)
     print(f"K3 segscan N={cap_h} (the engine's v3 hot-list capacity): "
-          f"max_abs_err {k3_err:.3g}, {k3_ms:.4f} ms kernel vs {k3_plain:.4f} ms "
-          f"plain ({card})", flush=True)
+          f"max_abs_err {k3_err:.3g}", flush=True)
 
     from cloudscape_tpu_torch.ops import segscan
     segscan.launches = 0
@@ -748,10 +1037,11 @@ def main() -> int:
           f"{v['caps'][1]}, cap_h {v['caps'][2]}; first call {v['first_ms']:.2f} ms, "
           f"then median {v['ms']:.2f} ms of 3; "
           f"{v['db']:.2f} dB vs dense ({v['off_db']:.2f} dB with every gate off); "
-          f"K2 x{v['k2']}, K3 x{v['k3']} per call; "
+          f"K1 x{v['k1']}, K2 x{v['k2']}, K3 x{v['k3']} per call; "
           f"cloud fraction {v['cloud_frac']:.4f} ({card})", flush=True)
     del eng
-    for h in run_headline(dev):
+    headline = run_headline(dev)
+    for h in headline:
         print(f"headline v3 {WIDTH}x{HEIGHT}x{STEPS} coverage {h['cov']}: policy "
               f"{h['policy']} (cell_frac {h['cell_frac']:.4f}, hot_frac "
               f"{h['hot_frac']:.4f}), kept rays {h['caps'][0]}, cap_c {h['caps'][1]}, "
@@ -774,10 +1064,9 @@ def main() -> int:
     print(f"config 4 v3 512x256x64: policy {c4['policy3']}; median {c4['ms3']:.2f} "
           f"ms ({' '.join(f'{t:.2f}' for t in c4['all_ms3'])}); {c4['db3']:.2f} dB "
           f"vs dense; K3 x{c4['k3']} ({card})", flush=True)
-    k1_64_err, k1_64_ms, k1_64_plain = check_accumulate(dev, c4["n_kept"], 64)
+    k1_64_err = check_accumulate(dev, c4["n_kept"], 64)
     print(f"K1 accumulate [{c4['n_kept']},64] (config 4's kept rays): max_abs_err "
-          f"{k1_64_err:.3g}, {k1_64_ms:.4f} ms kernel vs {k1_64_plain:.4f} ms plain "
-          f"({card})", flush=True)
+          f"{k1_64_err:.3g}", flush=True)
 
     from cloudscape_tpu_torch import PerfConfig
 
@@ -803,33 +1092,75 @@ def main() -> int:
                 f"card and CPU {kernel} engines disagree")
         require(frac > 0.0, f"the tiny {kernel} engine rendered no clouds")
 
+    # Phase 13: each kernel's device time (cold L2) against its bound at the
+    # shapes of the paths above; the first row of each is its main-path shape.
+    rows = {
+        "accumulate": [time_accumulate(dev, 9216, 128),
+                       time_accumulate(dev, c4["n_kept"], 64)],
+        # The finalize asks for no rank (`_compact_mask`); v2's direct call
+        # takes the rank.
+        "compact": [time_compact(k2_mask, K2_CAP, False, plain=True),
+                    time_compact(k2_mask, K2_CAP, True)]
+        + [time_compact(m, c, wr) for m, c, wr in v["compactions"]],
+        "segscan": [time_segscan(dev, cap_h, plain=True)]
+        + [time_segscan(dev, h["caps"][2]) for h in headline],
+    }
+    for kname, fn, size, _ in NOISE_CASES:
+        row = time_noise(dev, kname, fn, size)
+        row.update(event_ms=noise_rows[kname]["ms"],
+                   plain_ms=noise_rows[kname]["plain_ms"])
+        rows[f"noise_{kname}"] = [row]
+    for kname, krows in rows.items():
+        for row in krows:
+            print(f"{kname} {row['shape']}: {row['device_us']:.2f} us device "
+                  f"({row['kernels_per_call']} kernel(s), {row['kernel_sum_us']:.2f} us "
+                  f"in kernels, {row['timing']}; {row['device_us_write_flush']:.2f} us "
+                  f"after a write flush), bound {row['bound_us']:.2f} us by "
+                  f"{row['bound_by']}, share {row['bound_share']:.3f} ({card})",
+                  flush=True)
+
     # launches: the counts read around each kernel's path (K1, K2: the
     # engine ticks; K3: the full-hemisphere and headline renders; K4–K6:
-    # the engine's construction and config 4's pack).
-    kernels = [
-        {"name": "accumulate", "route": "cuda",
-         "source": "cloudscape_tpu_torch/csrc/accum.cu",
-         "replaces": "cloudscape_tpu/ops/accum_pallas.py:101",
-         "launches": r["k1"], "max_abs_err": max(k1_err, k1_64_err), "ms": k1_ms,
-         "plain_ms": k1_plain},
-        {"name": "compact", "route": "cuda",
-         "source": "cloudscape_tpu_torch/csrc/compact.cu",
-         "replaces": "cloudscape_tpu/ops/compact_pallas.py:184",
-         "launches": r["k2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "segscan", "route": "cuda",
-         "source": "cloudscape_tpu_torch/csrc/segscan.cu",
-         "replaces": "cloudscape_tpu/ops/segscan_pallas.py:121",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain},
+    # the engine's construction and config 4's pack). launches_per_pass:
+    # phase 5 (construction, warm start, the ticks) plus phase 7's first
+    # render_full_hemisphere.
+    meta = [
+        ("accumulate", "accum.cu", "accum_pallas.py:101", r["k1"], r["k1"] + v["k1"],
+         max(k1_err, k1_64_err)),
+        ("compact", "compact.cu", "compact_pallas.py:184", r["k2"], r["k2"] + v["k2"],
+         0.0),
+        ("segscan", "segscan.cu", "segscan_pallas.py:121", k3_launches, v["k3"],
+         k3_err),
     ]
     for (kname, _, _, _), line in zip(NOISE_CASES, (187, 214, 240)):
-        nr = noise_rows[kname]
+        meta.append((f"noise_{kname}", "noise.cu", f"noise_pallas.py:{line}",
+                     r["noise"][kname] + c4["noise_launches"][kname],
+                     r["noise"][kname], noise_rows[kname]["err"]))
+    kernels = []
+    for kname, src, tpu, launches, per_pass, err in meta:
+        main_row = rows[kname][0]
         kernels.append({
-            "name": f"noise_{kname}", "route": "cuda",
-            "source": "cloudscape_tpu_torch/csrc/noise.cu",
-            "replaces": f"cloudscape_tpu/ops/noise_pallas.py:{line}",
-            "launches": r["noise"][kname] + c4["noise_launches"][kname],
-            "max_abs_err": nr["err"], "ms": nr["ms"], "plain_ms": nr["plain_ms"]})
+            "name": kname, "route": "cuda",
+            "source": f"cloudscape_tpu_torch/csrc/{src}",
+            "replaces": f"cloudscape_tpu/ops/{tpu}",
+            "launches": launches, "launches_per_pass": per_pass,
+            "max_abs_err": err, "shape": main_row["shape"],
+            "ms": main_row["device_us"] / 1e3, "device_us": main_row["device_us"],
+            "device_us_write_flush": main_row["device_us_write_flush"],
+            "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_us"] / 1e3, "bound_us": main_row["bound_us"],
+            "bound_by": main_row["bound_by"], "bound_share": main_row["bound_share"],
+            # No single PyTorch call computes any of these functions.
+            "library_ms": None, "shapes": rows[kname]})
+    # The redesign rule: launches per pass x (device time - bound); a kernel
+    # at or above half of its bound is left alone.
+    ranked = sorted(kernels, key=lambda k: -k["launches_per_pass"]
+                    * (k["device_us"] - k["bound_us"]))
+    print("ranking, launches per pass x (device us - bound us): " + "; ".join(
+        f"{k['name']} {k['launches_per_pass'] * (k['device_us'] - k['bound_us']) / 1e3:.4f}"
+        f" ms (share {k['bound_share']:.3f}"
+        f"{', left alone' if k['bound_share'] >= 0.5 else ''})" for k in ranked)
+        + f" ({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

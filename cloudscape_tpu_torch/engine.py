@@ -122,10 +122,10 @@ class CloudSkyEngine:
         tile_cull: bool = False,
         cone_prebake: Optional[bool] = None,
         *,
-        device,
+        device="cuda",
     ):
-        """device: where every tensor of the engine lives (required; nothing
-        is guessed from what is available). noise defaults to
+        """device: where every tensor of the engine lives (the card by
+        default; a CPU engine says `device="cpu"`). noise defaults to
         `procedural_noise_pack(0)` generated on that device, the pack the
         JAX engine falls back to when the reference's assets are absent.
 

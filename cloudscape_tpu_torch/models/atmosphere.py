@@ -96,7 +96,7 @@ def _atmosphere_coefficients(h):
     return aerosol_scattering, molecular_scattering, extinction
 
 
-def transmittance_lut(width: int = 256, height: int = 64, device=None):
+def transmittance_lut(width: int = 256, height: int = 64, device="cuda"):
     """Bake the spectral sun-transmittance LUT, [height, width, 4] float32
     (`transmittance-lut.glsl:157-196`)."""
     u = (torch.arange(width, dtype=torch.float32, device=device) / width)[None, :]

@@ -86,7 +86,7 @@ def get_atmo(eyedir, sky_from, sky_to, tlut, blend_amount, sun_dir,
     return col + sun_lum
 
 
-def deband_dither(shape, device=None):
+def deband_dither(shape, device="cuda"):
     """Zero-mean screen-space dither (`clouds.gdshader:1-2`
     `render_mode use_debanding`): Jimenez interleaved gradient noise over the
     pixel lattice, ±0.5 of an 8-bit display LSB. Deterministic in the pixel

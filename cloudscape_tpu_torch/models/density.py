@@ -55,7 +55,7 @@ class MarchParams:
                weather_pos=(0.0, 0.0), time=0.0, density=0.05,
                cloud_coverage=0.25, light_direction=(0.0, 0.5, -1.0),
                light_energy=1.0, light_color=(1.0, 1.0, 1.0),
-               ground_color=(1.0, 1.0, 1.0), device=None) -> "MarchParams":
+               ground_color=(1.0, 1.0, 1.0), device="cuda") -> "MarchParams":
         """Values are rounded to float32 on the host (as `jnp.asarray(v,
         float32)` does), then placed on `device`."""
         def f(v):
@@ -70,7 +70,7 @@ class MarchParams:
         )
 
     @staticmethod
-    def from_numpy(values: dict, device=None) -> "MarchParams":
+    def from_numpy(values: dict, device="cuda") -> "MarchParams":
         """Build from a dict of the JAX `MarchParams` fields as numpy arrays
         or plain numbers (e.g. `{k: np.asarray(getattr(p, k)) ...}`)."""
         return MarchParams.create(**{k: values[k] for k in _PARAM_FIELDS},

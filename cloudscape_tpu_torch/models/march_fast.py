@@ -213,9 +213,8 @@ def _cone_density_xyz(px, py, pz, params: MarchParams, bp: BrickPack,
 
 def _compact_mask(mask_flat, capacity: int, total: int):
     """Indices of the first `capacity` set entries (ascending, fill=total),
-    through kernel K2 (its plain version for CPU tensors)."""
-    idx, _ = compact(mask_flat, capacity, total)
-    return idx
+    through kernel K2 (its plain version for CPU tensors); no rank."""
+    return compact(mask_flat, capacity, total, with_rank=False)[0]
 
 
 # ------------------------------------------------------------- cone cache

@@ -43,7 +43,7 @@ def make_noise_pack(large_volume, small_volume, weather_image) -> NoisePack:
 
 def procedural_noise_pack(seed: int = 0, base_size: int = 128,
                           detail_size: int = 32, weather_size: int = 512,
-                          device=None) -> NoisePack:
+                          device="cuda") -> NoisePack:
     """Fully procedural pack, generated on `device` (K4–K6 on the card)."""
     return make_noise_pack(
         noise_kernel.generate_base_noise(base_size, seed, device=device),
@@ -54,7 +54,7 @@ def procedural_noise_pack(seed: int = 0, base_size: int = 128,
 
 def noise_pack_from_numpy(large_levels: Sequence[np.ndarray],
                           small_levels: Sequence[np.ndarray],
-                          weather: np.ndarray, device=None) -> NoisePack:
+                          weather: np.ndarray, device="cuda") -> NoisePack:
     """A pack from the mip levels of a JAX `NoisePack`, taken as they are."""
     def t(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)

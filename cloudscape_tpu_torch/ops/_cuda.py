@@ -105,11 +105,9 @@ def lib() -> ctypes.CDLL:
         if _LIB is None:
             handle = ctypes.CDLL(build())
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            handle.cs_accumulate.argtypes = [p, p, p, p, p, p, p, i, i, p]
+            handle.cs_accumulate.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
             handle.cs_accumulate.restype = i
-            handle.cs_compact_scratch.argtypes = [ll]
-            handle.cs_compact_scratch.restype = ll
-            handle.cs_compact.argtypes = [p, ll, i, i, p, p, p, ll, p]
+            handle.cs_compact.argtypes = [p, ll, i, i, ll, i, i, p, p, p, i, p]
             handle.cs_compact.restype = i
             handle.cs_segscan_scratch.argtypes = [ll]
             handle.cs_segscan_scratch.restype = ll

@@ -68,6 +68,23 @@ def _check_inputs(A, cd3, hf, phase, above, scal):
             raise ValueError(f"accumulate: {name} must be contiguous")
 
 
+def lanes_per_ray(steps: int) -> int:
+    """Lanes of a warp that share one ray in `csrc/accum.cu`: lane j of the
+    group takes steps 4j..4j+3 of each window of 4·lanes steps. The smallest
+    power of two whose window holds the row, at most 32 (a longer row takes
+    several windows)."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < steps:
+        lanes *= 2
+    return lanes
+
+
+def vector_loads(steps: int, *planes) -> bool:
+    """Whether the kernel can load each lane's 4 steps with one 16-byte load:
+    every row starts 16-B aligned."""
+    return steps % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in planes)
+
+
 def accumulate(A, cd3, hf, phase, above, scal):
     """[n, steps] folded planes + per-ray phase/above + [12] scalars →
     [n, 4] (L rgb, alpha)."""
@@ -83,6 +100,7 @@ def accumulate(A, cd3, hf, phase, above, scal):
         rc = _cuda.lib().cs_accumulate(
             A.data_ptr(), cd3.data_ptr(), hf.data_ptr(), phase.data_ptr(),
             above.data_ptr(), scal.data_ptr(), out.data_ptr(), n, steps,
+            lanes_per_ray(steps), int(vector_loads(steps, A, cd3, hf)),
             _cuda.stream_handle(A.device))
     _cuda.check(rc, "accumulate")
     launches += 1

@@ -23,7 +23,7 @@ launches = {"base": 0, "detail": 0, "weather": 0}
 
 
 def _device(device) -> torch.device:
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"noise generators: unsupported device {dev}")
     return dev
@@ -43,7 +43,7 @@ def _launch(name: str, entry: str, shape, size: int, seed: int, dev):
     return out
 
 
-def generate_base_noise(size: int = 128, seed: int = 0, device=None):
+def generate_base_noise(size: int = 128, seed: int = 0, device="cuda"):
     """The Perlin-Worley base volume, [size]³ × RGBA (kernel K4)."""
     dev = _device(device)
     if dev.type == "cpu":
@@ -51,7 +51,7 @@ def generate_base_noise(size: int = 128, seed: int = 0, device=None):
     return _launch("base", "cs_noise_base", (size, size, size, 4), size, seed, dev)
 
 
-def generate_detail_noise(size: int = 32, seed: int = 0, device=None):
+def generate_detail_noise(size: int = 32, seed: int = 0, device="cuda"):
     """The Worley detail volume, [size]³ × 3 (kernel K5)."""
     dev = _device(device)
     if dev.type == "cpu":
@@ -60,7 +60,7 @@ def generate_detail_noise(size: int = 32, seed: int = 0, device=None):
                    dev)
 
 
-def generate_weather(size: int = 512, seed: int = 0, device=None):
+def generate_weather(size: int = 512, seed: int = 0, device="cuda"):
     """The weather map, [size]² × (type, spare, coverage) (kernel K6)."""
     dev = _device(device)
     if dev.type == "cpu":

@@ -65,7 +65,7 @@ def world_dir_to_uv(d):
 
 def texel_directions(texture_size: int, x0: int = 0, y0: int = 0,
                      width: int | None = None, height: int | None = None,
-                     device=None):
+                     device="cuda"):
     """[height, width, 3] world directions of a texel rectangle of the
     hemisphere map (`clouds.glsl:258-262`: uv = (texel index + update
     position) / texture_size, no texel-center offset)."""

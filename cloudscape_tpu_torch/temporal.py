@@ -86,7 +86,7 @@ class FrameData:
         self.cloud_pos = self.cloud_pos + delta * w * self.wind_speed
         self.weather_pos = self.weather_pos + delta2 * w * self.wind_speed
 
-    def to_march_params(self, device=None) -> MarchParams:
+    def to_march_params(self, device="cuda") -> MarchParams:
         return MarchParams.create(
             cloud_pos=self.cloud_pos, detailed_pos=self.detailed_pos,
             weather_pos=self.weather_pos, time=self.time, density=self.density,

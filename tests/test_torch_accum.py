@@ -26,6 +26,8 @@ from cloudscape_tpu_torch.ops import accum
 # Several test workers share the host's cores: keep torch's intra-op
 # thread pool small so they do not oversubscribe them.
 torch.set_num_threads(min(2, torch.get_num_threads()))
+# The port's entry points default to the card: these tests ask for the CPU.
+DEV = torch.device("cpu")
 
 
 def _inputs(n, seed=0, occ_frac=0.2):
@@ -94,7 +96,7 @@ def test_phase3_matches_accum_chunk(steps):
     atmos = [rng.random(3).astype(np.float32) for _ in range(3)]
     lss = (6_004_000.0 - 6_001_500.0) / 64.0
     jp = JParams.create(density=0.05)
-    tp = TParams.create(density=0.05)
+    tp = TParams.create(density=0.05, device=DEV)
     want = np.asarray(jmf._accumulate_phase3(
         *(jnp.asarray(x) for x in (t, cd, hf, ss, phase, above)), jp,
         [jnp.asarray(a) for a in atmos], lss, steps, 256))
@@ -112,3 +114,34 @@ def test_wrapper_rejects_other_devices():
         accum.accumulate(A, A, A, A[:, 0], torch.ones(4, dtype=torch.bool,
                                                       device="meta"),
                          torch.zeros(12, device="meta"))
+
+
+@pytest.mark.parametrize("steps", [1, 3, 4, 16, 30, 64, 100, 102, 128, 129, 256, 300])
+def test_lanes_per_ray_windows_cover_every_step_once(steps):
+    """K1's layout: a ray's group of `lanes_per_ray` lanes (a power of two
+    dividing the warp) takes 4 steps a lane per window of 4·lanes steps;
+    the windows cover the row's steps exactly once, and a row of at most
+    128 steps is one window."""
+    lanes = accum.lanes_per_ray(steps)
+    assert lanes & (lanes - 1) == 0 and 32 % lanes == 0
+    seen = np.zeros(steps, np.int64)
+    windows = range(0, steps, 4 * lanes)
+    for s0 in windows:
+        for j in range(lanes):
+            for k in range(4):
+                if s0 + 4 * j + k < steps:
+                    seen[s0 + 4 * j + k] += 1
+    assert (seen == 1).all()
+    assert (len(windows) == 1) == (steps <= 128)
+    assert lanes == 32 or 4 * lanes >= steps > 2 * lanes or steps <= 4
+
+
+def test_vector_loads_needs_aligned_rows():
+    """16-byte loads only where every row of every plane starts 16-B
+    aligned: steps a multiple of 4 and aligned bases."""
+    flat = torch.zeros(4 + 8 * 128)
+    aligned = flat[: 8 * 128].view(8, 128)
+    assert flat.data_ptr() % 16 == 0
+    assert accum.vector_loads(128, aligned, aligned, aligned)
+    assert not accum.vector_loads(128, aligned, flat[1: 1 + 8 * 128].view(8, 128), aligned)
+    assert not accum.vector_loads(102, *(flat[: 8 * 102].view(8, 102),) * 3)

@@ -6,7 +6,8 @@ plain version, bitwise, on the card by `chip_smoke.py`. Here the plain
 version meets `jnp.nonzero(size=, fill_value=)` and the XLA
 `_compact_indices` of the JAX march on tests/test_compact_pallas.py's cases
 (including overflow, empty and full masks), plus lengths that are no
-multiple of 128; the rank is the exclusive cumsum of the mask.
+multiple of 128; the rank is the exclusive cumsum of the mask, and asked
+for no rank the wrapper returns the same idx and None.
 """
 
 import numpy as np
@@ -50,6 +51,19 @@ def test_plain_matches_jax(n, cap, p):
         _compact_mask(torch.from_numpy(mask), cap, n).numpy(), want)
 
 
+@pytest.mark.parametrize("n,cap,p", _CASES)
+def test_without_rank_same_idx(n, cap, p):
+    """`with_rank=False` gives the same idx and no rank, through the plain
+    version and through `_compact_mask` (which asks for no rank)."""
+    mask = torch.from_numpy(np.random.default_rng(n + cap + 1).random(n) < p)
+    want, _ = compact.compact(mask, cap, n)
+    idx, rank = compact.compact(mask, cap, n, with_rank=False)
+    assert rank is None and torch.equal(idx, want)
+    idx_ref, rank_ref = compact.compact_reference(mask, cap, n, with_rank=False)
+    assert rank_ref is None and torch.equal(idx_ref, want)
+    assert torch.equal(_compact_mask(mask, cap, n), want)
+
+
 def test_uint8_mask_and_other_devices():
     mask = torch.tensor([0, 3, 0, 1, 1], dtype=torch.uint8)
     idx, rank = compact.compact(mask, 4, 5)
@@ -57,3 +71,27 @@ def test_uint8_mask_and_other_devices():
     assert rank.tolist() == [0, 0, 1, 1, 2]
     with pytest.raises(ValueError):
         compact.compact(torch.zeros(8, dtype=torch.bool, device="meta"), 4, 8)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 3_001, 5_000, 589_824, 8_388_608, 40_000_000])
+@pytest.mark.parametrize("misalign", [0, 3, 4, 15])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_compact_plan_covers_every_element_once(n, misalign, sms):
+    """The kernel's launch plan: the blocks' word ranges cover the words
+    [0, words) exactly once, the words cover the mask's n bytes from its
+    16-B aligned start exactly once, no more blocks than BLOCKS_PER_SM per
+    SM, and a block's stash is all of its range or nothing."""
+    words, wpb, blocks, stash = compact.compact_plan(n, misalign, sms)
+    assert 1 <= blocks <= compact.BLOCKS_PER_SM * sms
+    starts = np.arange(blocks) * wpb
+    ends = np.minimum(words, starts + wpb)
+    covered = np.zeros(words, np.int64)
+    for s, e in zip(starts, ends):
+        covered[s:max(s, e)] += 1
+    assert (covered == 1).all()
+    # Word w holds elements 16w - misalign ... 16w - misalign + 15.
+    elems = 16 * words - misalign if words else 0
+    assert elems >= n and (words == 0 or 16 * (words - 1) - misalign < n)
+    assert stash in (0, 16 * wpb) and stash <= compact.STASH_BYTES
+    if n and n <= compact.MIN_WORDS_PER_BLOCK * 16 - misalign:
+        assert blocks == 1

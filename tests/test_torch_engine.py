@@ -46,6 +46,8 @@ from cloudscape_tpu_torch.models.packs import noise_pack_from_numpy
 # Several test workers share the host's cores: keep torch's intra-op
 # thread pool small so they do not oversubscribe them.
 torch.set_num_threads(min(2, torch.get_num_threads()))
+# The port's entry points default to the card: these tests ask for the CPU.
+DEV = torch.device("cpu")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (8, 64, 64)
@@ -58,7 +60,7 @@ def packs():
                          generate_weather(64, seed=3))
     tn = noise_pack_from_numpy([np.asarray(a) for a in jn.large],
                                [np.asarray(a) for a in jn.small],
-                               np.asarray(jn.weather))
+                               np.asarray(jn.weather), device=DEV)
     return jn, tn
 
 
@@ -72,7 +74,7 @@ def _params():
         light_direction=sun / np.linalg.norm(sun),
         ground_color=np.array([0.27, 0.19, 0.027]))
     fields = {k: np.asarray(v) for k, v in vars(jp).items()}
-    return jp, MarchParams.from_numpy(fields)
+    return jp, MarchParams.from_numpy(fields, device=DEV)
 
 
 def _engines(packs, kernel="fast3", size=32):
@@ -300,6 +302,14 @@ def test_unported_modes_raise():
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError, match="device"):
-        CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
-                       cone_res=(4, 16, 16))
+    """`device` defaults to the card: with no device the engine lives on
+    CUDA, and on a host without CUDA it raises rather than run on the CPU."""
+    def build():
+        return CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
+                              cone_res=(4, 16, 16))
+
+    if torch.cuda.is_available():
+        assert build().cloud_ring.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            build()

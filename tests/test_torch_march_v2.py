@@ -35,6 +35,8 @@ from test_torch_march_v3 import hemisphere_dirs
 # Several test workers share the host's cores: keep torch's intra-op
 # thread pool small so they do not oversubscribe them.
 torch.set_num_threads(min(2, torch.get_num_threads()))
+# The port's entry points default to the card: these tests ask for the CPU.
+DEV = torch.device("cpu")
 
 STEPS, PS, CHUNK = 64, 16, 1024
 RES = (8, 64, 64)
@@ -49,14 +51,15 @@ def scene():
                          generate_weather(64, seed=3))
     tn = noise_pack_from_numpy([np.asarray(a) for a in jn.large],
                                [np.asarray(a) for a in jn.small],
-                               np.asarray(jn.weather))
+                               np.asarray(jn.weather), device=DEV)
     sun = np.array([0.3, 0.4, -0.85])
     sun /= np.linalg.norm(sun)
     jp = JParams.create(
         cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
         weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=COVERAGE,
         light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]))
-    tp = MarchParams.from_numpy({k: np.asarray(v) for k, v in vars(jp).items()})
+    tp = MarchParams.from_numpy({k: np.asarray(v) for k, v in vars(jp).items()},
+                                device=DEV)
     jb, tb = jmf.BrickPack.from_noise(jn), tmf.BrickPack.from_noise(tn)
     sky = jatmo.sky_lut(jatmo.transmittance_lut(), jnp.asarray(jp.light_direction))
     jc = jmf.build_cone_cache(jp, jb, 6, res=RES, chunk=4096)

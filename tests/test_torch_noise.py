@@ -22,6 +22,8 @@ from cloudscape_tpu_torch.ops import octmap as toct
 # Several test workers share the host's cores: keep torch's intra-op
 # thread pool small so they do not oversubscribe them.
 torch.set_num_threads(min(2, torch.get_num_threads()))
+# The port's entry points default to the card: these tests ask for the CPU.
+DEV = torch.device("cpu")
 
 _EDGES = np.array([
     [0, 0, 0],
@@ -97,7 +99,8 @@ def test_hash_iq_and_gradients_bitwise():
 
 
 def test_octmap_matches():
-    got = toct.texel_directions(96, x0=96, y0=192, width=96, height=48).numpy()
+    got = toct.texel_directions(96, x0=96, y0=192, width=96, height=48,
+                                device=DEV).numpy()
     want = np.asarray(joct.texel_directions(96, x0=96, y0=192, width=96, height=48))
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
     rng = np.random.default_rng(5)
