@@ -615,10 +615,11 @@ def v3_capacities(n: int, steps: int, chunk: int, cell_keep_frac: float,
 
 def _seg_end_reduce(cellsums, incl, head, ray_h, n: int, cap_h: int):
     """Per-ray totals of the hot list at its segment ends: segmented-scan
-    each radiance channel (K3; the log-transmittance scan `incl` already
-    ran), compact the segment-end positions (K2; at most one per ray, since
-    ray_h is sorted and the fill suffix merges into the last segment with
-    +0), gather the totals there and write them to their rays. Returns
+    the [3, cap_h] radiance channels `cellsums` in one call (K3; the
+    log-transmittance scan `incl` already ran), compact the segment-end
+    positions (K2; at most one per ray, since ray_h is sorted and the fill
+    suffix merges into the last segment with +0), gather the totals there
+    and write them to their rays. Returns
     ([3 × [n]] radiance, [n] log-transmittance)."""
     dev = incl.device
     seg_end = torch.cat([head[1:], torch.ones((1,), dtype=torch.bool, device=dev)])
@@ -633,7 +634,7 @@ def _seg_end_reduce(cellsums, incl, head, ray_h, n: int, cap_h: int):
         buf[rid] = tot[ssafe]
         return buf[:n]
 
-    bufs = [per_ray(segscan(cs, head)) for cs in cellsums]
+    bufs = [per_ray(s) for s in segscan(cellsums, head)]
     return bufs, per_ray(incl)
 
 
@@ -674,12 +675,14 @@ def _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n: int,
     bt_phase = beers_total * phase_h[None, :]
     shared = t_prefix * (1.0 - dt_l) * (t_l / torch.clamp(t_l, min=1e-7))
 
-    cellsums = []
+    # Each channel's sum is written into its row, so K3 scans the three
+    # rows without a copy.
+    cellsums = torch.empty((3, cap_h), dtype=torch.float32, device=t_l.device)
     for c in range(3):
         ambient_c = atmosphere_ground[c] + \
             (atmosphere_ambient[c] - atmosphere_ground[c]) * sm
-        cellsums.append(torch.sum(
-            shared * (ambient_c + bt_phase * atmosphere_sun[c]), dim=0))
+        torch.sum(shared * (ambient_c + bt_phase * atmosphere_sun[c]), dim=0,
+                  out=cellsums[c])
 
     bufs, logT = _seg_end_reduce(cellsums, incl, head, ray_h, n, cap_h)
     alpha = torch.clamp(1.0 - torch.exp(logT), 0.0, 1.0)

@@ -109,9 +109,7 @@ def lib() -> ctypes.CDLL:
             handle.cs_accumulate.restype = i
             handle.cs_compact.argtypes = [p, ll, i, i, ll, i, i, p, p, p, i, p]
             handle.cs_compact.restype = i
-            handle.cs_segscan_scratch.argtypes = [ll]
-            handle.cs_segscan_scratch.restype = ll
-            handle.cs_segscan.argtypes = [p, p, ll, p, p, ll, p]
+            handle.cs_segscan.argtypes = [p, p, i, ll, i, i, i, p, p, ll, p]
             handle.cs_segscan.restype = i
             for fn in (handle.cs_noise_base, handle.cs_noise_detail,
                        handle.cs_noise_weather):

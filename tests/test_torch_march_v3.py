@@ -131,7 +131,7 @@ def test_seg_end_reduce_matches_scatter_add():
 
     head_t = torch.from_numpy(head)
     incl = tmf.segscan(torch.from_numpy(logdt), head_t)
-    bufs, logT = tmf._seg_end_reduce([torch.from_numpy(c) for c in cellsums], incl,
+    bufs, logT = tmf._seg_end_reduce(torch.from_numpy(np.stack(cellsums)), incl,
                                      head_t, torch.from_numpy(ray_h), n, cap_h)
     ridx = jnp.where(jnp.asarray(valid), jnp.asarray(ray_h, jnp.int32), n)
     for c in range(3):

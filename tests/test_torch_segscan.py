@@ -9,7 +9,13 @@ tests/test_segscan_pallas.py's five cases (inputs from numpy seeds):
 - the Pallas kernel `segscan_sum_pallas` in interpret mode, atol 2e-4;
 - the XLA `associative_scan` over the `seg_sum` monoid, atol 2e-4;
 - a sequential f64 loop, rtol 1e-4 + atol 2e-4;
-- on every-element-its-own-segment, `values` bit for bit.
+- on every-element-its-own-segment, `values` bit for bit;
+- as a `[3, n]` call (the march's three radiance rows over one set of
+  heads): each row bitwise the 1-D call and within atol 2e-4 of the Pallas
+  kernel in interpret mode.
+
+The kernel's launch plan (`segscan_plan`) is plain Python and is checked
+here too.
 """
 
 import functools
@@ -22,6 +28,7 @@ import torch
 from jax import lax
 
 from cloudscape_tpu.ops.segscan_pallas import LANES, ROWS, segscan_sum_pallas
+from cloudscape_tpu_torch.ops import segscan as segscan_mod
 from cloudscape_tpu_torch.ops.segscan import segscan
 
 # Several test workers share the host's cores: keep torch's intra-op
@@ -139,3 +146,65 @@ def test_segscan_edges():
     np.testing.assert_array_equal(segscan(v, h).numpy(), [1.0, 3.0, 2.5, 6.5])
     np.testing.assert_array_equal(segscan(v[:1], h[:1]).numpy(), [1.0])
     assert segscan(v[:0], h[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_segscan_rows_match_1d_and_pallas(name):
+    """A [3, n] call: the case's values scaled by 1, 0.5 and -1 (exact in
+    f32). Each row equals the 1-D call bitwise and the Pallas kernel within
+    atol 2e-4."""
+    values, heads, _ = _case(name)
+    rows = np.stack([values, values * np.float32(0.5), -values])
+    h = torch.from_numpy(heads)
+    got = segscan(torch.from_numpy(rows), h).numpy()
+    assert got.dtype == np.float32 and got.shape == rows.shape
+    for r in range(3):
+        np.testing.assert_array_equal(got[r], segscan(torch.from_numpy(rows[r]), h).numpy())
+        want = np.asarray(segscan_sum_pallas(jnp.asarray(rows[r]), jnp.asarray(heads),
+                                             interpret=True))
+        np.testing.assert_allclose(got[r], want, rtol=0, atol=2e-4)
+
+
+def test_segscan_rows_edges():
+    """[1, n] and [4, n] keep their shape and equal the 1-D calls; no
+    elements gives an empty [k, 0]."""
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(rng.normal(size=(4, 333)).astype(np.float32))
+    h = torch.from_numpy(rng.random(333) < 0.05)
+    got = segscan(v, h)
+    assert got.shape == (4, 333)
+    for r in range(4):
+        np.testing.assert_array_equal(got[r].numpy(), segscan(v[r], h).numpy())
+    np.testing.assert_array_equal(segscan(v[:1], h).numpy(), got[:1].numpy())
+    assert segscan(v[:2, :0], h[:0]).shape == (2, 0)
+
+
+@pytest.mark.parametrize("values, heads", [
+    (torch.zeros(5, 16), torch.zeros(16, dtype=torch.bool)),      # k = 5
+    (torch.zeros(3, 16), torch.zeros(15, dtype=torch.bool)),      # heads' length
+    (torch.zeros(2, 3, 16), torch.zeros(16, dtype=torch.bool)),   # 3-D values
+    (torch.zeros(16, dtype=torch.float64), torch.zeros(16, dtype=torch.bool)),
+    (torch.zeros(16), torch.zeros(16, dtype=torch.int32)),        # int heads
+], ids=["k5", "heads_length", "values_3d", "values_f64", "heads_int32"])
+def test_segscan_rejects_bad_inputs(values, heads):
+    """Shape and dtype checks run for CPU tensors too."""
+    with pytest.raises(ValueError):
+        segscan(values, heads)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 425_984, 819_200, 1_000_003,
+                               1_736_704, 6_000_001])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_segscan_plan_covers_every_element_once(n, sms):
+    """The kernel's launch plan: the blocks' ranges cover [0, n) exactly
+    once with no empty block, no more blocks than BLOCKS_PER_SM per SM, the
+    ranges do not depend on the row count, and a block's stash holds all of
+    its rows or nothing."""
+    plans = [segscan_mod.segscan_plan(n, k, sms) for k in range(1, 5)]
+    assert len({p[:2] for p in plans}) == 1
+    rounds, blocks, _ = plans[0]
+    per_block = rounds * segscan_mod.BLOCK_ROUND
+    assert 1 <= blocks <= segscan_mod.BLOCKS_PER_SM * sms
+    assert blocks * per_block >= n and (n == 0 or (blocks - 1) * per_block < n)
+    for k, (_, _, stash) in enumerate(plans, 1):
+        assert stash in (0, 4 * k * per_block) and stash <= segscan_mod.STASH_BYTES
