@@ -26,7 +26,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
    generate) on the card:
    construction and a first render_frame (warm start), then 70 more
-   render_frame ticks of a 1280×720 camera, crossing a
+   render_frame ticks of a 1280×720 camera (the fused display-pair path,
+   `render_frame`'s default), crossing a
    cycle boundary that picks up a prebaked cone cache; the launch counts of
    K1, K2 and K4–K6 must show the path ran through those kernels; frames
    must be finite, nonnegative and not black, and the cloud ring must hold
@@ -47,6 +48,11 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    ≥ 30 dB against the dense march (`march_tile_dense`) over the same
    texel directions with the same cone cache and params (`V3_ENGINE_DB`
    says why not 40), and with every gate off ≥ 100 dB;
+   7b. the composite traced on its own, on the phase-5 engine's state at
+   1280×720: the split `composite` (`render_view`) and `composite_display`
+   over the display-pair tables (CUDA-event ms, torch.profiler device ms
+   and device launches a call; the two agree at atol 2e-5 / rtol 1e-5),
+   and `_build_display_pair` (paid once a cycle);
 8. the bench.py headline scene: 1024×512 hemisphere rays × 128 steps,
    coverage 0.35 and 0.7, sun (0.3, 0.4, −0.85), cone (32, 512, 512),
    procedural_noise_pack(0), `v3_auto_policy`, then
@@ -67,30 +73,55 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 11. a fast3 engine at PerfConfig(768, 4), whose 384² tiles (147,456 rays)
    take the v2 arm: warm start, one cycle and a boundary, K1 and K2
    launched by the ticks, frames finite and not black;
-12. the fast3 and fast2 engines at a tiny size on the card and on the CPU
-   (where the wrappers take their plain versions): ring, view and
-   `render_full_hemisphere` ≥ 50 dB apart;
+   11b. bench.py's serving point (`bench.py:272-323`): a fast3
+   `tile_cull=True` engine at 768² / 64 frames / 128 steps, cone (32, 512,
+   512), coverage 0.35, sun (0.3, 0.4, −0.85), procedural_noise_pack(0),
+   served through the fused `render_frame` of the phase-5 camera: the warm
+   start, 65 warm ticks, then 70 ticks timed by CUDA events that cross one
+   rotation boundary, which must pick up the prebaked buckets; median,
+   max, hitch (max / median), hitch_p95, the bucket histogram and the
+   median tick per arm (skip / v3 bucket / dense 1.0) beside phase 5's
+   median. The kernel counts are zeroed before its construction: K4–K6
+   once each, K1 in the phase, K2 and K3 within the timed ticks, and at
+   least one timed tick in a v3 bucket; frames finite, nonnegative and not
+   black, every skip tile in the ring exactly 0. Then every tile of the
+   cycle is marched again by its arm (those the ticks wrote must equal the
+   ring's) and the culled map is held at ≥ TILE_CULL_DB against the dense
+   march over the same texel grid; the first v3 tile's K2 and K3 calls are
+   recorded, held against their plain versions (K2 bitwise, K3 atol 2e-4,
+   three runs bitwise equal) and timed in phase 13;
+12. the fast3 and fast2 engines at a tiny size, without and with tile
+   cull, on the card and on the CPU (where the wrappers take their plain
+   versions): ring, view and (unculled) `render_full_hemisphere` ≥ 50 dB
+   apart; and on the card the fused `render_frame` against `update_sky` +
+   `render_view` over 16 ticks across a boundary, frames at atol 2e-5 /
+   rtol 1e-5, rings bitwise;
 13. each kernel's device time with a cold L2 (`device_us`: torch.profiler
-   over 20 calls, a 64 MB read between them; and again with a 64 MB
+   over the last 20 of 30 calls, which must be complete and alike, a 64 MB
+   read between them; and again with a 64 MB
    overwrite between them, `device_us_write_flush`) beside its bound (bytes
    over 3.35 TB/s or instructions over 33.5 T/s) at the shapes the paths
    above gave it: K1 [9216, 128] and config 4's [kept rays, 64]; K2 at the
    finalize's shape without rank (as the path asks) and with it (as v2's
    compaction asks) and at the compactions of one
-   phase-7 re-render, recorded as they ran; K3 1-D and [3, n] (one
-   launch each) at the engine's and the headline's hot-list capacities;
+   phase-7 re-render and of one phase-11b v3 tile, recorded as they ran
+   (and held bitwise against the plain version there);
+   K3 1-D and [3, n] (one launch each) at the engine's and the headline's
+   hot-list capacities and on the v3 tile's recorded inputs;
    K4–K6 at the shipped sizes; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
-   pass × (device time − bound) (K3: one 1-D and one [3, n] launch per
-   v3 march, each at its own time), a JSON line with the kernels (each
-   with `redesigned_in`, the change that redesigned it for the card, or
-   null), and as the last line {"ok": true, "device": {...}}.
+   pass × (device time − bound), each launch at the time of the shape it
+   ran at (K3: one 1-D and one [3, n] launch per v3 march), a JSON line
+   with the kernels (each with `redesigned_in`, the change that
+   redesigned it for the card, or null), and as the last line
+   {"ok": true, "device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
-phase 5's engine construction and config 4's pack. `launches_per_pass`
-counts one pass: phase 5 and phase 7's first render_full_hemisphere.
+phase 5's engine construction and config 4's pack; `launches_tile_cull`
+around phase 11b. `launches_per_pass` counts one pass: phase 5, phase 7's
+first render_full_hemisphere and phase 11b's timed window.
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -228,18 +259,26 @@ def noise_work(name: str, size: int):
                                          + neighbours * WORLEY_NEIGHBOUR_OPS)
 
 
+# Calls profiled ahead of the measured ones and dropped: after the engine
+# phases the profiler has been seen to lose a trace's first few device
+# events (on an H100, the first 2-3 of 20 calls of every phase-13 trace,
+# and once the first 5 calls and the next call's flush).
+TRACE_PAD = 10
+
+
 def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     """Device time of one fn() call with a cold L2, from torch.profiler.
 
-    Runs `reps` calls, each after reading (or, with `write_flush`,
-    overwriting) an L2-sized scratch tensor, and picks out of the trace the
-    device kernels whose names are in `names`; the flush's kernels between
-    two calls separate them. Per call:
-    `span_us` from the first kernel's start to the last one's end (the gaps
-    between a multi-pass kernel's launches count) and `sum_us` the kernels'
-    own times; the medians over the calls. If the profiler sees no device
-    activity, each call is captured once in a CUDA graph and its replays
-    are timed by CUDA events instead (`how` says which)."""
+    Runs TRACE_PAD + `reps` calls, each after reading (or, with
+    `write_flush`, overwriting) an L2-sized scratch tensor, picks out of
+    the trace the device kernels whose names are in `names` (the flush's
+    kernels between two calls separate them) and keeps the last `reps`
+    calls, which must be complete and alike. Per call: `span_us` from the first kernel's start to the last
+    one's end (the gaps between a multi-pass kernel's launches count) and
+    `sum_us` the kernels' own times; the medians over the calls. If the
+    profiler sees no device activity, each call is captured once in a CUDA
+    graph and its replays are timed by CUDA events instead (`how` says
+    which)."""
     import re
 
     import torch
@@ -258,7 +297,7 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(TRACE_PAD + reps):
             flush()
             fn()
         torch.cuda.synchronize()
@@ -274,8 +313,17 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     if cur:
         calls.append(cur)
     if events:
-        require(len(calls) == reps,
-                f"profiler: {len(calls)} calls of {names} in the trace, not {reps}")
+        # Only a leading prefix of the trace may be lost: its tail must be
+        # `reps` alike call groups, each two separated by alike flush
+        # groups, so no lost event in the middle merges two calls into one.
+        seq = "".join("k" if pat.search(e.name) else "." for e in events)
+        tail = re.findall(r"k+|\.+", seq)[-(2 * reps - 1):]
+        require(len(tail) == 2 * reps - 1 and tail[-1][0] == "k"
+                and len(set(tail[0::2])) == 1 and len(set(tail[1::2])) == 1,
+                f"profiler: the trace's last {reps} calls of {names} are not "
+                f"{reps} alike calls between alike flushes; device events in "
+                f"order (k: the kernel's): {seq}")
+        calls = calls[-reps:]
         spans = [max(e.time_range.end for e in c) - min(e.time_range.start for e in c)
                  for c in calls]
         sums = [sum(e.time_range.elapsed_us() for e in c) for c in calls]
@@ -585,12 +633,19 @@ def time_segscan(dev, n: int, rows: int = 1, plain: bool = False):
     version's CUDA-event ms."""
     import torch
 
-    from cloudscape_tpu_torch.ops import segscan
-
     g = torch.Generator(device=dev).manual_seed(4)
     v = torch.randn((rows, n) if rows > 1 else (n,), generator=g, device=dev)
     h = torch.rand(n, generator=g, device=dev) < 0.1
-    row = timed_row(f"N={n}" if rows == 1 else f"[{rows},{n}]",
+    return time_segscan_on(v, h, plain)
+
+
+def time_segscan_on(v, h, plain: bool = False):
+    """K3's device µs and bound on the values v ([n] or [rows, n]) and heads
+    h; see `time_segscan`."""
+    from cloudscape_tpu_torch.ops import segscan
+
+    rows, n = (1, v.shape[0]) if v.dim() == 1 else tuple(v.shape)
+    row = timed_row(f"N={n}" if v.dim() == 1 else f"[{rows},{n}]",
                     lambda: segscan.segscan(v, h), KERNEL_NAMES["segscan"],
                     (8 * rows + 1) * n, rows=rows)
     require(row["timing"] != "profiler" or row["kernels_per_call"] == 1,
@@ -601,14 +656,42 @@ def time_segscan(dev, n: int, rows: int = 1, plain: bool = False):
     return row
 
 
-def loss_per_pass_us(kname: str, per_pass: int, krows) -> float:
-    """The redesign rule's rank: launches per pass × (device µs − bound µs)
-    at the main-path shape. K3's launches alternate between its two forms
-    at the engine's hot list (one 1-D and one [3, n] per v3 march), each
-    at its own time."""
-    if kname == "segscan":
-        return per_pass / 2 * sum(r["device_us"] - r["bound_us"] for r in krows[:2])
-    return per_pass * (krows[0]["device_us"] - krows[0]["bound_us"])
+def check_recorded(what: str, compactions, scans=()) -> float:
+    """K2 and K3 against their plain versions on the inputs a path gave
+    them, recorded as it ran: K2 bitwise (idx, and rank where the path
+    asked for it), K3 at atol 2e-4 with three runs bitwise equal. Returns
+    K3's max abs error (0.0 without scans)."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import compact, segscan
+
+    for i, (mask, cap, with_rank) in enumerate(compactions):
+        total = mask.shape[0]
+        ridx, rrank = compact.compact_reference(mask, cap, total, with_rank)
+        idx, rank = compact.compact(mask, cap, total, with_rank=with_rank)
+        torch.cuda.synchronize()
+        require(torch.equal(idx, ridx), f"K2 idx differs ({what}, call {i}: "
+                f"{total}->{cap})")
+        require(not with_rank or torch.equal(rank, rrank),
+                f"K2 rank differs ({what}, call {i}: {total}->{cap})")
+    err = 0.0
+    for i, (v, h) in enumerate(scans):
+        want = segscan.segscan_reference(v, h)
+        runs = [segscan.segscan(v, h) for _ in range(3)]
+        torch.cuda.synchronize()
+        require(all(bitwise_equal(r, runs[0]) for r in runs[1:]),
+                f"K3 outputs of three runs differ ({what}, call {i})")
+        e = float((runs[0] - want).abs().max())
+        require(e <= 2e-4, f"K3 max abs err {e} > 2e-4 ({what}, call {i})")
+        err = max(err, e)
+    return err
+
+
+def loss_per_pass_us(groups) -> float:
+    """The redesign rule's rank: launches per pass × (device µs − bound µs),
+    summed over a kernel's (launches per pass, row) groups, each group's
+    launches at the time of the shape they ran at."""
+    return sum(n * (row["device_us"] - row["bound_us"]) for n, row in groups)
 
 
 def time_nonzero(mask) -> float:
@@ -684,6 +767,7 @@ def run_v3_engine(eng):
         eng.render_full_hemisphere()
     finally:
         march_fast.compact = real
+    check_recorded("phase-7 re-render", compactions)
     rk, ck, hk = policy = eng._v3_policy(eng._march_params)
     ps, _ = eng._v3_march_knobs()
     n = n_tex * n_tex
@@ -1004,38 +1088,328 @@ def run_staged_engine(dev, kernel: str, perf, ticks: int, hemisphere: bool):
     return r
 
 
-def tiny_parity(dev, kernel: str):
-    """Phase 12: a tiny engine on the card (kernels) and on the CPU (plain
-    versions) from one procedural pack: PSNR of the cloud ring and a view."""
-    import torch
-
+def tiny_engine(d, noise, kernel: str, tile_cull: bool):
+    """Phase 12's tiny engine on device `d`, with a copy of `noise` there."""
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
+
+    pack = type(noise)(large=tuple(l.to(d) for l in noise.large),
+                       small=tuple(s.to(d) for s in noise.small),
+                       weather=noise.weather.to(d))
+    return CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
+                          config=CloudConfig(cloud_coverage=0.6),
+                          sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
+                          cone_res=(8, 64, 64), kernel=kernel, tile_cull=tile_cull,
+                          device=d)
+
+
+def tiny_parity(dev, kernel: str, tile_cull: bool = False):
+    """Phase 12: a tiny engine on the card (kernels) and on the CPU (plain
+    versions) from one procedural pack: PSNR of the cloud ring and a view
+    (and, without tile cull, of `render_full_hemisphere`), and with tile
+    cull whether both engines picked the same buckets."""
+    import torch
+
     from cloudscape_tpu_torch.models.packs import procedural_noise_pack
     from cloudscape_tpu_torch.ops.octmap import texel_directions
     from cloudscape_tpu_torch.utils.image import psnr
 
     noise = procedural_noise_pack(1, 16, 16, 64, device=dev)
-    out = []
-    hemis = []
+    out, hemis, buckets = [], [], []
     for d in (dev, torch.device("cpu")):
-        pack = type(noise)(large=tuple(l.to(d) for l in noise.large),
-                           small=tuple(s.to(d) for s in noise.small),
-                           weather=noise.weather.to(d))
-        e = CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
-                           config=CloudConfig(cloud_coverage=0.6),
-                           sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
-                           cone_res=(8, 64, 64), kernel=kernel, device=d)
+        e = tiny_engine(d, noise, kernel, tile_cull)
         for i in range(20):
             e.update_sky(now=i / 30.0)
         view = e.render_view(texel_directions(48, device=d) * torch.tensor(
             [1.0, 0.7, 1.0], device=d))
         out.append((e.cloud_ring.cpu().numpy(), view.cpu().numpy()))
-        # fast3, 16 steps: prepass_steps 4 < 8, the policy's rebase branch.
-        hemis.append(e.render_full_hemisphere().cpu().numpy())
+        buckets.append(e._tile_buckets)
+        if not tile_cull:
+            # fast3, 16 steps: prepass_steps 4 < 8, the policy's rebase branch.
+            hemis.append(e.render_full_hemisphere().cpu().numpy())
     (ring_gpu, view_gpu), (ring_cpu, view_cpu) = out
-    return psnr(ring_gpu, ring_cpu), psnr(view_gpu, view_cpu), \
-        psnr(hemis[0], hemis[1]), float((ring_cpu[..., 3] > 0.1).mean())
+    return dict(ring_db=psnr(ring_gpu, ring_cpu), view_db=psnr(view_gpu, view_cpu),
+                hemi_db=psnr(hemis[0], hemis[1]) if hemis else None,
+                same_buckets=buckets[0] == buckets[1],
+                frac=float((ring_cpu[..., 3] > 0.1).mean()))
+
+
+def tiny_fused(dev, kernel: str, tile_cull: bool):
+    """Phase 12 on the card: the fused `render_frame` against `update_sky` +
+    `render_view` on a copy of the engine taken after the warm start's
+    tick, over 16 ticks that cross a cycle boundary: frames at atol 2e-5 /
+    rtol 1e-5, rings bitwise. Returns the largest frame difference."""
+    import copy
+
+    import torch
+
+    from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+
+    fused = tiny_engine(dev, procedural_noise_pack(1, 16, 16, 64, device=dev),
+                        kernel, tile_cull)
+    fused.update_sky(now=0.0)
+    split = copy.deepcopy(fused)
+    d = texel_directions(48, device=dev) * torch.tensor([1.0, 0.7, 1.0], device=dev)
+    worst = 0.0
+    for i in range(1, 17):
+        f = fused.render_frame(d, now=i / 60.0)
+        split.update_sky(now=i / 60.0)
+        g = split.render_view(d)
+        what = f"tiny {kernel}{' tile_cull' if tile_cull else ''} tick {i}"
+        require(torch.allclose(f, g, atol=2e-5, rtol=1e-5),
+                f"{what}: fused and split frames differ")
+        require(torch.equal(fused.cloud_ring, split.cloud_ring),
+                f"{what}: fused and split rings differ")
+        worst = max(worst, float((f - g).abs().max()))
+    require(fused._display_pair is not None, "the fused ticks built no pair tables")
+    return worst
+
+
+# bench.py's serving operating point (`bench.py:272-323`): a warm start, 65
+# warm ticks, then 70 timed ticks that cross one rotation boundary.
+CULL_WARM_TICKS, CULL_TIMED_TICKS = 65, 70
+# Gate of phase 11b's culled cycle (skip tiles zero, v3 tiles at their cell
+# bucket) against the dense march over the same 768² texel grid, which is
+# what the unculled engine renders for 96² tiles. On the card the cycle
+# measured 39.09 dB (NVIDIA H100 80GB HBM3, 700.00 W); the gate leaves 4 dB
+# of that, as V3_ENGINE_DB does of its reading.
+TILE_CULL_DB = 35.0
+
+
+def tile_arm(bucket: float) -> str:
+    """The fast3 tile arm a tile-cull bucket takes."""
+    return "skip" if bucket == 0.0 else ("dense" if bucket >= 1.0 else "v3")
+
+
+def run_tile_cull(dev):
+    """Phase 11b: the fast3 tile-cull engine at bench.py's serving point,
+    through the fused `render_frame`. The kernel counts are zeroed before
+    the engine's construction and read after the timed window; K2 and K3
+    must launch within the window. Then the cycle's tiles are marched
+    again and the culled map is held against the dense march, and the
+    first v3 tile's K2 and K3 calls are recorded and held against their
+    plain versions (for phase 13's rows)."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile
+    from cloudscape_tpu_torch.models import march_fast
+    from cloudscape_tpu_torch.models.march_fast import march_tile_dense
+    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    eye = camera_dirs(1280, 720, dev)
+    accum.launches = compact.launches = segscan.launches = 0
+    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CloudSkyEngine(
+        perf=PerfConfig(texture_size=768, frames_to_update=64, march_steps=128),
+        config=CloudConfig(cloud_coverage=0.35, sun_disk_scale=2.0, wind_speed=10.0,
+                           ground_color=(0.27, 0.19, 0.027, 1.0)),
+        sun=SunState(direction=(0.3, 0.4, -0.85)), kernel="fast3",
+        cone_res=CONE_RES, tile_cull=True, device=dev)
+    eng.render_frame(eye, now=0.0)  # the warm start
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for i in range(1, 1 + CULL_WARM_TICKS):
+        eng.render_frame(eye, now=i / 60.0)
+    torch.cuda.synchronize()
+    n_frames = eng.perf.frames_to_update
+    k_warm = (accum.launches, compact.launches, segscan.launches)
+    ticks, pickups, done_buckets, frame = [], 0, None, None
+    for i in range(1 + CULL_WARM_TICKS, 1 + CULL_WARM_TICKS + CULL_TIMED_TICKS):
+        boundary = eng.ring.frame >= n_frames
+        pend = eng._pending
+        if boundary:
+            done_buckets = eng._tile_buckets  # the cycle this boundary completes
+            require(pend is not None and pend.buckets is not None,
+                    "the tile-cull prebake was not ready at the boundary")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        start.record()
+        frame = eng.render_frame(eye, now=i / 60.0)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+        if boundary:
+            require(eng._tile_buckets is pend.buckets,
+                    "the boundary did not pick up the prebaked buckets")
+            pickups += 1
+        # The tick rendered tile frame - 1 of the row-major sweep.
+        ticks.append((tile_arm(eng._tile_buckets[eng.ring.frame - 1]),
+                      start.elapsed_time(end), wall_ms))
+    k1, k2, k3 = (accum.launches - k_warm[0], compact.launches - k_warm[1],
+                  segscan.launches - k_warm[2])
+    phase = dict(k1=accum.launches, k2=compact.launches, k3=segscan.launches,
+                 noise=dict(noise_kernel.launches))
+    require(pickups == 1, f"{pickups} boundaries in the timed window, not 1")
+    require(any(a == "v3" for a, _, _ in ticks), "no timed tick took a v3 bucket")
+    require(k2 > 0 and k3 > 0, f"the timed ticks launched K2 {k2}, K3 {k3} times")
+    require(all(v == 1 for v in phase["noise"].values()),
+            f"the engine's pack did not launch K4–K6 once each: {phase['noise']}")
+    require(phase["k1"] > 0, "the tile-cull phase launched no K1")
+    require(frame.shape == eye.shape, f"frame shape {tuple(frame.shape)}")
+    require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+            "tile-cull frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, "tile-cull frame is black")
+
+    # Skip tiles are exact zeros: the cycle the boundary completed (its
+    # buckets) and this cycle's tiles so far.
+    region = eng.perf.update_region_size
+    tpr = eng.perf.texture_size // region
+    ring = eng.cloud_ring
+    for tex, buckets, count in ((eng.ring.texture_to_blend_to, done_buckets, n_frames),
+                                (eng.ring.texture_to_update, eng._tile_buckets,
+                                 eng.ring.frame)):
+        for k in range(count):
+            if buckets[k] == 0.0:
+                y0, x0 = (k // tpr) * region, (k % tpr) * region
+                require(not bool(ring[tex, y0:y0 + region, x0:x0 + region].any()),
+                        f"skip tile {k} of ring slot {tex} is not zero")
+    require(bool(torch.isfinite(ring).all()), "tile-cull cloud ring is not finite")
+    cloud_frac = float((ring[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, "no clouds in the tile-cull cloud ring")
+
+    # This cycle's culled map against the unculled one: every tile marched
+    # again by its arm (skip tiles stay zero), those the ticks wrote already
+    # equal to the ring's (the kernels are deterministic), and the whole map
+    # against the dense march over the same texel grid, params, sky slot and
+    # cone cache, which is what the unculled engine renders for tiles this
+    # size. The first v3 tile's K2 and K3 calls are recorded and held
+    # against their plain versions (phase 13 times them).
+    v3_tiles = [j for j, b in enumerate(eng._tile_buckets) if tile_arm(b) == "v3"]
+    require(v3_tiles, "this cycle's buckets hold no v3 tile")
+    size, tex = eng.perf.texture_size, eng.ring.texture_to_update
+    sky = eng.sky_ring[eng.ring.cloud_kernel_sky_slot]
+    culled = torch.zeros((size, size, 4), dtype=torch.float32, device=dev)
+    compactions, scans = [], []
+    real_c, real_s = march_fast.compact, march_fast.segscan
+
+    def rec_c(mask, capacity, total, with_rank=True):
+        compactions.append((mask.clone(), capacity, with_rank))
+        return real_c(mask, capacity, total, with_rank)
+
+    def rec_s(v, h):
+        scans.append((v.clone(), h.clone()))
+        return real_s(v, h)
+
+    for k, b in enumerate(eng._tile_buckets):
+        if b == 0.0:
+            continue
+        y0, x0 = (k // tpr) * region, (k % tpr) * region
+        if k == v3_tiles[0]:
+            march_fast.compact, march_fast.segscan = rec_c, rec_s
+        try:
+            tile = _march_tile(
+                texel_directions(size, x0=x0, y0=y0, width=region, height=region,
+                                 device=dev),
+                eng._march_params, eng._bricks, eng._cone_cache, sky,
+                region=region, steps=eng.perf.march_steps,
+                light_steps=eng.perf.light_steps, kernel="fast3",
+                ray_keep_frac=b if b < 1.0 else None)
+        finally:
+            march_fast.compact, march_fast.segscan = real_c, real_s
+        require(k >= eng.ring.frame or torch.equal(
+            tile, ring[tex, y0:y0 + region, x0:x0 + region]),
+            f"tile {k} (bucket {b}) marched again differs from the tick's")
+        culled[y0:y0 + region, x0:x0 + region] = tile
+    k3_err = check_recorded("a phase-11b v3 tile", compactions, scans)
+    dense = march_tile_dense(
+        texel_directions(size, device=dev), eng._march_params, eng._bricks, sky,
+        steps=eng.perf.march_steps, light_steps=eng.perf.light_steps, chunk=16384,
+        cone_cache=eng._cone_cache)
+    cull_db = psnr(culled.cpu().numpy(), dense.cpu().numpy())
+    require(cull_db >= TILE_CULL_DB,
+            f"the culled cycle vs the dense march {cull_db:.2f} dB < {TILE_CULL_DB}")
+    arms = {a: [t for b, t, _ in ticks if b == a] for a in ("skip", "v3", "dense")}
+    event = [t for _, t, _ in ticks]
+    med = statistics.median(event)
+    return eng, dict(
+        warm_s=warm_s, event_ms=event, wall_ms=[w for _, _, w in ticks],
+        median=med, max=max(event), hitch=max(event) / med,
+        hitch_p95=sorted(event)[int(len(event) * 0.95)] / med,
+        arm_median={a: statistics.median(v) if v else None for a, v in arms.items()},
+        arm_ticks={a: len(v) for a, v in arms.items()},
+        histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
+        k1=k1, k2=k2, k3=k3, phase=phase, v3_tiles=len(arms["v3"]),
+        v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
+        scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
+        frame_mean=float(frame.mean()))
+
+
+def trace_calls(fn, reps: int = 10):
+    """(device ms, device launches) per fn() call from torch.profiler: every
+    device activity the calls make, summed, over `reps` calls; (None, None)
+    if the profiler sees no device activity. TRACE_PAD calls run first in
+    the same trace, then the host idles 50 ms: the measured calls' events
+    are those after the trace's longest gap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return None, None
+    gaps = [b.time_range.start - a.time_range.end for a, b in zip(events, events[1:])]
+    require(gaps and max(gaps) >= 25e3, "trace_calls: no 50 ms gap in the trace")
+    events = events[gaps.index(max(gaps)) + 1:]
+    return (sum(e.time_range.elapsed_us() for e in events) / reps / 1e3,
+            len(events) / reps)
+
+
+def run_composite(eng, eyedirs):
+    """Phase 7b: the composite traced on its own, on the phase-5 engine's
+    state at the camera's resolution: the split `composite` (`render_view`)
+    and `composite_display` over the pair tables, CUDA-event ms,
+    profiler device ms and launches a call; and `_build_display_pair`
+    (once a cycle). The two composites agree at atol 2e-5 / rtol 1e-5."""
+    import torch
+
+    from cloudscape_tpu_torch.engine import _build_display_pair
+    from cloudscape_tpu_torch.models.compositor import composite_display
+
+    pair = eng._display_pair_tables()
+    b0, b1 = eng.ring.sky_back_textures
+
+    def split():
+        return eng.render_view(eyedirs)
+
+    def display():
+        return composite_display(eyedirs, *pair, eng.transmittance,
+                                 eng._light_dir(eng.frame_data),
+                                 eng.config.sun_disk_scale, eng.blend_amount)
+
+    def build():
+        return _build_display_pair(eng.cloud_ring, eng.ring.texture_to_blend_from,
+                                   eng.ring.texture_to_blend_to, eng.sky_ring, b0, b1)
+
+    a, b = split(), display()
+    torch.cuda.synchronize()
+    require(torch.allclose(b, a, atol=2e-5, rtol=1e-5),
+            f"composite_display differs from composite by {float((b - a).abs().max())}")
+    out = {}
+    for name, fn in (("composite", split), ("composite_display", display),
+                     ("build_display_pair", build)):
+        dev_ms, launches = trace_calls(fn)
+        out[name] = dict(event_ms=cuda_time_ms(fn), device_ms=dev_ms,
+                         launches=launches)
+    out["max_abs_diff"] = float((b - a).abs().max())
+    return out
 
 
 def main() -> int:
@@ -1110,6 +1484,15 @@ def main() -> int:
           f"{v['db']:.2f} dB vs dense ({v['off_db']:.2f} dB with every gate off); "
           f"K1 x{v['k1']}, K2 x{v['k2']}, K3 x{v['k3']} per call; "
           f"cloud fraction {v['cloud_frac']:.4f} ({card})", flush=True)
+    comp = run_composite(eng, camera_dirs(1280, 720, dev))
+    for cname in ("composite", "composite_display", "build_display_pair"):
+        cr = comp[cname]
+        dev_ms = "not measured" if cr["device_ms"] is None else f"{cr['device_ms']:.4f} ms"
+        print(f"{cname} (phase-5 engine, 1280x720): {cr['event_ms']:.4f} ms by CUDA "
+              f"events, {dev_ms} on the device by torch.profiler, "
+              f"{cr['launches']} device launches a call ({card})", flush=True)
+    print(f"composite_display vs composite: max abs diff {comp['max_abs_diff']:.3g}",
+          flush=True)
     del eng
     headline = run_headline(dev)
     for h in headline:
@@ -1154,14 +1537,46 @@ def main() -> int:
               f"ticks; cloud fraction {s['cloud_frac']:.4f}{extra} ({card})",
               flush=True)
 
+    ceng, c = run_tile_cull(dev)
+    ev = c["event_ms"]
+    arms = ", ".join(
+        f"{a} {c['arm_median'][a]:.2f} ms over {c['arm_ticks'][a]}"
+        if c["arm_median"][a] is not None else f"{a} none"
+        for a in ("skip", "v3", "dense"))
+    print(f"tile-cull engine (fast3, 768²/64/128, cone {CONE_RES}, coverage 0.35, "
+          f"fused render_frame 1280x720; bench.py's serving point): start "
+          f"{c['warm_s']:.2f} s; tick median {c['median']:.2f} ms, max "
+          f"{c['max']:.2f}, hitch {c['hitch']:.3f}, hitch_p95 {c['hitch_p95']:.3f} "
+          f"over {len(ev)} ticks (CUDA events; host clock median "
+          f"{statistics.median(c['wall_ms']):.2f} ms); median per arm: {arms}; "
+          f"phase 5 median {statistics.median(ms):.2f} ms ({card})", flush=True)
+    print(f"tile-cull buckets (this cycle): {c['histogram']}; timed window K1 "
+          f"x{c['k1']}, K2 x{c['k2']}, K3 x{c['k3']}; one v3 tile (bucket "
+          f"{c['v3_bucket']}) launches K2 x{len(c['compactions'])}, K3 "
+          f"x{len(c['scans'])} (K2 bitwise, K3 max_abs_err {c['k3_err']:.3g} "
+          f"against their plain versions); the culled cycle "
+          f"{c['cull_db']:.2f} dB vs the dense march; cloud fraction "
+          f"{c['cloud_frac']:.4f}, frame mean {c['frame_mean']:.4f} ({card})",
+          flush=True)
+    print("tile-cull tick ms: " + " ".join(f"{t:.1f}" for t in ev), flush=True)
+    del ceng
+
     for kernel in ("fast3", "fast2"):
-        ring_db, view_db, hemi_db, frac = tiny_parity(dev, kernel)
-        print(f"tiny {kernel} engine card vs CPU: ring {ring_db:.1f} dB, view "
-              f"{view_db:.1f} dB, render_full_hemisphere {hemi_db:.1f} dB (cloud "
-              f"fraction {frac:.3f})", flush=True)
-        require(ring_db >= 50.0 and view_db >= 50.0 and hemi_db >= 50.0,
-                f"card and CPU {kernel} engines disagree")
-        require(frac > 0.0, f"the tiny {kernel} engine rendered no clouds")
+        for tile_cull in (False, True):
+            t = tiny_parity(dev, kernel, tile_cull)
+            what = f"tiny {kernel}{' tile_cull' if tile_cull else ''} engine"
+            hemi = "" if t["hemi_db"] is None else \
+                f", render_full_hemisphere {t['hemi_db']:.1f} dB"
+            print(f"{what} card vs CPU: ring {t['ring_db']:.1f} dB, view "
+                  f"{t['view_db']:.1f} dB{hemi}, same buckets {t['same_buckets']} "
+                  f"(cloud fraction {t['frac']:.3f})", flush=True)
+            require(t["ring_db"] >= 50.0 and t["view_db"] >= 50.0
+                    and (t["hemi_db"] is None or t["hemi_db"] >= 50.0),
+                    f"card and CPU {what}s disagree")
+            require(t["frac"] > 0.0, f"the {what} rendered no clouds")
+            worst = tiny_fused(dev, kernel, tile_cull)
+            print(f"{what} on the card, fused vs split over 16 ticks: rings bitwise, "
+                  f"frames max abs diff {worst:.3g}", flush=True)
 
     # Phase 13: each kernel's device time (cold L2) against its bound at the
     # shapes of the paths above; the first row of each is its main-path shape.
@@ -1172,12 +1587,28 @@ def main() -> int:
         # takes the rank.
         "compact": [time_compact(k2_mask, K2_CAP, False, plain=True),
                     time_compact(k2_mask, K2_CAP, True)]
-        + [time_compact(m, c, wr) for m, c, wr in v["compactions"]],
+        + [time_compact(m, cap, wr) for m, cap, wr in v["compactions"]]
+        + [time_compact(m, cap, wr) for m, cap, wr in c["compactions"]],
         # One 1-D and one [3, n] launch per v3 march: the engine's hot list
-        # first, then the headline's.
+        # first, then the headline's, then a v3 tile's (as it ran).
         "segscan": [time_segscan(dev, cap_h, 1, plain=True),
                     time_segscan(dev, cap_h, 3, plain=True)]
-        + [time_segscan(dev, h["caps"][2], k) for h in headline for k in (1, 3)],
+        + [time_segscan(dev, h["caps"][2], k) for h in headline for k in (1, 3)]
+        + [time_segscan_on(sv, sh) for sv, sh in c["scans"]],
+    }
+    # Launches per pass by the shape they ran at: phase 5 and the tile-cull
+    # window's prebake finalize at the finalize's shape, phase 7's and the
+    # v3 tiles' at theirs (K3: half 1-D, half [3, n] in phase 7).
+    n7, nt = len(v["compactions"]), len(c["compactions"])
+    k2_rows = rows["compact"]
+    k2_finalize = r["k2"] + v["k2"] - n7 + max(c["k2"] - c["v3_tiles"] * nt, 0)
+    groups = {
+        "accumulate": [(r["k1"] + v["k1"] + c["k1"], rows["accumulate"][0])],
+        "compact": [(k2_finalize, k2_rows[0])]
+        + [(1, row) for row in k2_rows[2:2 + n7]]
+        + [(c["v3_tiles"], row) for row in k2_rows[2 + n7:]],
+        "segscan": [(v["k3"] / 2, rows["segscan"][0]), (v["k3"] / 2, rows["segscan"][1])]
+        + [(c["v3_tiles"], row) for row in rows["segscan"][2 + 2 * len(headline):]],
     }
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
@@ -1199,36 +1630,40 @@ def main() -> int:
 
     # launches: the counts read around each kernel's path (K1, K2: the
     # engine ticks; K3: the full-hemisphere and headline renders; K4–K6:
-    # the engine's construction and config 4's pack). launches_per_pass:
-    # phase 5 (construction, warm start, the ticks) plus phase 7's first
-    # render_full_hemisphere.
+    # the engine's construction and config 4's pack); launches_tile_cull:
+    # the tile-cull phase's (construction, warm start and every tick).
+    # launches_per_pass: phase 5 (construction, warm start, the ticks),
+    # phase 7's first render_full_hemisphere and the tile-cull timed window.
     meta = [
-        ("accumulate", "accum.cu", "accum_pallas.py:101", r["k1"], r["k1"] + v["k1"],
-         max(k1_err, k1_64_err)),
-        ("compact", "compact.cu", "compact_pallas.py:184", r["k2"], r["k2"] + v["k2"],
-         0.0),
-        ("segscan", "segscan.cu", "segscan_pallas.py:121", k3_launches, v["k3"],
-         k3_err),
+        ("accumulate", "accum.cu", "accum_pallas.py:101", r["k1"],
+         r["k1"] + v["k1"] + c["k1"], c["phase"]["k1"], max(k1_err, k1_64_err)),
+        ("compact", "compact.cu", "compact_pallas.py:184", r["k2"],
+         r["k2"] + v["k2"] + c["k2"], c["phase"]["k2"], 0.0),
+        ("segscan", "segscan.cu", "segscan_pallas.py:121", k3_launches,
+         v["k3"] + c["k3"], c["phase"]["k3"], max(k3_err, c["k3_err"])),
     ]
     for (kname, _, _, _), line in zip(NOISE_CASES, (187, 214, 240)):
         meta.append((f"noise_{kname}", "noise.cu", f"noise_pallas.py:{line}",
                      r["noise"][kname] + c4["noise_launches"][kname],
-                     r["noise"][kname], noise_rows[kname]["err"]))
+                     r["noise"][kname], c["phase"]["noise"][kname],
+                     noise_rows[kname]["err"]))
+        groups[f"noise_{kname}"] = [(r["noise"][kname], rows[f"noise_{kname}"][0])]
     kernels = []
-    for kname, src, tpu, launches, per_pass, err in meta:
+    for kname, src, tpu, launches, per_pass, cull_launches, err in meta:
         main_row = rows[kname][0]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"cloudscape_tpu_torch/csrc/{src}",
             "replaces": f"cloudscape_tpu/ops/{tpu}",
             "launches": launches, "launches_per_pass": per_pass,
+            "launches_tile_cull": cull_launches,
             "max_abs_err": err, "shape": main_row["shape"],
             "ms": main_row["device_us"] / 1e3, "device_us": main_row["device_us"],
             "device_us_write_flush": main_row["device_us_write_flush"],
             "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_us"] / 1e3, "bound_us": main_row["bound_us"],
             "bound_by": main_row["bound_by"], "bound_share": main_row["bound_share"],
-            "loss_per_pass_us": loss_per_pass_us(kname, per_pass, rows[kname]),
+            "loss_per_pass_us": loss_per_pass_us(groups[kname]),
             "redesigned_in": REDESIGNED_IN.get(kname),
             # Only K2's function has a single PyTorch call (with the caveat
             # in `time_nonzero`).
@@ -1244,6 +1679,10 @@ def main() -> int:
         f"{', left alone' if k['bound_share'] >= 0.5 else ''}"
         f"{', redesigned' if k['redesigned_in'] else ''})" for k in ranked)
         + f" ({card})", flush=True)
+    for kname in ("compact", "segscan"):
+        print(f"{kname} launches per pass by shape: " + "; ".join(
+            f"{n:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
+            f"{row['bound_us']:.2f} us)" for n, row in groups[kname]), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,16 +1,19 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
-The port of `cloudscape_tpu.engine.CloudSkyEngine` for its staged kernels
-without tile culling, on one device: the default `kernel="fast3"` (dense
-tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above) and
-`kernel="fast2"` (the v2 march for every tile), and for their
-full-hemisphere re-render (`render_full_hemisphere`: the v3 march for
-fast3, v2 over the whole map for fast2). It owns the
-texture rings on its device, schedules the amortized tile updates,
-integrates wind, snapshots kernel parameters once per cycle, bakes the next
-cycle's cone-density cache and sky LUT across the current cycle's ticks
-(`cone_prebake`), and exposes the user API (sun/config setters, view
-rendering, save/restore).
+The port of `cloudscape_tpu.engine.CloudSkyEngine` for its staged kernels on
+one device: the default `kernel="fast3"` (dense tiles below
+`V3_TILE_MIN_RAYS` rays, the staged v2 march above; with `tile_cull`, the
+v3 cell-gated march at each tile's cell bucket) and `kernel="fast2"` (the
+v2 march for every tile; with `tile_cull`, at each tile's ray bucket), with
+or without per-tile culling, and for their full-hemisphere re-render
+(`render_full_hemisphere`: the v3 march for fast3, v2 over the whole map
+for fast2). It owns the texture rings on its device, schedules the
+amortized tile updates, integrates wind, snapshots kernel parameters once
+per cycle, bakes the next cycle's cone-density cache, sky LUT and tile-cull
+map across the current cycle's ticks (`cone_prebake`), serves the
+amortized tick through the display-pair fused `render_frame` by default,
+and exposes the user API (sun/config setters, view rendering,
+save/restore).
 
 Where the JAX engine donates buffers to jitted `dynamic_update_slice`s, this
 one writes tiles, LUT slots and bake slices into its tensors in place; each
@@ -22,14 +25,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time as _time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState
 from cloudscape_tpu_torch.models import atmosphere
-from cloudscape_tpu_torch.models.compositor import composite
+from cloudscape_tpu_torch.models.compositor import composite, composite_display
 from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
 from cloudscape_tpu_torch.models.march_fast import (
     BrickPack,
@@ -41,6 +44,8 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_occupancy_finalize,
     cone_occupancy_slice,
     cone_table_rows,
+    cull_finalize,
+    cull_raw_slice,
     march_bricks_v2,
     march_bricks_v3,
     march_tile_dense,
@@ -49,35 +54,82 @@ from cloudscape_tpu_torch.models.march_fast import (
     wrap_cone_table,
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
-from cloudscape_tpu_torch.ops.brick import brick3_grid
+from cloudscape_tpu_torch.ops.brick import brick3_grid, build_brick2_device
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.temporal import FrameData, RingState
 
-# fast3 tiles with at least this many rays take the staged v2 march, smaller
-# ones the dense march (the JAX engine's threshold).
+# fast3 tiles without a cull bucket take the dense march below this many
+# rays and the staged v2 march above (the JAX engine's threshold).
 V3_TILE_MIN_RAYS = 65536
+# fast3's per-tile live-cell capacity buckets for the v3 tile arm (tile
+# cull); a tile above the last one takes the 1.0 bucket (dense arm).
+V3_TILE_CELL_BUCKETS = (0.25, 0.375, 0.5, 0.65, 0.8)
 # Cone-bake chunk of the JAX engine; it sets the compacted capacity
 # (`cone_capacity`), so the port uses the same value.
 _CONE_CHUNK = 65536
 
 
+def _prepass_steps(steps: int) -> int:
+    """Coarse probes per ray of the cull prepass and the v3 march: the
+    largest divisor of `steps` that is at most steps / 4."""
+    ps = max(1, steps // 4)
+    while steps % ps:
+        ps -= 1
+    return ps
+
+
 def _march_tile(dirs, params: MarchParams, bricks: BrickPack,
                 cone_cache: ConeCache, sky_img, *, region: int, steps: int,
-                light_steps: int, kernel: str):
-    """The tile march of a staged kernel (no tile cull): "fast3" marches
-    tiles below V3_TILE_MIN_RAYS rays densely and larger ones through the
-    staged v2 march; "fast2" takes the v2 march for every tile (and for its
-    whole-map render, chunked by the tile as in the JAX engine). The v2
-    capacity is the JAX engine's 0.5 of the samples."""
+                light_steps: int, kernel: str,
+                ray_keep_frac: Optional[float] = None, cull_prio=None):
+    """The tile march of a staged kernel. Without a cull bucket, "fast3"
+    marches tiles below V3_TILE_MIN_RAYS rays densely and larger ones
+    through the staged v2 march, and "fast2" takes the v2 march for every
+    tile (and for its whole-map render, chunked by the tile as in the JAX
+    engine). The v2 capacity is the JAX engine's 0.5 of the samples.
+
+    With tile cull, ray_keep_frac is the tile's bucket strictly between 0
+    and 1 (the engine writes 0.0 tiles as zeros and marches 1.0 tiles
+    without one). For fast3 it is the tile's live-CELL capacity: the v3
+    cell-gated march at that cell bucket, hot bucket 0.5, ray stride 2,
+    cell margin 0.1 and no ray select. For fast2 it is the kept-ray
+    fraction, ranked by `cull_prio`, the tile's window of the cycle's
+    priority map."""
     n = int(np.prod(dirs.shape[:-1]))
-    if kernel == "fast3" and n < V3_TILE_MIN_RAYS:
-        return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
-                                light_steps=light_steps, chunk=min(n, 16384),
-                                cone_cache=cone_cache)
+    if kernel == "fast3":
+        if ray_keep_frac is not None and 0.0 < ray_keep_frac < 1.0 \
+                and dirs.dim() == 3:
+            return march_bricks_v3(
+                dirs, params, bricks, sky_img, steps=steps,
+                light_steps=light_steps, chunk=min(n, 16384),
+                cell_keep_frac=float(ray_keep_frac), hot_keep_frac=0.5,
+                cone_cache=cone_cache, ray_keep_frac=None,
+                prepass_steps=_prepass_steps(steps), ray_stride=2,
+                cell_margin=0.1)
+        if n < V3_TILE_MIN_RAYS:
+            return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
+                                    light_steps=light_steps,
+                                    chunk=min(n, 16384), cone_cache=cone_cache)
     chunk = min(region * region if kernel == "fast2" else n, 16384)
     return march_bricks_v2(dirs, params, bricks, sky_img, steps=steps,
                            light_steps=light_steps, chunk=chunk,
-                           capacity_frac=0.5, cone_cache=cone_cache)
+                           capacity_frac=0.5, cone_cache=cone_cache,
+                           ray_keep_frac=ray_keep_frac, cull_prio=cull_prio)
+
+
+def _build_display_pair(cloud_ring, cfrom: int, cto: int, sky_ring, b0: int,
+                        b1: int):
+    """The cycle's display-pair brick tables: the blend pair's textures are
+    frozen between rotations (only `texture_to_update` is written within a
+    cycle), so each is packed once a cycle, each 128-lane row holding from
+    rgba (channels 0-3) ‖ to rgba (4-7) over a (4, 4) brick, clamp wrap.
+    `torch.cat` copies, so the tables never alias the ring, whose tiles
+    are written in place."""
+    cp = build_brick2_device(torch.cat([cloud_ring[cfrom], cloud_ring[cto]],
+                                       dim=-1), (4, 4), (3, 3), wrap="clamp")
+    sp = build_brick2_device(torch.cat([sky_ring[b0], sky_ring[b1]], dim=-1),
+                             (4, 4), (3, 3), wrap="clamp")
+    return cp, sp
 
 
 @dataclasses.dataclass
@@ -85,8 +137,9 @@ class _PendingCycle:
     """The NEXT cycle's state, frozen one rotation ahead and baked across the
     current cycle's ticks, one stage step per tick (`_advance_prebake`):
     occupancy slices → occupancy finalize (kernel K2) → cone-march slices →
-    brick-table row slices → wrap → sky-LUT row bands. `fresh` skips the
-    boundary tick itself."""
+    brick-table row slices → wrap → sky-LUT row bands → (tile cull) cull
+    prepass slices → cull finalize → the tile fractions' host read. `fresh`
+    skips the boundary tick itself."""
 
     frame_data: FrameData
     march_params: MarchParams
@@ -100,6 +153,12 @@ class _PendingCycle:
     cone: Optional[ConeCache] = None  # assembled cache once complete
     sky_rows: Any = None              # list of prebaked sky-LUT row bands
     sky: Any = None                   # prebaked sky-LUT image for the pickup
+    raw: Any = None                   # [n_sub, prepass_steps] raw cull buffer
+    cull_done: int = 0
+    prio: Any = None                  # the cycle's cull priority map
+    tile_keep: Any = None             # device tile-keep fractions (pre-read)
+    tile_cell: Any = None             # device tile live-cell fractions
+    buckets: Optional[List[float]] = None
     fresh: bool = True                # created this tick — skip one advance
 
 
@@ -135,24 +194,35 @@ class CloudSkyEngine:
         the v3 march) or "fast2" (the v2 march for every tile and the
         whole-map render). cone_res: (hf, z, x) resolution of the per-cycle
         cone cache; cone_prebake (default on): bake the next cycle's cone
-        cache and sky LUT across the current cycle's ticks, taking the
-        snapshot one rotation ahead."""
+        cache, sky LUT and tile-cull map across the current cycle's ticks,
+        taking the snapshot one rotation ahead.
+
+        tile_cull: per-tile culling from a per-cycle cull map (the
+        parameters are frozen for a cycle, so one prepass over the texel
+        grid scores every tile). Each tile gets a bucket: 0.0 when its
+        whole window scores empty (the march is skipped and zeros, exactly
+        the all-culled result, are written), 1.0 when culling would remove
+        too little (the unculled arm), else fast3's live-cell capacity
+        (the v3 tile arm) or fast2's kept-ray fraction. Off by default:
+        culled tiles are close to, not equal to, unculled ones."""
         if kernel in ("fast", "hier", "reference"):
             raise NotImplementedError(
                 f"kernel={kernel!r} is not ported yet (ROADMAP: fast/reference "
                 "A5, hier A13)")
         if kernel not in ("fast2", "fast3"):
             raise ValueError(f"unknown kernel {kernel!r}")
-        if tile_cull:
-            raise NotImplementedError("tile_cull is not ported yet (ROADMAP A11)")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet "
                                       "(ROADMAP A15)")
         self.kernel = kernel
         self.device = torch.device(device)
         self.cone_res = tuple(cone_res)
+        # Both ported kernels are staged, the only ones the JAX engine culls.
+        self.tile_cull = bool(tile_cull)
         self.cone_prebake = True if cone_prebake is None else bool(cone_prebake)
         self._pending: Optional[_PendingCycle] = None
+        self._prio_map = None
+        self._tile_buckets: Optional[List[float]] = None
         self.perf = perf.validate()
         self.config = config
         self.sun = sun
@@ -170,6 +240,7 @@ class CloudSkyEngine:
                                       device=self.device)
         self.sky_ring = torch.zeros((3,) + self.SKY_LUT_SHAPE,
                                     dtype=torch.float32, device=self.device)
+        self._display_pair = None
 
         self.frame_data = FrameData()
         self._head_frame_data = self.frame_data  # replaced by a copy at refresh
@@ -217,6 +288,7 @@ class CloudSkyEngine:
         "asm_us_per_row": 1.9,
         "occ_us_per_cell": 0.0105,
         "sky_ms_per_row": 0.2,
+        "cull_us_per_ray": 0.7,
     }
     _BAKE_TICK_MS = 14.0
 
@@ -225,12 +297,21 @@ class CloudSkyEngine:
         step is sized to ≲ _BAKE_TICK_MS of work at `_BAKE_COSTS`; when the
         step count does not fit in frames_to_update ticks the per-tick
         budget grows until it does. When even that fails, the pending bake
-        is not ready at the boundary and the synchronous build runs."""
+        is not ready at the boundary and the synchronous build runs. With
+        tile cull the prepass is sliced over the stride-subsampled texel
+        grid (`_dirs_sub`)."""
         c = self._BAKE_COSTS
         n = int(np.prod(self.cone_res))
         self._cone_capacity = cone_capacity(n, 0.45, _CONE_CHUNK)
         self._n_bricks = int(np.prod(brick3_grid(self.cone_res, (7, 3, 3))))
         sky_h = self.SKY_LUT_SHAPE[0]
+        self._n_sub = 0
+        if self.tile_cull:
+            size = self.perf.texture_size
+            self._cull_ps, self._cull_stride = self._v3_march_knobs()
+            self._n_sub = (size // self._cull_stride) ** 2
+            self._dirs_sub = texel_directions(size, device=self.device)[
+                ::self._cull_stride, ::self._cull_stride].reshape(-1, 3)
 
         def plan(budget_ms: float):
             occ_slice = max(int(budget_ms * 1e3 / c["occ_us_per_cell"]), 1)
@@ -243,24 +324,33 @@ class CloudSkyEngine:
             sky_rows = min(sky_rows, sky_h)
             while sky_h % sky_rows:
                 sky_rows -= 1
+            cull_slice = n_cull = 0
+            if self.tile_cull:
+                cull_slice = max(int(budget_ms * 1e3 / c["cull_us_per_ray"]), 1)
+                cull_slice = min(_ceil_to(cull_slice, 4096), self._n_sub)
+                n_cull = -(-self._n_sub // cull_slice)
             counts = (-(-n // occ_slice), -(-self._cone_capacity // cone_slice),
-                      -(-self._n_bricks // asm_slice), sky_h // sky_rows)
-            # skip, idx-finalize, wrap, slack
-            total = 4 + sum(counts)
-            return total, counts, (occ_slice, cone_slice, asm_slice, sky_rows)
+                      -(-self._n_bricks // asm_slice), sky_h // sky_rows, n_cull)
+            # skip, idx-finalize, wrap, (cull finalize + host read), slack
+            total = 4 + (2 if self.tile_cull else 0) + sum(counts)
+            return total, counts, (occ_slice, cone_slice, asm_slice, sky_rows,
+                                   cull_slice)
 
         total_var_ms = (self._cone_capacity * c["cone_us_per_cell"]
                         + n * c["occ_us_per_cell"]
                         + self._n_bricks * c["asm_us_per_row"]) * 1e-3 \
-            + sky_h * c["sky_ms_per_row"]
+            + sky_h * c["sky_ms_per_row"] \
+            + self._n_sub * c["cull_us_per_ray"] * 1e-3
         avail = max(self.perf.frames_to_update - 6, 1)
         budget = max(self._BAKE_TICK_MS, total_var_ms / avail)
         total, counts, sizes = plan(budget)
         while total > self.perf.frames_to_update and budget < 4096.0:
             budget *= 1.1
             total, counts, sizes = plan(budget)
-        self._n_occ, self._n_cone_slices, self._n_asm, self._n_sky = counts
-        self._occ_slice, self._cone_slice, self._asm_slice, self._sky_rows = sizes
+        (self._n_occ, self._n_cone_slices, self._n_asm, self._n_sky,
+         self._n_cull) = counts
+        (self._occ_slice, self._cone_slice, self._asm_slice, self._sky_rows,
+         self._cull_slice) = sizes
 
     def _build_cone(self, params: MarchParams) -> ConeCache:
         return build_cone_cache(params, self._bricks, self.perf.light_steps,
@@ -270,8 +360,9 @@ class CloudSkyEngine:
         """`_update_per_frame_data` (`cloud_sky.gd:165-187`) minus the LUT
         render. With cone_prebake the snapshot pipeline is one cycle deep:
         the snapshot frozen at this rotation becomes active at the next, its
-        cone cache and sky LUT baked across this cycle's ticks; when the
-        pending bake is not ready the cache is built synchronously."""
+        cone cache, sky LUT and tile-cull map baked across this cycle's
+        ticks; when the pending bake is not ready they are built
+        synchronously."""
         self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
         if not self.cone_prebake:
             self.frame_data.update_light_data(self.sun, self._sun_srgb)
@@ -279,6 +370,8 @@ class CloudSkyEngine:
             self.frame_data.integrate_wind(now)
             self._march_params = self.frame_data.to_march_params(self.device)
             self._cone_cache = self._build_cone(self._march_params)
+            if self.tile_cull:
+                self._refresh_tile_cull()
             return
 
         head = self._head_frame_data
@@ -286,16 +379,24 @@ class CloudSkyEngine:
         head.update_config(self.config)
         head.integrate_wind(now)
         pend = self._pending
-        if pend is not None and pend.cone is not None and pend.sky is not None:
+        ready = (pend is not None and pend.cone is not None
+                 and pend.sky is not None
+                 and (not self.tile_cull or pend.buckets is not None))
+        if ready:
             self.frame_data = pend.frame_data
             self._march_params = pend.march_params
             self._cone_cache = pend.cone
             self._picked_sky = pend.sky
+            if self.tile_cull:
+                self._prio_map = pend.prio
+                self._tile_buckets = pend.buckets
         else:
             self._picked_sky = None
             self.frame_data = copy.deepcopy(head)
             self._march_params = self.frame_data.to_march_params(self.device)
             self._cone_cache = self._build_cone(self._march_params)
+            if self.tile_cull:
+                self._refresh_tile_cull()
         fd = copy.deepcopy(head)
         self._pending = _PendingCycle(
             frame_data=fd, march_params=fd.to_march_params(self.device),
@@ -362,6 +463,106 @@ class CloudSkyEngine:
             if len(pend.sky_rows) >= self._n_sky:
                 pend.sky = torch.cat(pend.sky_rows, dim=0)
                 pend.sky_rows = None
+        elif self.tile_cull and pend.buckets is None:
+            if pend.prio is None and pend.cull_done < self._n_cull:
+                if pend.raw is None:
+                    pend.raw = torch.zeros((self._n_sub, self._cull_ps),
+                                           dtype=torch.float32,
+                                           device=self.device)
+                # The last slice overlaps the one before it.
+                i0 = min(pend.cull_done * self._cull_slice,
+                         max(self._n_sub - self._cull_slice, 0))
+                # In place: writes raw rows [i0, i0 + slice).
+                cull_raw_slice(pend.raw, self._dirs_sub, i0, params,
+                               self._bricks, count=self._cull_slice,
+                               steps=self.perf.march_steps,
+                               prepass_steps=self._cull_ps)
+                pend.cull_done += 1
+            elif pend.prio is None:
+                pend.prio, pend.tile_keep, pend.tile_cell = cull_finalize(
+                    pend.raw, texel_directions(self.perf.texture_size,
+                                               device=self.device),
+                    self.perf.update_region_size, self._cull_stride)
+                pend.raw = None
+            else:
+                # The cycle's one host read of the per-tile fractions.
+                keep = pend.tile_keep.reshape(-1).cpu().numpy()
+                cell = pend.tile_cell.reshape(-1).cpu().numpy()
+                pend.tile_keep = pend.tile_cell = None
+                pend.buckets = self._buckets_from_keep(keep, cell)
+
+    # ------------------------------------------------------------ tile cull
+
+    _TILE_BUCKETS = (0.0, 0.25, 0.5, 0.75, 1.0)
+
+    def _compute_tile_cull(self, params: MarchParams):
+        """The tile-cull state of one snapshot in one call: the priority map
+        over the whole texel grid and the tiles' buckets, from one host read
+        of the per-tile fractions. Returns (prio_map, buckets).
+
+        The JAX engine takes `cull_priority_map` here; the port runs the
+        prebake's two stages over the whole subsampled grid at once
+        (`cull_raw_slice` of all n_sub rays, then `cull_finalize`), so the
+        synchronous fallback and the prebake build the map one way. Both
+        give the one-pass map's tile fractions bitwise and its priorities
+        within 1e-6 (tests/test_torch_serving.py)."""
+        raw = torch.zeros((self._n_sub, self._cull_ps), dtype=torch.float32,
+                          device=self.device)
+        cull_raw_slice(raw, self._dirs_sub, 0, params, self._bricks,
+                       count=self._n_sub, steps=self.perf.march_steps,
+                       prepass_steps=self._cull_ps)
+        prio, tile_keep, tile_cell = cull_finalize(
+            raw, texel_directions(self.perf.texture_size, device=self.device),
+            self.perf.update_region_size, self._cull_stride)
+        return prio, self._buckets_from_keep(tile_keep.reshape(-1).cpu().numpy(),
+                                             tile_cell.reshape(-1).cpu().numpy())
+
+    def _buckets_from_keep(self, keep, cell=None) -> List[float]:
+        """Per-tile buckets from the tiles' fractions (row-major tile order;
+        numpy float32, so the margins round as in the JAX engine).
+
+        fast2: the ray-keep bucket of `_TILE_BUCKETS`, margin 1.1. fast3:
+        0.0 for a tile with no ray above the keep margin (skipped), else the
+        live-cell bucket of V3_TILE_CELL_BUCKETS, margin 1.12 (as
+        `select_cell_keep_frac`; an overflow drops the farthest cells), or
+        1.0 above the last (the dense arm: the cell gate would remove too
+        little)."""
+        buckets = []
+        if self.kernel == "fast3":
+            for k, c in zip(keep, cell):
+                if k * 1.1 <= 0.0:
+                    buckets.append(0.0)
+                    continue
+                buckets.append(next((b for b in V3_TILE_CELL_BUCKETS
+                                     if c * 1.12 <= b), 1.0))
+            return buckets
+        for k in keep:
+            buckets.append(next((b for b in self._TILE_BUCKETS if k * 1.1 <= b),
+                                1.0))
+        return buckets
+
+    def _refresh_tile_cull(self) -> None:
+        """The synchronous tile-cull build for the active snapshot. The JAX
+        engine then warms one XLA executable per bucket
+        (`_warm_tile_cull_variants`); the port compiles nothing per bucket,
+        so it has no warmer."""
+        self._prio_map, self._tile_buckets = \
+            self._compute_tile_cull(self._march_params)
+
+    def _tile_cull_args(self, x0: int, y0: int):
+        """(prio_map, ray_keep_frac) of the tile at (x0, y0): (None, None)
+        without culling or for a 1.0 bucket; (None, 0.0) for a tile that is
+        provably empty sky (skip the march and write zeros)."""
+        if not self.tile_cull or self._tile_buckets is None:
+            return None, None
+        region = self.perf.update_region_size
+        tiles_per_row = self.perf.texture_size // region
+        b = self._tile_buckets[(y0 // region) * tiles_per_row + (x0 // region)]
+        if b >= 1.0:
+            return None, None
+        if b == 0.0:
+            return None, 0.0
+        return self._prio_map, b
 
     def _light_dir(self, frame_data: FrameData) -> torch.Tensor:
         return torch.from_numpy(np.asarray(frame_data.light_direction,
@@ -389,22 +590,47 @@ class CloudSkyEngine:
             self.ring.advance_sky_lut()
         self._picked_sky = None
 
-    def _update_tile(self, tex_idx: int, x0: int, y0: int) -> None:
+    def _update_tile(self, tex_idx: int, x0: int, y0: int, prio_map=None,
+                     ray_keep_frac: Optional[float] = None) -> None:
         """Render one region² tile into cloud_ring[tex_idx] at (x0, y0) — the
-        reference's per-frame compute dispatch (`cloud_sky.gd:234-248`)."""
+        reference's per-frame compute dispatch (`cloud_sky.gd:234-248`). A
+        cull bucket (ray_keep_frac) slices the tile's window of prio_map
+        for fast2's ray ranking."""
         region = self.perf.update_region_size
         dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
                                 width=region, height=region, device=self.device)
+        cull_prio = None
+        if prio_map is not None and ray_keep_frac is not None:
+            cull_prio = prio_map[y0:y0 + region, x0:x0 + region]
         tile = _march_tile(
             dirs, self._march_params, self._bricks, self._cone_cache,
             self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
             steps=self.perf.march_steps, light_steps=self.perf.light_steps,
-            kernel=self.kernel)
+            kernel=self.kernel, ray_keep_frac=ray_keep_frac,
+            cull_prio=cull_prio)
         self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
 
+    def _clear_tile(self, tex_idx: int, x0: int, y0: int) -> None:
+        """The tile-cull 0.0 bucket: a tile whose whole priority window sits
+        below the keep margin renders what the march returns for all-culled
+        rays, zeros, so the march is skipped."""
+        region = self.perf.update_region_size
+        self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = 0.0  # in place
+
+    def _write_tile(self) -> None:
+        """This tick's tile at the cursor, by its cull bucket: zeros for the
+        0.0 bucket (`skip_march`), else the march."""
+        x0, y0 = self.ring.update_position
+        prio_map, rk = self._tile_cull_args(x0, y0)
+        if rk == 0.0:
+            self._clear_tile(self.ring.texture_to_update, x0, y0)
+        else:
+            self._update_tile(self.ring.texture_to_update, x0, y0, prio_map, rk)
+
     def _update_tiles_batch(self) -> None:
-        """Render every remaining tile of the current cycle and advance the
-        cursor/frame state to the cycle end."""
+        """Render every remaining tile of the current cycle (unculled, as the
+        JAX engine's batch) and advance the cursor/frame state to the cycle
+        end."""
         n_frames = self.perf.frames_to_update
         region = self.perf.update_region_size
         tiles_per_row = self.perf.texture_size // region
@@ -424,6 +650,7 @@ class CloudSkyEngine:
 
     def _rotate(self, now: float) -> None:
         self.ring.rotate_cloud()
+        self._display_pair = None  # the blend pair changed
         self._refresh_frame_data(now)
         self._render_sky_lut()
 
@@ -441,6 +668,7 @@ class CloudSkyEngine:
     def initialize_sky(self, now: float) -> None:
         """Warm start (`cloud_sky.gd:123-127`): two full synchronous cycles
         so the sky is complete on the first visible frame."""
+        self._display_pair = None
         self._refresh_frame_data(now)
         self._render_sky_lut()
         for _ in range(2):
@@ -448,22 +676,31 @@ class CloudSkyEngine:
                 self._rotate(now)
             self._update_tiles_batch()
 
-    def update_sky(self, now: Optional[float] = None) -> None:
-        """One per-frame tick (`cloud_sky.gd:129-163`): rotate rings at cycle
-        boundaries, refresh FrameData + sky LUT, update one tile, advance
-        the cursor, advance the pending bake."""
+    def _begin_tick(self, now: Optional[float]) -> None:
+        """The head of a per-frame tick (`cloud_sky.gd:129-152`): warm start
+        on first use, rotation at a cycle boundary, and the display blend
+        captured before the tile update (`cloud_sky.gd:152`)."""
         now = self._now(now)
         if self.needs_full_sky_init:
             self.needs_full_sky_init = False
             self.initialize_sky(now)
         if self.ring.frame >= self.perf.frames_to_update:
             self._rotate(now)
-        # Captured before the update, like `cloud_sky.gd:152`.
         self._blend_amount = self.ring.blend_amount(self.perf.frames_to_update)
-        self._update_tile(self.ring.texture_to_update, *self.ring.update_position)
+
+    def _end_tick(self) -> None:
+        """The tail of a tick: advance the cursor and the pending bake."""
         self.ring.advance_cursor(self.perf.update_region_size,
                                  self.perf.texture_size)
         self._advance_prebake()
+
+    def update_sky(self, now: Optional[float] = None) -> None:
+        """One per-frame tick (`cloud_sky.gd:129-163`): rotate rings at cycle
+        boundaries, refresh FrameData + sky LUT, update one tile, advance
+        the cursor, advance the pending bake."""
+        self._begin_tick(now)
+        self._write_tile()
+        self._end_tick()
 
     # --------------------------------------------------------------- display
 
@@ -485,30 +722,69 @@ class CloudSkyEngine:
             self.blend_amount, self._light_dir(self.frame_data),
             self.config.sun_disk_scale, deband=deband)
 
+    def _display_pair_tables(self):
+        """The cycle's 8-channel display-pair brick tables, built on first
+        use after a rotation (`_build_display_pair`); every place that
+        changes the blend pair — rotation, warm start, restore — drops
+        them."""
+        if self._display_pair is None:
+            b0, b1 = self.ring.sky_back_textures
+            self._display_pair = _build_display_pair(
+                self.cloud_ring, self.ring.texture_to_blend_from,
+                self.ring.texture_to_blend_to, self.sky_ring, b0, b1)
+        return self._display_pair
+
+    def _render_frame_fused(self, eyedirs, deband: bool) -> torch.Tensor:
+        """The fused tick's body: this tick's tile (zeros for a 0.0 cull
+        bucket, the JAX engine's `skip_march`), then `composite_display`
+        over the display-pair tables, run in order on the current stream.
+        PyTorch has no single dispatch to fuse into; what differs from the
+        split tick is the composite's fetches: one pair row per texture per
+        pixel from tables built once a cycle, where the split `composite`
+        makes two bilinear fetches (from and to) per texture per pixel.
+
+        The JAX engine compiles the fused executable for every bucket ahead
+        of the cycle (`_warm_fused_variants`); the port compiles nothing per
+        bucket, so it has no warmer."""
+        cloud_pair, sky_pair = self._display_pair_tables()
+        self._write_tile()
+        return composite_display(
+            eyedirs.to(device=self.device, dtype=torch.float32), cloud_pair,
+            sky_pair, self.transmittance, self._light_dir(self.frame_data),
+            self.config.sun_disk_scale, self._blend_amount, deband=deband)
+
     def render_frame(self, eyedirs, now: Optional[float] = None,
                      amortized: bool = True, fused: Optional[bool] = None,
                      deband: bool = False) -> torch.Tensor:
         """One-call serving API: advance the sim and composite a camera
-        frame. amortized=True ticks one tile (`update_sky` + `render_view`);
-        amortized=False completes a whole cycle first."""
-        if fused:
-            raise NotImplementedError("the display-pair fused render_frame is "
-                                      "not ported yet (ROADMAP A17)")
-        if amortized:
-            self.update_sky(now)
-        else:
+        frame. amortized=True ticks one tile; amortized=False completes a
+        whole cycle first and composites with `render_view`.
+
+        fused (default: on when amortized; the port has no mesh) serves the
+        tick through `_render_frame_fused`: the same scheduling as
+        `update_sky`, the composite over the cycle's display-pair tables.
+        fused=False is `update_sky` + `render_view`. The two agree to
+        float reassociation (the pair lerps after one row fetch), with the
+        rings bitwise equal."""
+        if fused is None:
+            fused = amortized
+        if not amortized:
             self.update_cycle(now)
-        return self.render_view(eyedirs, deband=deband)
+            return self.render_view(eyedirs, deband=deband)
+        if not fused:
+            self.update_sky(now)
+            return self.render_view(eyedirs, deband=deband)
+        self._begin_tick(now)
+        frame = self._render_frame_fused(eyedirs, deband)
+        self._end_tick()
+        return frame
 
     def _v3_march_knobs(self):
-        """(prepass_steps, ray_stride) of the v3 march at this engine's
-        shapes: the largest divisor of march_steps ≤ steps/4, and stride 2
-        when the texture edge is even."""
-        steps = self.perf.march_steps
-        ps = max(1, steps // 4)
-        while steps % ps:
-            ps -= 1
-        return ps, (2 if self.perf.texture_size % 2 == 0 else 1)
+        """(prepass_steps, ray_stride) of the v3 march and the tile-cull
+        prepass at this engine's shapes: `_prepass_steps(march_steps)`, and
+        stride 2 when the texture edge is even."""
+        return (_prepass_steps(self.perf.march_steps),
+                2 if self.perf.texture_size % 2 == 0 else 1)
 
     def _v3_policy(self, params):
         """(ray, cell, hot) capacity buckets of the v3 render:
@@ -604,13 +880,15 @@ class CloudSkyEngine:
             np.array(state["cloud_ring"], np.float32)).to(self.device)
         self.sky_ring = torch.from_numpy(
             np.array(state["sky_ring"], np.float32)).to(self.device)
+        self._display_pair = None
         self._sky_lut_needs_full_update = state["sky_lut_needs_full_update"]
         self._blend_amount = state.get("blend_amount", 0.0)
         self.needs_full_sky_init = state.get(
             "needs_full_sky_init", not bool(np.any(np.asarray(state["cloud_ring"]))))
         self._march_params = self.frame_data.to_march_params(self.device)
         # The prebake pipeline restarts from the restored snapshot (the next
-        # rotation takes the synchronous build once).
+        # rotation takes the synchronous build once). As in the JAX engine,
+        # the tile-cull map and buckets are kept until that rotation.
         self._head_frame_data = copy.deepcopy(self.frame_data)
         self._pending = None
         self._picked_sky = None

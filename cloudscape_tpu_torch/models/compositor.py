@@ -5,6 +5,11 @@ cloud blend buffers, blends the two sky-LUT backbuffers, draws the sun disk
 with bloom attenuated by the transmittance LUT, and applies the horizon fade
 (`clouds.gdshader:104-116`). View directions and the sun direction are
 explicit inputs in place of Godot's `EYEDIR` / `LIGHT0_DIRECTION`.
+
+Two entry points: `composite` (the split path: two bilinear fetches per
+texture per pixel from the raw ring slots) and `composite_display` (the
+fused serving tick: one brick-row fetch per texture per pixel from the
+cycle's display tables).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import math
 import torch
 
 from cloudscape_tpu_torch.ops import math as m
+from cloudscape_tpu_torch.ops.brick import BrickTable2D, sample_brick2
 from cloudscape_tpu_torch.ops.octmap import world_dir_to_uv
 from cloudscape_tpu_torch.ops.sampling import sample2d
 
@@ -23,6 +29,18 @@ ATMOSPHERE_RADIUS_MM = 6.460
 _VIEW_POS_MM = (0.0, GROUND_RADIUS_MM + 0.0002, 0.0)
 
 _PI = math.pi  # Godot's shader PI built-in (full precision)
+
+
+def _fetch_clamp(tex, uv):
+    """Clamp-wrap bilinear fetch from a raw [H, W, C] image or a
+    BrickTable2D (one brick row per fetch)."""
+    if isinstance(tex, BrickTable2D):
+        return sample_brick2(tex, uv)
+    return sample2d(tex, uv, wrap="clamp")
+
+
+def _is_pair(tex) -> bool:
+    return isinstance(tex, BrickTable2D) and tex.channels == 8
 
 
 def _uv_equirect(ray_dir):
@@ -35,10 +53,20 @@ def _uv_equirect(ray_dir):
 
 def sky_lut_blend(sky_from, sky_to, ray_dir, blend_amount):
     """`clouds.gdshader:34-45`: blended equirect lookup with the /50 exposure
-    normalization."""
+    normalization. sky_to=None reads either one pre-blended LUT or an
+    8-channel pair table (from rgba ‖ to rgba in one row; fetched once,
+    then lerped as the split path does). The engine reaches the pair and
+    the two-LUT forms; the pre-blended one is kept for parity with the
+    JAX function, which the tests hold it against."""
     uv = _uv_equirect(ray_dir)
-    a = sample2d(sky_from, uv, wrap="clamp")[..., :3]
-    b = sample2d(sky_to, uv, wrap="clamp")[..., :3]
+    if sky_to is None and _is_pair(sky_from):
+        r = _fetch_clamp(sky_from, uv)
+        a = r[..., 0:3]
+        return (a + (r[..., 4:7] - a) * blend_amount) / 50.0
+    a = _fetch_clamp(sky_from, uv)[..., :3]
+    if sky_to is None:
+        return a / 50.0
+    b = _fetch_clamp(sky_to, uv)[..., :3]
     return (a + (b - a) * blend_amount) / 50.0
 
 
@@ -56,7 +84,8 @@ def sun_with_bloom(ray_dir, sun_dir, sun_disk_scale):
 
 
 def transmittance_lookup(tlut, pos_mm, sun_dir):
-    """`clouds.gdshader:77-85` in megameter units."""
+    """`clouds.gdshader:77-85` in megameter units; tlut is a raw image or a
+    BrickTable2D."""
     height = m.norm3(pos_mm)
     up = pos_mm / height[..., None]
     sun_cos_zenith = m.dot3(up, sun_dir)
@@ -64,14 +93,15 @@ def transmittance_lookup(tlut, pos_mm, sun_dir):
     v = torch.clamp((height - GROUND_RADIUS_MM)
                     / (ATMOSPHERE_RADIUS_MM - GROUND_RADIUS_MM), 0.0, 1.0)
     uv = torch.stack(torch.broadcast_tensors(u, v), dim=-1)
-    return sample2d(tlut, uv, wrap="clamp")[..., :3]
+    return _fetch_clamp(tlut, uv)[..., :3]
 
 
 def get_atmo(eyedir, sky_from, sky_to, tlut, blend_amount, sun_dir,
              sun_disk_scale):
     """Background atmosphere + sun (`clouds.gdshader:87-102`). The view
     position is a constant, so the shader's per-pixel transmittance fetch
-    (`clouds.gdshader:95`) is one fetch, broadcast."""
+    (`clouds.gdshader:95`) is one fetch, broadcast. sky_to=None: see
+    `sky_lut_blend`."""
     col = sky_lut_blend(sky_from, sky_to, eyedir, blend_amount)
     sun_lum = m.smoothstep(0.002, 1.0, sun_with_bloom(eyedir, sun_dir,
                                                       sun_disk_scale))
@@ -103,31 +133,22 @@ def deband_dither(shape, device="cuda"):
     return ((ign - 0.5) / 255.0).expand(shape)
 
 
-def composite(eyedir, cloud_from, cloud_to, sky_from, sky_to, tlut,
-              blend_amount, sun_dir, sun_disk_scale, *, deband: bool = False):
-    """Full sky() entry point (`clouds.gdshader:104-116`).
-
-    eyedir: [..., 3] world view directions. cloud_from/to: the two blending
-    hemisphere maps [N, N, 4]; sky_from/to: the two sky-LUT backbuffers;
-    tlut: transmittance LUT. Returns [..., 3] linear HDR color."""
-    eyedir = eyedir.to(torch.float32)
+def _cloud_dir(eyedir):
+    """The view direction clamped to the upper hemisphere and normalised.
+    Straight-down view dirs clamp to the zero vector; their cloud sample is
+    fully horizon-faded, so any valid direction works."""
     norm = torch.stack([eyedir[..., 0], torch.clamp(eyedir[..., 1], min=0.0),
                         eyedir[..., 2]], dim=-1)
-    # Straight-down view dirs clamp to the zero vector; their cloud sample is
-    # fully horizon-faded, so any valid direction works.
     n_len = m.norm3(norm)[..., None]
     fallback = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
                             device=eyedir.device)
-    norm = torch.where(n_len > 0.0, norm / torch.clamp(n_len, min=1e-12),
+    return torch.where(n_len > 0.0, norm / torch.clamp(n_len, min=1e-12),
                        fallback)
 
-    oct_uv = world_dir_to_uv(norm)
-    blend_from = sample2d(cloud_from, oct_uv, wrap="clamp")
-    blend_to = sample2d(cloud_to, oct_uv, wrap="clamp")
-    clouds = blend_from + (blend_to - blend_from) * blend_amount
 
-    background = get_atmo(eyedir, sky_from, sky_to, tlut, blend_amount,
-                          sun_dir, sun_disk_scale)
+def _finish(eyedir, clouds, background, deband: bool):
+    """Clouds over the background, the horizon fade and the optional
+    dither (`clouds.gdshader:104-116`)."""
     color = background * (1.0 - clouds[..., 3:4]) + clouds[..., :3]
     fade = m.smoothstep(0.6, 1.0, 1.0 - eyedir[..., 1])[..., None]
     c = torch.clamp(color, 0.0, 100.0)
@@ -137,3 +158,45 @@ def composite(eyedir, cloud_from, cloud_to, sky_from, sky_to, tlut,
         dither = deband_dither(eyedir.shape[:-1], device=eyedir.device)
         out = torch.clamp(out + dither[..., None], min=0.0)
     return out
+
+
+def composite_display(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
+                      sun_disk_scale, blend_amount=0.0, *,
+                      deband: bool = False):
+    """Serving-path composite over display-ready textures.
+
+    - PAIR tables (BrickTable2D, 8 channels, the serving default): each row
+      holds the blend pair (from rgba in channels 0-3, to rgba in 4-7), so
+      one row fetch per texture per pixel gives both, and the lerp by
+      `blend_amount` follows the fetch, in the split `composite`'s order.
+    - PRE-BLENDED tables or images (4 channels): the blend was applied
+      before the fetch; `blend_amount` is ignored. The engine does not
+      build these; the form is kept for parity with the JAX function,
+      which the tests hold it against.
+
+    tlut: the raw transmittance LUT or its table (one fetch a frame)."""
+    eyedir = eyedir.to(torch.float32)
+    clouds = _fetch_clamp(cloud_blended, world_dir_to_uv(_cloud_dir(eyedir)))
+    if _is_pair(cloud_blended):
+        clouds = clouds[..., 0:4] + (clouds[..., 4:8] - clouds[..., 0:4]) \
+            * blend_amount
+    background = get_atmo(eyedir, sky_blended, None, tlut, blend_amount,
+                          sun_dir, sun_disk_scale)
+    return _finish(eyedir, clouds, background, deband)
+
+
+def composite(eyedir, cloud_from, cloud_to, sky_from, sky_to, tlut,
+              blend_amount, sun_dir, sun_disk_scale, *, deband: bool = False):
+    """Full sky() entry point (`clouds.gdshader:104-116`).
+
+    eyedir: [..., 3] world view directions. cloud_from/to: the two blending
+    hemisphere maps [N, N, 4]; sky_from/to: the two sky-LUT backbuffers;
+    tlut: transmittance LUT. Returns [..., 3] linear HDR color."""
+    eyedir = eyedir.to(torch.float32)
+    oct_uv = world_dir_to_uv(_cloud_dir(eyedir))
+    blend_from = sample2d(cloud_from, oct_uv, wrap="clamp")
+    blend_to = sample2d(cloud_to, oct_uv, wrap="clamp")
+    clouds = blend_from + (blend_to - blend_from) * blend_amount
+    background = get_atmo(eyedir, sky_from, sky_to, tlut, blend_amount,
+                          sun_dir, sun_disk_scale)
+    return _finish(eyedir, clouds, background, deband)

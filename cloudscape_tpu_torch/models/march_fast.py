@@ -19,7 +19,12 @@ serving loop and its full-hemisphere re-render run:
 - the staged v2 march (`march_bricks_v2`) and its policy
   (`v2_auto_policy`): ray cull, one shared occupied-sample compaction,
   erosion and cone lookup on that list, phase 3 through K1. It serves the
-  engine's "fast2" kernel and the "fast3" tiles of ≥ 65,536 rays.
+  engine's "fast2" kernel and the "fast3" tiles of ≥ 65,536 rays;
+- the tile-cull map (the engine's: `cull_raw_slice` → `cull_finalize`,
+  sliced over a cycle's ticks or in one slice; the JAX API's one pass:
+  `cull_priority_map`): per-ray priorities
+  and per-tile ray-keep and live-cell fractions, from which the engine
+  picks each tile's bucket (skip, v3 cell bucket or v2 ray bucket, dense).
 
 Every compaction goes through kernel K2 (`compact`).
 Sample positions use the closed form p_i = p0 + dir·ss·i; the
@@ -594,6 +599,118 @@ def _ray_capacity(n: int, ray_keep_frac: float, align: int = 256) -> int:
     `align`, at most n."""
     cap = max(int(n * ray_keep_frac + align - 1) // align * align, align)
     return min(cap, n)
+
+
+# ------------------------------------------------------- engine tile cull
+#
+# The engine's per-cycle cull map: the prepass over the whole texel grid,
+# either in one call (`cull_priority_map`) or in ray slices spread over a
+# cycle's ticks (`cull_raw_slice` → `cull_finalize`). Per tile it gives the
+# fraction of rays above the keep margin (fast2's ray bucket) and the
+# fraction of live coarse cells (fast3's v3 cell bucket).
+
+def _tile_cell_fracs(occ_cells, gh: int, gw: int, stride: int, region: int):
+    """Per-tile live (coarse ray, coarse cell) fraction of a dilated
+    occupancy grid whose rows are the stride-subsampled [gh, gw] grid; a
+    region² tile covers region/stride coarse rows and columns."""
+    P = occ_cells.shape[-1]
+    r = max(region // stride, 1)
+    o = occ_cells.reshape(gh, gw, P).to(torch.float32)
+    return o.reshape(gh // r, r, gw // r, r, P).mean(dim=(1, 3, 4))
+
+
+def _tile_means(keep, region: int):
+    """[H, W] → per region² tile means [H/region, W/region]."""
+    H, W = keep.shape
+    return keep.reshape(H // region, region, W // region, region).mean(dim=(1, 3))
+
+
+def cull_raw_slice(buf, dirs_sub, i0: int, params: MarchParams, bp: BrickPack,
+                   count: int, steps: int = 128, prepass_steps: int = 32,
+                   chunk: int = 32768):
+    """One slice of the engine's sliced cull prepass: the raw `pre` at the
+    coarse probe samples of subsampled rays [i0, i0 + count) (not masked by
+    the horizon; `cull_finalize` masks), written into `buf`
+    [n_sub, prepass_steps] in place. Needs i0 + count ≤ n_sub."""
+    _, ndir, ss, p0, _, _ = _ray_setup(dirs_sub[i0:i0 + count], params, steps)
+    i_pre = (torch.arange(prepass_steps, dtype=torch.float32, device=ndir.device)
+             + 1.0) * float(steps // prepass_steps)
+
+    def prepass_chunk(p0c, ndirc, ssc):
+        px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_pre[None, :])
+        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        return _density_pre_xyz(px, py, pz, w, 0.0, params, bp)[0]
+
+    buf[i0:i0 + count] = _map_rows(prepass_chunk, min(chunk, count), p0, ndir, ss)
+
+
+def cull_finalize(raw, dirs, region: int, ray_stride: int = 2,
+                  prepass_margin: float = 0.02, cell_margin: float = 0.1):
+    """The tail of `cull_priority_map(cell_margin=...)` on a raw buffer that
+    `cull_raw_slice` filled: per-ray priority (max over the cells, then the
+    horizon mask), the neighbour bonus and nearest upsample, the per-tile
+    keep fractions, and the per-tile live-cell fractions of the dilated
+    occupancy (dilated before the horizon mask, as `_cull_prepass` does).
+    dirs: [H, W, 3]. Returns (prio [H, W], tile_keep, tile_cell), both
+    [H/region, W/region]."""
+    H, W = dirs.shape[:2]
+    hs, ws = H // ray_stride, W // ray_stride
+    P = raw.shape[-1]
+    neg_inf = float("-inf")
+    above = dirs[..., 1] > 0.0
+    above_sub = above[::ray_stride, ::ray_stride].reshape(-1)
+    r2 = torch.where(above_sub, torch.max(raw, dim=1).values,
+                     neg_inf).reshape(hs, ws)
+    d2 = torch.maximum(r2, _dilate_max(r2) - 0.1)
+    prio = d2.repeat_interleave(ray_stride, dim=0) \
+        .repeat_interleave(ray_stride, dim=1)
+    prio = torch.where(above, prio, neg_inf)
+    tile_keep = _tile_means((prio > -prepass_margin).to(torch.float32), region)
+    o = (raw > -cell_margin).reshape(hs, ws, P)
+    o = o | torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
+    o = o | torch.roll(o, 1, 1) | torch.roll(o, -1, 1)
+    o = o.reshape(hs * ws, P)
+    pad0 = torch.zeros_like(o[:, :1])
+    o = o | torch.cat([pad0, o[:, :-1]], dim=1) | torch.cat([o[:, 1:], pad0], dim=1)
+    tile_cell = _tile_cell_fracs(o & above_sub[:, None], hs, ws, ray_stride,
+                                 region)
+    return prio, tile_keep, tile_cell
+
+
+def cull_priority_map(dirs, params: MarchParams, bp: BrickPack,
+                      steps: int = 128, prepass_steps: int = 32,
+                      chunk: int = 32768, ray_stride: int = 2,
+                      region: int | None = None,
+                      prepass_margin: float = 0.02,
+                      cell_margin: float | None = None):
+    """The cull priority map of a whole [H, W, 3] direction grid, for the
+    engine's per-tile culling (one map serves every tile of a cycle).
+    Returns (prio [H, W], tile_keep [H/region, W/region] or None without a
+    region); with cell_margin, also tile_cell, the per-tile live-cell
+    fractions of `_cull_prepass`'s dilated occupancy with the rays below the
+    horizon masked (fast3's per-tile v3 cell buckets). The engine builds
+    its map through `cull_raw_slice` → `cull_finalize`; this one-pass form
+    (and its region=None arm) is the JAX function's API, which the tests
+    hold the port and the sliced form against."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    prio, occ_cells, meta = _cull_prepass(
+        above, ndir, ss, p0, params, bp, steps, prepass_steps,
+        min(chunk, max(flat.shape[0], 1)), shape, ray_stride, cell_margin)
+    prio = prio.reshape(shape)
+    if region is None:
+        return (prio, None) if cell_margin is None else (prio, None, None)
+    tile_keep = _tile_means((prio > -prepass_margin).to(torch.float32), region)
+    if cell_margin is None:
+        return prio, tile_keep
+    H, W = shape
+    gh, gw, stride = meta if meta is not None else (H, W, 1)
+    above_sub = above.reshape(H, W)[::stride, ::stride].reshape(-1)
+    tile_cell = _tile_cell_fracs(occ_cells & above_sub[:, None], gh, gw, stride,
+                                 region)
+    return prio, tile_keep, tile_cell
 
 
 def v3_capacities(n: int, steps: int, chunk: int, cell_keep_frac: float,

@@ -5,6 +5,8 @@ Each noise texture is reshaped into a table of 128-lane bricks:
 - 3D, 2 channels:  4×4×4 texels × 2ch  = 128 lanes, brick stride 3
 - 3D, 1 channel :  8×4×4 texels × 1ch  = 128 lanes, strides (7, 3, 3)
 - 2D, 2 channels:  8×8 texels   × 2ch  = 128 lanes, brick stride 7
+- 2D, 8 channels:  4×4 texels   × 8ch  = 128 lanes, brick stride 3 (the
+  display pair tables of the fused serving tick, clamp wrap)
 
 Brick stride ≤ brick_dim - 1 keeps any trilinear/bilinear footprint inside
 one brick, so a filtered sample is one gathered row reduced against lane
@@ -135,6 +137,11 @@ def build_brick2(image, brick=(8, 8), stride=(7, 7),
                         stride=stride, grid=(ny, nx), channels=c, wrap=wrap)
 
 
+# The JAX package's device-side builder (`build_brick2_device`) is the same
+# gather; `build_brick2` already runs on the image's device.
+build_brick2_device = build_brick2
+
+
 def build_tiny3(volume) -> TinyVolume3D:
     d, h, w, c = volume.shape
     return TinyVolume3D(row=volume.permute(3, 0, 1, 2).reshape(-1).contiguous(),
@@ -216,6 +223,11 @@ def sample_brick2_xy(bt: BrickTable2D, qu, qv):
         return torch.sum(rows * wgt.reshape(-1, 1, L), dim=-1)
 
     return _chunked(chunk, qu, qv)
+
+
+def sample_brick2(bt: BrickTable2D, uv):
+    """Bilinear fetch at uv [..., 2] → [..., C] (the table's wrap)."""
+    return sample_brick2_xy(bt, uv[..., 0], uv[..., 1])
 
 
 def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):

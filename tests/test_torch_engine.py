@@ -169,7 +169,9 @@ def test_sliced_bake_matches_sync_build(packs):
 def test_engine_matches_jax(packs):
     """Warm start + 20 ticks with the same `now` values: the cloud ring and
     the composite agree at ≥ 50 dB, and the port picked up a prebaked cone
-    cache at its cycle boundary."""
+    cache at its cycle boundary. Then one `render_frame` tick on each, which
+    both packages serve through their display-pair fused path by default
+    (amortized, no mesh): the fused frames agree at ≥ 50 dB."""
     je, te = _engines(packs)
     pickups = 0
     for i in range(20):
@@ -189,9 +191,11 @@ def test_engine_matches_jax(packs):
     view_t = te.render_view(torch.from_numpy(d)).numpy()
     assert np.isfinite(view_t).all() and view_t.min() >= 0.0
     assert psnr(view_t, view_j) >= 50.0
+    assert te._display_pair is None and je._display_pair is None
     frame_t = te.render_frame(torch.from_numpy(d), now=21 / 30.0, deband=True)
     frame_j = np.asarray(je.render_frame(jnp.asarray(d), now=21 / 30.0,
                                          deband=True))
+    assert te._display_pair is not None and je._display_pair is not None
     assert psnr(frame_t.numpy(), frame_j) >= 50.0
 
 
@@ -294,8 +298,7 @@ def test_fast3_v2_tile_arm_matches_jax(packs, monkeypatch):
 
 
 def test_unported_modes_raise():
-    for kw in (dict(kernel="hier"), dict(tile_cull=True),
-               dict(mesh=object())):
+    for kw in (dict(kernel="hier"), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
                            cone_res=(4, 16, 16), device="cpu", **kw)
