@@ -57,7 +57,13 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    coverage 0.35 and 0.7, sun (0.3, 0.4, −0.85), cone (32, 512, 512),
    procedural_noise_pack(0), `v3_auto_policy`, then
    `march_bricks_v3(chunk=32768, ray_stride=2)`: cone-build ms, the median
-   of 5 renders, ≥ 40 dB against the dense march at both coverages;
+   of 5 renders, ≥ 40 dB against the dense march at both coverages; and
+   bench.py's referee, the exact brick march (`march_bricks(chunk=32768,
+   capacity_frac=0.2)`, no cone cache; its ms): v3 against it at
+   ≥ V3_EXACT_DB (`quality_db_vs_exact` at 0.35,
+   `quality_db_vs_exact_high_coverage` at 0.7), the dense march against it
+   at ≥ EXACT_DENSE_DB, and its compaction (67,108,864 samples →
+   13,434,880 slots) held bitwise against K2's plain version;
 9. bench/sweep.py config 4, fully procedural: `procedural_noise_pack(0)`
    generated by K4–K6 (its ms), 512×256 hemisphere rays × 64 steps, sun
    (0.3, 0.4, −0.85), coverage 0.35, cone (32, 512, 512); the v2 render
@@ -90,14 +96,29 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    march over the same texel grid; the first v3 tile's K2 and K3 calls are
    recorded, held against their plain versions (K2 bitwise, K3 atol 2e-4,
    three runs bitwise equal) and timed in phase 13;
+   11c. a `kernel="fast"` engine (every tile through the exact brick
+   march) at PerfConfig() on the phase-5 scene: warm start, 10
+   render_frame ticks of the phase-5 camera that launch K2, frames finite,
+   nonnegative and not black, clouds in the ring; one more tick whose
+   tile compaction (1,179,648 → 589,824) is recorded and held bitwise
+   against K2's plain version; `render_full_hemisphere`
+   (the exact march over the map) finite, its compaction (75,497,472 →
+   37,748,736) held bitwise against K2's plain version, and a second call,
+   timed, bitwise equal to the first;
+   11d. the scan march `march` (the "reference" kernel's) over the 768²
+   texel grid at 128 steps with the phase-5 engine's params, pack and sky
+   image: ms by CUDA events, device launches and ms per call by
+   torch.profiler (from a 1- and a 2-step march: the steps are alike), and
+   `march_bricks` on the same inputs ≥ 40 dB from it;
 12. the fast3 and fast2 engines at a tiny size, without and with tile
-   cull, on the card and on the CPU (where the wrappers take their plain
-   versions): ring, view and (unculled) `render_full_hemisphere` ≥ 50 dB
-   apart; and on the card the fused `render_frame` against `update_sky` +
-   `render_view` over 16 ticks across a boundary, frames at atol 2e-5 /
-   rtol 1e-5, rings bitwise;
+   cull, and the fast and reference engines, on the card and on the CPU
+   (where the wrappers take their plain versions): ring, view and
+   (unculled) `render_full_hemisphere` ≥ 50 dB apart; and on the card,
+   but for the reference engine, the fused `render_frame` against
+   `update_sky` + `render_view` over 16 ticks across a boundary, frames at
+   atol 2e-5 / rtol 1e-5, rings bitwise;
 13. each kernel's device time with a cold L2 (`device_us`: torch.profiler
-   over the last 20 of 30 calls, which must be complete and alike, a 64 MB
+   over the last 20 complete calls of 40, which must be alike, a 64 MB
    read between them; and again with a 64 MB
    overwrite between them, `device_us_write_flush`) beside its bound (bytes
    over 3.35 TB/s or instructions over 33.5 T/s) at the shapes the paths
@@ -105,7 +126,10 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    finalize's shape without rank (as the path asks) and with it (as v2's
    compaction asks) and at the compactions of one
    phase-7 re-render and of one phase-11b v3 tile, recorded as they ran
-   (and held bitwise against the plain version there);
+   (and held bitwise against the plain version there), and at the
+   compactions of phase 8's referee (coverage 0.35) and phase 11c's
+   whole map and tile, which serve the referee and the unstaged fast
+   kernel, not the default engine, and so enter no pass;
    K3 1-D and [3, n] (one launch each) at the engine's and the headline's
    hot-list capacities and on the v3 tile's recorded inputs;
    K4–K6 at the shipped sizes; K2's library yardstick,
@@ -155,6 +179,13 @@ CONE_RES = (32, 512, 512)
 # gate (with every gate off the port meets the dense march at ~159 dB), so
 # the gate here is 30 dB, and the gates-off render is held at 100 dB.
 V3_ENGINE_DB = 30.0
+# Gates of the headline v3 render against bench.py's referee, the exact
+# brick march (bench.py's record names 40 dB), and of the dense march (the
+# cone-cache lookup in place of the sun march) against the referee. On the
+# card v3 measured 42.10 / 41.96 dB and the dense march 48.07 / 42.48 dB at
+# coverage 0.35 / 0.7 (NVIDIA H100 80GB HBM3, 700.00 W).
+V3_EXACT_DB = 40.0
+EXACT_DENSE_DB = 40.0
 # Yardsticks of a kernel's bound (the H100 SXM's published peak rates):
 # HBM at 3.35 TB/s, and 32-bit ALU instructions at 33.5 T/s, the
 # float32 peak of 67 TFLOP/s counted as one instruction per FMA (132 SMs x
@@ -259,21 +290,29 @@ def noise_work(name: str, size: int):
                                          + neighbours * WORLEY_NEIGHBOUR_OPS)
 
 
-# Calls profiled ahead of the measured ones and dropped: after the engine
-# phases the profiler has been seen to lose a trace's first few device
-# events (on an H100, the first 2-3 of 20 calls of every phase-13 trace,
-# and once the first 5 calls and the next call's flush).
-TRACE_PAD = 10
+# After the engine phases the profiler has been seen to lose a trace's
+# first device events (on an H100: the first 2-3 of 20 calls of every
+# phase-13 trace, once the first 5 calls and the next call's flush, once
+# the first 9 calls and also the last call's kernel, once the first 25 of
+# 40). So `device_us` runs TRACE_WARM calls in the profiler's warm-up step
+# (traced, then discarded), profiles TRACE_PAD calls ahead of the measured
+# ones and drops them, and traces again, up to TRACE_TRIES times in all,
+# while the kept calls are not alike.
+TRACE_WARM = 5
+TRACE_PAD = 20
+TRACE_TRIES = 3
 
 
 def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     """Device time of one fn() call with a cold L2, from torch.profiler.
 
-    Runs TRACE_PAD + `reps` calls, each after reading (or, with
-    `write_flush`, overwriting) an L2-sized scratch tensor, picks out of
-    the trace the device kernels whose names are in `names` (the flush's
-    kernels between two calls separate them) and keeps the last `reps`
-    calls, which must be complete and alike. Per call: `span_us` from the first kernel's start to the last
+    Runs TRACE_WARM calls in the profiler's warm-up step, then traces
+    TRACE_PAD + `reps` calls, each after reading (or, with `write_flush`,
+    overwriting) an L2-sized scratch tensor, picks out of the trace the
+    device kernels whose names are in `names` (the flush's kernels between
+    two calls separate them) and keeps the last `reps` complete calls,
+    which must be alike (else it traces again, TRACE_TRIES times in all).
+    Per call: `span_us` from the first kernel's start to the last
     one's end (the gaps between a multi-pass kernel's launches count) and
     `sum_us` the kernels' own times; the medians over the calls. If the
     profiler sees no device activity, each call is captured once in a CUDA
@@ -283,7 +322,7 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     pat = re.compile(r"(?:^|[\s:])(?:%s)[<(]" % "|".join(map(re.escape, names)))
     scratch = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -294,35 +333,49 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
         else:
             torch.dot(scratch, scratch)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD + reps):
-            flush()
-            fn()
+    def trace():
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    calls, cur = [], []
-    for e in events:
-        if pat.search(e.name):
-            cur.append(e)
-        elif cur:
-            calls.append(cur)
-            cur = []
-    if cur:
-        calls.append(cur)
-    if events:
-        # Only a leading prefix of the trace may be lost: its tail must be
-        # `reps` alike call groups, each two separated by alike flush
-        # groups, so no lost event in the middle merges two calls into one.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for n in (TRACE_WARM, TRACE_PAD + reps):
+                for _ in range(n):
+                    flush()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+
+    fn()
+    for attempt in range(1, TRACE_TRIES + 1):
+        events = trace()
+        if not events:
+            break
+        # Only a leading prefix and a trailing suffix of the trace may be
+        # lost: past its trailing flushes (a last call whose kernel was
+        # lost), its tail must be `reps` alike call groups, each two
+        # separated by alike flush groups, so no lost event in the middle
+        # merges two calls into one.
         seq = "".join("k" if pat.search(e.name) else "." for e in events)
-        tail = re.findall(r"k+|\.+", seq)[-(2 * reps - 1):]
-        require(len(tail) == 2 * reps - 1 and tail[-1][0] == "k"
-                and len(set(tail[0::2])) == 1 and len(set(tail[1::2])) == 1,
-                f"profiler: the trace's last {reps} calls of {names} are not "
-                f"{reps} alike calls between alike flushes; device events in "
-                f"order (k: the kernel's): {seq}")
+        tail = re.findall(r"k+|\.+", seq.rstrip("."))[-(2 * reps - 1):]
+        if len(tail) == 2 * reps - 1 and tail[-1][0] == "k" \
+                and len(set(tail[0::2])) == 1 and len(set(tail[1::2])) == 1:
+            break
+        print(f"profiler: trace {attempt} of {names} kept no {reps} alike calls "
+              f"between alike flushes; device events in order (k: the kernel's): "
+              f"{seq}", flush=True)
+    else:
+        raise RuntimeError(f"profiler: {TRACE_TRIES} traces of {names} lost calls")
+    if events:
+        calls, cur = [], []
+        for e in events:
+            if pat.search(e.name):
+                cur.append(e)
+            elif cur:
+                calls.append(cur)
+                cur = []
+        if cur:
+            calls.append(cur)
         calls = calls[-reps:]
         spans = [max(e.time_range.end for e in c) - min(e.time_range.start for e in c)
                  for c in calls]
@@ -730,7 +783,6 @@ def run_v3_engine(eng):
     counts around the call, against the dense march."""
     import torch
 
-    from cloudscape_tpu_torch.models import march_fast
     from cloudscape_tpu_torch.models.march_fast import (
         march_bricks_v3, march_tile_dense, v3_capacities)
     from cloudscape_tpu_torch.ops import accum, compact, segscan
@@ -753,20 +805,9 @@ def run_v3_engine(eng):
     require(out.shape == (n_tex, n_tex, 4) and bool(torch.isfinite(out).all()),
             "render_full_hemisphere output has the wrong shape or is not finite")
     ms = events_ms(eng.render_full_hemisphere, 3)
-    # One more call with its compactions recorded (mask, capacity, rank
-    # asked for), for the K2 timings at the re-render's own shapes.
-    compactions = []
-    real = march_fast.compact
-
-    def recorder(mask, capacity, total, with_rank=True):
-        compactions.append((mask.clone(), capacity, with_rank))
-        return real(mask, capacity, total, with_rank)
-
-    march_fast.compact = recorder
-    try:
-        eng.render_full_hemisphere()
-    finally:
-        march_fast.compact = real
+    # One more call with its compactions recorded, for the K2 timings at
+    # the re-render's own shapes.
+    _, compactions = record_compactions(eng.render_full_hemisphere)
     check_recorded("phase-7 re-render", compactions)
     rk, ck, hk = policy = eng._v3_policy(eng._march_params)
     ps, _ = eng._v3_march_knobs()
@@ -795,15 +836,39 @@ def run_v3_engine(eng):
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
+def record_compactions(fn):
+    """Run fn() with every K2 call of `models/march_fast.py` recorded as
+    (mask, capacity, rank asked for); returns (fn's result, the calls)."""
+    from cloudscape_tpu_torch.models import march_fast
+
+    compactions = []
+    real = march_fast.compact
+
+    def recorder(mask, capacity, total, with_rank=True):
+        compactions.append((mask.clone(), capacity, with_rank))
+        return real(mask, capacity, total, with_rank)
+
+    march_fast.compact = recorder
+    try:
+        return fn(), compactions
+    finally:
+        march_fast.compact = real
+
+
 def run_headline(dev):
-    """Phase 8: the bench.py headline scene, coverage 0.35 (timed) and 0.7."""
+    """Phase 8: the bench.py headline scene, coverage 0.35 (timed) and 0.7,
+    with bench.py's referee, the exact brick march (`march_bricks(chunk=
+    32768, capacity_frac=0.2)`, no cone cache): v3 against it
+    (`quality_db_vs_exact`, and `_high_coverage` at 0.7) and against the
+    dense march, and the referee against the dense march. The referee's K2
+    calls are recorded and held bitwise against the plain version."""
     import torch
 
     from cloudscape_tpu_torch.models import atmosphere
     from cloudscape_tpu_torch.models.density import MarchParams
     from cloudscape_tpu_torch.models.march_fast import (
-        BrickPack, build_cone_cache, march_bricks_v3, march_tile_dense,
-        v3_auto_policy, v3_capacities)
+        BrickPack, build_cone_cache, march_bricks, march_bricks_v3,
+        march_tile_dense, v3_auto_policy, v3_capacities)
     from cloudscape_tpu_torch.models.packs import procedural_noise_pack
     from cloudscape_tpu_torch.utils.image import psnr
 
@@ -842,10 +907,33 @@ def run_headline(dev):
                                  light_steps=6, chunk=16384, cone_cache=cone)
         db = psnr(out.cpu().numpy(), dense.cpu().numpy())
         require(db >= 40.0, f"headline v3 vs dense {db:.2f} dB < 40 (cov {cov})")
+
+        def referee():
+            return march_bricks(dirs, params, bricks, sky, steps=STEPS,
+                                chunk=32768, capacity_frac=0.2)
+
+        # The first call, recorded, also warms the allocator to this size.
+        exact, compactions = record_compactions(referee)
+        exact_ms = events_ms(referee, 1)[0]
+        require(len(compactions) == 1 and compactions[0][0].numel() == WIDTH
+                * HEIGHT * STEPS, f"the referee made {len(compactions)} K2 calls")
+        check_recorded(f"the referee at coverage {cov}", compactions)
+        require(bool(torch.isfinite(exact).all()), f"referee not finite (cov {cov})")
+        exact_np = exact.cpu().numpy()
+        db_exact = psnr(out.cpu().numpy(), exact_np)
+        exact_dense_db = psnr(dense.cpu().numpy(), exact_np)
+        require(db_exact >= V3_EXACT_DB,
+                f"headline v3 vs exact {db_exact:.2f} dB < {V3_EXACT_DB} (cov {cov})")
+        require(exact_dense_db >= EXACT_DENSE_DB, f"dense vs exact march "
+                f"{exact_dense_db:.2f} dB < {EXACT_DENSE_DB} (cov {cov})")
         caps = v3_capacities(WIDTH * HEIGHT, STEPS, 32768, ck, rk, 32, hk)
+        mask = compactions[0][0]
         rows.append(dict(cov=cov, policy=(rk, ck, hk), cell_frac=cell_frac,
                          hot_frac=hot_frac, caps=caps, cone_ms=cone_ms,
                          ms=statistics.median(ms), all_ms=ms, db=db,
+                         db_exact=db_exact, exact_dense_db=exact_dense_db,
+                         exact_ms=exact_ms, exact_compactions=compactions,
+                         active=int(mask.sum()),
                          cloud_frac=float((out[..., 3] > 0.1).float().mean())))
     return rows
 
@@ -1088,6 +1176,128 @@ def run_staged_engine(dev, kernel: str, perf, ticks: int, hemisphere: bool):
     return r
 
 
+def run_fast_engine(dev):
+    """Phase 11c: a `kernel="fast"` engine (every tile through the exact
+    brick march, K2 once a tile) at PerfConfig() on the phase-5 scene with
+    `procedural_noise_pack(0)`: the warm start, then 10 `render_frame`
+    ticks of the phase-5 camera that must launch K2; frames finite,
+    nonnegative and not black, clouds in the ring; one more tick with its
+    tile's K2 call recorded and held against the plain version; then
+    `render_full_hemisphere` (the exact march over the 768² map) with its
+    K2 call recorded, then once more, timed, which must equal the first
+    render bitwise."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.ops import compact
+
+    eyedirs = camera_dirs(1280, 720, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CloudSkyEngine(perf=PerfConfig(), config=CloudConfig(cloud_coverage=0.45),
+                         sun=SunState(direction=(0.3, 0.25, -0.9)), kernel="fast",
+                         device=dev)
+    eng.render_frame(eyedirs, now=0.0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    k2_0, frame, tick_ms = compact.launches, None, []
+
+    def tick():
+        nonlocal frame
+        frame = eng.render_frame(eyedirs, now=(len(tick_ms) + 1) / 60.0)
+
+    for _ in range(FAST_TICKS):
+        tick_ms += events_ms(tick, 1)
+    k2 = compact.launches - k2_0
+    require(k2 >= FAST_TICKS, f"fast ticks launched K2 {k2} < {FAST_TICKS} times")
+    require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+            "fast frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, "fast frame is black")
+    ring = eng.cloud_ring
+    require(bool(torch.isfinite(ring).all()), "fast cloud ring is not finite")
+    cloud_frac = float((ring[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, "no clouds in the fast cloud ring")
+    # One more tick, untimed, with its K2 calls recorded: the tile's
+    # compaction (region² rays × steps samples) against the plain version.
+    region, steps = eng.perf.update_region_size, eng.perf.march_steps
+    _, tile_calls = record_compactions(tick)
+    tile_calls = [c for c in tile_calls if c[0].numel() == region * region * steps]
+    require(len(tile_calls) >= 1, "a fast tick made no K2 call at the tile's shape")
+    check_recorded("a fast tick's tile", tile_calls)
+    out = None
+
+    def hemi():
+        nonlocal out
+        out = eng.render_full_hemisphere()
+
+    # The first call, recorded, also warms the allocator to the map's size.
+    again, compactions = record_compactions(eng.render_full_hemisphere)
+    hemi_ms = events_ms(hemi, 1)[0]
+    n = eng.perf.texture_size ** 2 * eng.perf.march_steps
+    require(len(compactions) == 1 and compactions[0][0].numel() == n,
+            f"the fast map made {len(compactions)} K2 calls")
+    check_recorded("the fast engine's whole map", compactions)
+    require(bool(torch.isfinite(out).all()), "fast render_full_hemisphere not finite")
+    require(bitwise_equal(again, out), "two fast render_full_hemisphere calls differ")
+    return dict(warm_s=warm_s, tick_ms=tick_ms, k2=k2,
+                cloud_frac=cloud_frac, region=region, hemi_ms=hemi_ms,
+                compactions=compactions, tile_compactions=tile_calls[:1],
+                active=int(compactions[0][0].sum()),
+                hemi_cloud_frac=float((out[..., 3] > 0.1).float().mean()))
+
+
+def run_scan_march(dev, params, noise, bricks, sky):
+    """Phase 11d: the scan march (`march`, the "reference" kernel's) over the
+    768² texel grid at 128 steps and 6 light steps with the phase-5
+    engine's params, noise pack and sky image: its ms by CUDA events; its
+    device launches and device ms per call from torch.profiler traces of a
+    1- and a 2-step march on the same rays (every step launches the same
+    kernels on the same shapes, so a call is its setup and `STEPS` steps;
+    tracing a whole call's ~300,000 launches takes the profiler about a
+    minute to collect); and ≥ 40 dB against the exact brick march
+    `march_bricks` on the same inputs (the gate of tests/test_brick.py,
+    which holds it against the scan march)."""
+    import torch
+
+    from cloudscape_tpu_torch.models.march import march
+    from cloudscape_tpu_torch.models.march_fast import march_bricks
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    dirs = texel_directions(768, device=dev)
+    out = None
+
+    def scan():
+        nonlocal out
+        out = march(dirs, params, noise, sky, steps=STEPS, light_steps=6)
+
+    ms = events_ms(scan, 1)[0]
+    require(out.shape == dirs.shape[:2] + (4,) and bool(torch.isfinite(out).all()),
+            "the scan march's output has the wrong shape or is not finite")
+    (ms1, n1), (ms2, n2) = (
+        trace_calls(lambda k=k: march(dirs, params, noise, sky, steps=k, light_steps=6),
+                    reps=1, pad=1) for k in (1, 2))
+    device_ms = launches = None
+    if n1 is not None:
+        device_ms = ms1 + (STEPS - 1) * (ms2 - ms1)
+        launches = n1 + (STEPS - 1) * (n2 - n1)
+    exact = march_bricks(dirs, params, bricks, sky, steps=STEPS, light_steps=6)
+    scan_np = out.cpu().numpy()
+    db = psnr(exact.cpu().numpy(), scan_np)
+    require(db >= 40.0, f"march_bricks vs the scan march {db:.2f} dB < 40")
+    return dict(ms=ms, device_ms=device_ms, launches=launches, db=db,
+                cloud_frac=float((scan_np[..., 3] > 0.1).mean()))
+
+
+def tiny_schedule(kernel: str):
+    """(frames per cycle, ticks, march steps) of phase 12's tiny engines.
+    The scan march costs ~3,000 PyTorch operations a step, so the reference
+    engine runs a 4-frame cycle for 6 ticks (one boundary) at 8 steps
+    instead of 16 frames for 20 ticks at 16 steps."""
+    return (4, 6, 8) if kernel == "reference" else (16, 20, 16)
+
+
 def tiny_engine(d, noise, kernel: str, tile_cull: bool):
     """Phase 12's tiny engine on device `d`, with a copy of `noise` there."""
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
@@ -1096,7 +1306,8 @@ def tiny_engine(d, noise, kernel: str, tile_cull: bool):
     pack = type(noise)(large=tuple(l.to(d) for l in noise.large),
                        small=tuple(s.to(d) for s in noise.small),
                        weather=noise.weather.to(d))
-    return CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=16, light_steps=2),
+    frames, _, steps = tiny_schedule(kernel)
+    return CloudSkyEngine(perf=PerfConfig(32, frames, march_steps=steps, light_steps=2),
                           config=CloudConfig(cloud_coverage=0.6),
                           sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
                           cone_res=(8, 64, 64), kernel=kernel, tile_cull=tile_cull,
@@ -1118,7 +1329,7 @@ def tiny_parity(dev, kernel: str, tile_cull: bool = False):
     out, hemis, buckets = [], [], []
     for d in (dev, torch.device("cpu")):
         e = tiny_engine(d, noise, kernel, tile_cull)
-        for i in range(20):
+        for i in range(tiny_schedule(kernel)[1]):
             e.update_sky(now=i / 30.0)
         view = e.render_view(texel_directions(48, device=d) * torch.tensor(
             [1.0, 0.7, 1.0], device=d))
@@ -1126,6 +1337,7 @@ def tiny_parity(dev, kernel: str, tile_cull: bool = False):
         buckets.append(e._tile_buckets)
         if not tile_cull:
             # fast3, 16 steps: prepass_steps 4 < 8, the policy's rebase branch.
+            # fast and reference: their tile march over the map.
             hemis.append(e.render_full_hemisphere().cpu().numpy())
     (ring_gpu, view_gpu), (ring_cpu, view_cpu) = out
     return dict(ring_db=psnr(ring_gpu, ring_cpu), view_db=psnr(view_gpu, view_cpu),
@@ -1164,6 +1376,10 @@ def tiny_fused(dev, kernel: str, tile_cull: bool):
         worst = max(worst, float((f - g).abs().max()))
     require(fused._display_pair is not None, "the fused ticks built no pair tables")
     return worst
+
+
+# Ticks of phase 11c's fast engine.
+FAST_TICKS = 10
 
 
 # bench.py's serving operating point (`bench.py:272-323`): a warm start, 65
@@ -1307,7 +1523,7 @@ def run_tile_cull(dev):
             tile = _march_tile(
                 texel_directions(size, x0=x0, y0=y0, width=region, height=region,
                                  device=dev),
-                eng._march_params, eng._bricks, eng._cone_cache, sky,
+                eng._march_params, eng._noise_arg, sky,
                 region=region, steps=eng.perf.march_steps,
                 light_steps=eng.perf.light_steps, kernel="fast3",
                 ray_keep_frac=b if b < 1.0 else None)
@@ -1341,20 +1557,20 @@ def run_tile_cull(dev):
         frame_mean=float(frame.mean()))
 
 
-def trace_calls(fn, reps: int = 10):
+def trace_calls(fn, reps: int = 10, pad: int = TRACE_PAD):
     """(device ms, device launches) per fn() call from torch.profiler: every
     device activity the calls make, summed, over `reps` calls; (None, None)
-    if the profiler sees no device activity. TRACE_PAD calls run first in
-    the same trace, then the host idles 50 ms: the measured calls' events
-    are those after the trace's longest gap."""
+    if the profiler sees no device activity. `pad` calls run first in the
+    same trace (they also warm fn up), then the host idles 50 ms: the
+    measured calls' events are those after the trace's longest gap. Only
+    the card's activity is traced."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.05)
@@ -1429,6 +1645,11 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
+    start = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        print(f"[phases {phases} done at {time.perf_counter() - start:.1f} s]",
+              flush=True)
 
     t0 = time.perf_counter()
     lib_path = _cuda.build()
@@ -1450,6 +1671,7 @@ def main() -> int:
         print(f"K4–K6 noise {kname} {size} (and {odd}): max_abs_err {nr['err']:.3g}, "
               f"{nr['ms']:.4f} ms kernel vs {nr['plain_ms']:.4f} ms plain ({card})",
               flush=True)
+    stamp("1-4")
 
     eng, r = run_engine(dev, TICKS)
     ms = r["tick_ms"]
@@ -1461,6 +1683,7 @@ def main() -> int:
           f"{r['cloud_frac']:.4f}, frame mean {r['frame_mean']:.4f}; pack "
           f"launches {r['noise']} ({card})", flush=True)
     print("tick ms: " + " ".join(f"{v:.1f}" for v in ms), flush=True)
+    stamp("5")
 
     from cloudscape_tpu_torch.models.march_fast import v3_capacities
 
@@ -1493,7 +1716,11 @@ def main() -> int:
               f"{cr['launches']} device launches a call ({card})", flush=True)
     print(f"composite_display vs composite: max abs diff {comp['max_abs_diff']:.3g}",
           flush=True)
+    # Phase 11d's inputs: the phase-5 engine's params, pack and sky image.
+    scan_inputs = (eng._march_params, eng.noise, eng._bricks,
+                   eng.sky_ring[eng.ring.cloud_kernel_sky_slot].clone())
     del eng
+    stamp("6-7b")
     headline = run_headline(dev)
     for h in headline:
         print(f"headline v3 {WIDTH}x{HEIGHT}x{STEPS} coverage {h['cov']}: policy "
@@ -1503,7 +1730,14 @@ def main() -> int:
               f"median {h['ms']:.2f} ms ({' '.join(f'{t:.2f}' for t in h['all_ms'])}); "
               f"{h['db']:.2f} dB vs dense; cloud fraction {h['cloud_frac']:.4f} "
               f"({card})", flush=True)
+        key = "quality_db_vs_exact" + ("" if h["cov"] == 0.35 else "_high_coverage")
+        print(f"headline referee (march_bricks, chunk 32768, capacity 0.2) coverage "
+              f"{h['cov']}: {h['exact_ms']:.2f} ms, {h['active']} active samples of "
+              f"{WIDTH * HEIGHT * STEPS} (K2 bitwise its plain version); {key} "
+              f"{h['db_exact']:.2f} dB (gate {V3_EXACT_DB}); the dense march vs the "
+              f"referee {h['exact_dense_db']:.2f} dB ({card})", flush=True)
     k3_launches = segscan.launches
+    stamp("8")
 
     c4 = run_config4(dev)
     print(f"config 4 pack (K4–K6, 128³ + 32³ + 512²): {c4['gen_ms']:.3f} ms, "
@@ -1537,6 +1771,7 @@ def main() -> int:
               f"ticks; cloud fraction {s['cloud_frac']:.4f}{extra} ({card})",
               flush=True)
 
+    stamp("9-11")
     ceng, c = run_tile_cull(dev)
     ev = c["event_ms"]
     arms = ", ".join(
@@ -1560,24 +1795,53 @@ def main() -> int:
           flush=True)
     print("tile-cull tick ms: " + " ".join(f"{t:.1f}" for t in ev), flush=True)
     del ceng
+    stamp("11b")
 
-    for kernel in ("fast3", "fast2"):
-        for tile_cull in (False, True):
-            t = tiny_parity(dev, kernel, tile_cull)
-            what = f"tiny {kernel}{' tile_cull' if tile_cull else ''} engine"
-            hemi = "" if t["hemi_db"] is None else \
-                f", render_full_hemisphere {t['hemi_db']:.1f} dB"
-            print(f"{what} card vs CPU: ring {t['ring_db']:.1f} dB, view "
-                  f"{t['view_db']:.1f} dB{hemi}, same buckets {t['same_buckets']} "
-                  f"(cloud fraction {t['frac']:.3f})", flush=True)
-            require(t["ring_db"] >= 50.0 and t["view_db"] >= 50.0
-                    and (t["hemi_db"] is None or t["hemi_db"] >= 50.0),
-                    f"card and CPU {what}s disagree")
-            require(t["frac"] > 0.0, f"the {what} rendered no clouds")
-            worst = tiny_fused(dev, kernel, tile_cull)
-            print(f"{what} on the card, fused vs split over 16 ticks: rings bitwise, "
-                  f"frames max abs diff {worst:.3g}", flush=True)
+    fe = run_fast_engine(dev)
+    tm = fe["tick_ms"]
+    print(f"fast engine 768²/64/128 ({fe['region']}² tiles through the exact march): "
+          f"start {fe['warm_s']:.2f} s; render_frame 1280x720 tick median "
+          f"{statistics.median(tm):.2f} ms, min {min(tm):.2f}, max {max(tm):.2f} over "
+          f"{len(tm)}; K2 x{fe['k2']} in the ticks (a tick's tile compaction "
+          f"{fe['tile_compactions'][0][0].numel()}->{fe['tile_compactions'][0][1]} "
+          f"K2 bitwise its plain version); cloud fraction "
+          f"{fe['cloud_frac']:.4f}; render_full_hemisphere {fe['hemi_ms']:.2f} ms, "
+          f"{fe['active']} active samples (K2 bitwise its plain version), cloud "
+          f"fraction {fe['hemi_cloud_frac']:.4f} ({card})", flush=True)
+    print("fast tick ms: " + " ".join(f"{t:.1f}" for t in tm), flush=True)
+    stamp("11c")
+    sm = run_scan_march(dev, *scan_inputs)
+    del scan_inputs
+    print(f"scan march (the reference kernel's) 768x768x{STEPS}, 6 light steps, "
+          f"phase-5 params: {sm['ms']:.2f} ms by CUDA events; torch.profiler "
+          f"{sm['launches']} device launches and {sm['device_ms']} device ms a call "
+          f"(from 1- and 2-step traces); "
+          f"march_bricks vs it {sm['db']:.2f} dB; cloud fraction "
+          f"{sm['cloud_frac']:.4f} ({card})", flush=True)
+    stamp("11d")
 
+    for kernel, tile_cull in (("fast3", False), ("fast3", True), ("fast2", False),
+                              ("fast2", True), ("fast", False), ("reference", False)):
+        t = tiny_parity(dev, kernel, tile_cull)
+        what = f"tiny {kernel}{' tile_cull' if tile_cull else ''} engine"
+        hemi = "" if t["hemi_db"] is None else \
+            f", render_full_hemisphere {t['hemi_db']:.1f} dB"
+        print(f"{what} card vs CPU: ring {t['ring_db']:.1f} dB, view "
+              f"{t['view_db']:.1f} dB{hemi}, same buckets {t['same_buckets']} "
+              f"(cloud fraction {t['frac']:.3f})", flush=True)
+        require(t["ring_db"] >= 50.0 and t["view_db"] >= 50.0
+                and (t["hemi_db"] is None or t["hemi_db"] >= 50.0),
+                f"card and CPU {what}s disagree")
+        require(t["frac"] > 0.0, f"the {what} rendered no clouds")
+        if kernel == "reference":
+            # Its tiles are slow (the scan march), and the fused tick writes
+            # a tile through `_write_tile` as the split tick does.
+            continue
+        worst = tiny_fused(dev, kernel, tile_cull)
+        print(f"{what} on the card, fused vs split over 16 ticks: rings bitwise, "
+              f"frames max abs diff {worst:.3g}", flush=True)
+
+    stamp("12")
     # Phase 13: each kernel's device time (cold L2) against its bound at the
     # shapes of the paths above; the first row of each is its main-path shape.
     rows = {
@@ -1588,7 +1852,14 @@ def main() -> int:
         "compact": [time_compact(k2_mask, K2_CAP, False, plain=True),
                     time_compact(k2_mask, K2_CAP, True)]
         + [time_compact(m, cap, wr) for m, cap, wr in v["compactions"]]
-        + [time_compact(m, cap, wr) for m, cap, wr in c["compactions"]],
+        + [time_compact(m, cap, wr) for m, cap, wr in c["compactions"]]
+        # The referee's (phase 8, coverage 0.35), the fast engine's
+        # whole-map and a fast tick's tile compactions (phase 11c): they
+        # serve the referee and the unstaged fast kernel, not the default
+        # engine's serving pass, so they are in no launches-per-pass group.
+        + [time_compact(m, cap, wr)
+           for m, cap, wr in headline[0]["exact_compactions"] + fe["compactions"]
+           + fe["tile_compactions"]],
         # One 1-D and one [3, n] launch per v3 march: the engine's hot list
         # first, then the headline's, then a v3 tile's (as it ran).
         "segscan": [time_segscan(dev, cap_h, 1, plain=True),
@@ -1606,7 +1877,7 @@ def main() -> int:
         "accumulate": [(r["k1"] + v["k1"] + c["k1"], rows["accumulate"][0])],
         "compact": [(k2_finalize, k2_rows[0])]
         + [(1, row) for row in k2_rows[2:2 + n7]]
-        + [(c["v3_tiles"], row) for row in k2_rows[2 + n7:]],
+        + [(c["v3_tiles"], row) for row in k2_rows[2 + n7:2 + n7 + nt]],
         "segscan": [(v["k3"] / 2, rows["segscan"][0]), (v["k3"] / 2, rows["segscan"][1])]
         + [(c["v3_tiles"], row) for row in rows["segscan"][2 + 2 * len(headline):]],
     }
@@ -1683,6 +1954,7 @@ def main() -> int:
         print(f"{kname} launches per pass by shape: " + "; ".join(
             f"{n:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
             f"{row['bound_us']:.2f} us)" for n, row in groups[kname]), flush=True)
+    stamp("13")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

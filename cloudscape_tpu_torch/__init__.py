@@ -5,10 +5,11 @@ A port of `cloudscape_tpu` (JAX), which stays the reference it is tested
 against. This package imports neither `jax` nor `cloudscape_tpu`. It serves
 the default `CloudSkyEngine` loop: procedural noise pack → brick tables →
 transmittance and sky-view LUTs → per-cycle cone-density cache → dense tile
-march → composite; and the engine's full-hemisphere re-render, the v3
-cell-gated march. Three steps run as CUDA kernels on a CUDA device
-(`csrc/accum.cu`, `csrc/compact.cu`, `csrc/segscan.cu`); for CPU tensors
-the same wrappers run their plain PyTorch versions.
+march → composite; the engine's full-hemisphere re-render, the v3
+cell-gated march; the v2, exact brick and scan marches and the engine
+kernels that serve them. Six steps run as CUDA kernels on a CUDA device
+(`csrc/accum.cu`, `csrc/compact.cu`, `csrc/segscan.cu`, `csrc/noise.cu`);
+for CPU tensors the same wrappers run their plain PyTorch versions.
 """
 
 from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState

@@ -1,13 +1,15 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
-The port of `cloudscape_tpu.engine.CloudSkyEngine` for its staged kernels on
-one device: the default `kernel="fast3"` (dense tiles below
-`V3_TILE_MIN_RAYS` rays, the staged v2 march above; with `tile_cull`, the
-v3 cell-gated march at each tile's cell bucket) and `kernel="fast2"` (the
-v2 march for every tile; with `tile_cull`, at each tile's ray bucket), with
-or without per-tile culling, and for their full-hemisphere re-render
-(`render_full_hemisphere`: the v3 march for fast3, v2 over the whole map
-for fast2). It owns the texture rings on its device, schedules the
+The port of `cloudscape_tpu.engine.CloudSkyEngine` on one device, for all
+its kernels but "hier": the staged kernels, the default `kernel="fast3"`
+(dense tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above;
+with `tile_cull`, the v3 cell-gated march at each tile's cell bucket) and
+`kernel="fast2"` (the v2 march for every tile; with `tile_cull`, at each
+tile's ray bucket), and the unstaged `kernel="fast"` (the exact brick
+march) and `kernel="reference"` (the scan march), and for their
+full-hemisphere re-render (`render_full_hemisphere`: the v3 march for
+fast3, the kernel's own tile march over the whole map for the others).
+It owns the texture rings on its device, schedules the
 amortized tile updates, integrates wind, snapshots kernel parameters once
 per cycle, bakes the next cycle's cone-density cache, sky LUT and tile-cull
 map across the current cycle's ticks (`cone_prebake`), serves the
@@ -34,6 +36,7 @@ from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState
 from cloudscape_tpu_torch.models import atmosphere
 from cloudscape_tpu_torch.models.compositor import composite, composite_display
 from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
+from cloudscape_tpu_torch.models.march import march
 from cloudscape_tpu_torch.models.march_fast import (
     BrickPack,
     _ceil_to,
@@ -46,6 +49,7 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_table_rows,
     cull_finalize,
     cull_raw_slice,
+    march_bricks,
     march_bricks_v2,
     march_bricks_v3,
     march_tile_dense,
@@ -78,15 +82,23 @@ def _prepass_steps(steps: int) -> int:
     return ps
 
 
-def _march_tile(dirs, params: MarchParams, bricks: BrickPack,
-                cone_cache: ConeCache, sky_img, *, region: int, steps: int,
-                light_steps: int, kernel: str,
+def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
+                steps: int, light_steps: int, kernel: str,
                 ray_keep_frac: Optional[float] = None, cull_prio=None):
-    """The tile march of a staged kernel. Without a cull bucket, "fast3"
-    marches tiles below V3_TILE_MIN_RAYS rays densely and larger ones
-    through the staged v2 march, and "fast2" takes the v2 march for every
-    tile (and for its whole-map render, chunked by the tile as in the JAX
-    engine). The v2 capacity is the JAX engine's 0.5 of the samples.
+    """The tile march of every kernel; noise is the engine's `_noise_arg`.
+
+    "reference" runs the scan march on the NoisePack. "fast" runs the exact
+    brick march on the BrickPack, its compaction capacity 0.5 of the
+    samples (generous for small tiles, not a guarantee: an optically thin
+    overcast scene can keep more samples active, and the excess loses its
+    sun term). The staged kernels take a (BrickPack, ConeCache) pair:
+    without a cull bucket, "fast3" marches tiles below V3_TILE_MIN_RAYS
+    rays densely and larger ones through the staged v2 march, and "fast2"
+    takes the v2 march for every tile. The whole-map render of every
+    kernel but fast3 is this march over the map, as in the JAX engine:
+    fast and fast2 chunk its rays by min(region², 16384), and reference
+    marches the whole map in one call. The v2 capacity is the JAX engine's
+    0.5 of the samples.
 
     With tile cull, ray_keep_frac is the tile's bucket strictly between 0
     and 1 (the engine writes 0.0 tiles as zeros and marches 1.0 tiles
@@ -95,6 +107,14 @@ def _march_tile(dirs, params: MarchParams, bricks: BrickPack,
     cell margin 0.1 and no ray select. For fast2 it is the kept-ray
     fraction, ranked by `cull_prio`, the tile's window of the cycle's
     priority map."""
+    if kernel == "reference":
+        return march(dirs, params, noise, sky_img, steps=steps,
+                     light_steps=light_steps)
+    if kernel == "fast":
+        return march_bricks(dirs, params, noise, sky_img, steps=steps,
+                            light_steps=light_steps,
+                            chunk=min(region * region, 16384), capacity_frac=0.5)
+    bricks, cone_cache = noise
     n = int(np.prod(dirs.shape[:-1]))
     if kernel == "fast3":
         if ray_keep_frac is not None and 0.0 < ray_keep_frac < 1.0 \
@@ -192,10 +212,14 @@ class CloudSkyEngine:
         "fast3" (default; tiles below V3_TILE_MIN_RAYS rays march densely,
         larger ones through the staged v2 march; the whole-map render is
         the v3 march) or "fast2" (the v2 march for every tile and the
-        whole-map render). cone_res: (hf, z, x) resolution of the per-cycle
-        cone cache; cone_prebake (default on): bake the next cycle's cone
-        cache, sky LUT and tile-cull map across the current cycle's ticks,
-        taking the snapshot one rotation ahead.
+        whole-map render); or the unstaged "fast" (the exact brick march,
+        `march_bricks`, with its own sun march and no cone cache) or
+        "reference" (the scan march, `march`, on the noise pyramids: the
+        numerics anchor, slow). cone_res: (hf, z, x) resolution of the
+        per-cycle cone cache; cone_prebake (default on for the staged
+        kernels): bake the next cycle's cone cache, sky LUT and tile-cull
+        map across the current cycle's ticks, taking the snapshot one
+        rotation ahead.
 
         tile_cull: per-tile culling from a per-cycle cull map (the
         parameters are frozen for a cycle, so one prepass over the texel
@@ -204,12 +228,12 @@ class CloudSkyEngine:
         the all-culled result, are written), 1.0 when culling would remove
         too little (the unculled arm), else fast3's live-cell capacity
         (the v3 tile arm) or fast2's kept-ray fraction. Off by default:
-        culled tiles are close to, not equal to, unculled ones."""
-        if kernel in ("fast", "hier", "reference"):
-            raise NotImplementedError(
-                f"kernel={kernel!r} is not ported yet (ROADMAP: fast/reference "
-                "A5, hier A13)")
-        if kernel not in ("fast2", "fast3"):
+        culled tiles are close to, not equal to, unculled ones. tile_cull
+        and cone_prebake are ignored by the unstaged kernels, as in JAX."""
+        if kernel == "hier":
+            raise NotImplementedError("kernel='hier' is not ported yet "
+                                      "(ROADMAP A13)")
+        if kernel not in ("fast", "fast2", "fast3", "reference"):
             raise ValueError(f"unknown kernel {kernel!r}")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet "
@@ -217,9 +241,12 @@ class CloudSkyEngine:
         self.kernel = kernel
         self.device = torch.device(device)
         self.cone_res = tuple(cone_res)
-        # Both ported kernels are staged, the only ones the JAX engine culls.
-        self.tile_cull = bool(tile_cull)
-        self.cone_prebake = True if cone_prebake is None else bool(cone_prebake)
+        # "Staged" kernels march against the per-cycle cone-density cache;
+        # only they cull tiles and prebake the next cycle.
+        self._staged = kernel in ("fast2", "fast3")
+        self.tile_cull = bool(tile_cull) and self._staged
+        self.cone_prebake = self._staged if cone_prebake is None \
+            else (bool(cone_prebake) and self._staged)
         self._pending: Optional[_PendingCycle] = None
         self._prio_map = None
         self._tile_buckets: Optional[List[float]] = None
@@ -228,7 +255,8 @@ class CloudSkyEngine:
         self.sun = sun
         self.noise = noise if noise is not None else \
             procedural_noise_pack(0, device=self.device)
-        self._bricks = BrickPack.from_noise(self.noise)
+        self._bricks = None if kernel == "reference" else \
+            BrickPack.from_noise(self.noise)
         self._cone_cache: Optional[ConeCache] = None
         self._v3_policy_cache = None
 
@@ -362,16 +390,18 @@ class CloudSkyEngine:
         the snapshot frozen at this rotation becomes active at the next, its
         cone cache, sky LUT and tile-cull map baked across this cycle's
         ticks; when the pending bake is not ready they are built
-        synchronously."""
+        synchronously. The unstaged kernels take the snapshot at once and
+        build no cone cache."""
         self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
         if not self.cone_prebake:
             self.frame_data.update_light_data(self.sun, self._sun_srgb)
             self.frame_data.update_config(self.config)
             self.frame_data.integrate_wind(now)
             self._march_params = self.frame_data.to_march_params(self.device)
-            self._cone_cache = self._build_cone(self._march_params)
-            if self.tile_cull:
-                self._refresh_tile_cull()
+            if self._staged:
+                self._cone_cache = self._build_cone(self._march_params)
+                if self.tile_cull:
+                    self._refresh_tile_cull()
             return
 
         head = self._head_frame_data
@@ -564,6 +594,15 @@ class CloudSkyEngine:
             return None, 0.0
         return self._prio_map, b
 
+    @property
+    def _noise_arg(self):
+        """The `noise` argument of `_march_tile` for this engine's kernel."""
+        if self._staged:
+            return (self._bricks, self._cone_cache)
+        if self.kernel == "fast":
+            return self._bricks
+        return self.noise
+
     def _light_dir(self, frame_data: FrameData) -> torch.Tensor:
         return torch.from_numpy(np.asarray(frame_data.light_direction,
                                            np.float32)).to(self.device)
@@ -603,7 +642,7 @@ class CloudSkyEngine:
         if prio_map is not None and ray_keep_frac is not None:
             cull_prio = prio_map[y0:y0 + region, x0:x0 + region]
         tile = _march_tile(
-            dirs, self._march_params, self._bricks, self._cone_cache,
+            dirs, self._march_params, self._noise_arg,
             self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
             steps=self.perf.march_steps, light_steps=self.perf.light_steps,
             kernel=self.kernel, ray_keep_frac=ray_keep_frac,
@@ -811,18 +850,20 @@ class CloudSkyEngine:
 
     def render_full_hemisphere(self, params: Optional[MarchParams] = None,
                                sky_img=None) -> torch.Tensor:
-        """Whole-map render with no amortization → [n, n, 4] with the
-        cycle's cone cache: for fast3 the v3 cell-gated march with the
-        snapshot's measured capacity buckets (K2, K3 on the card); for fast2
-        the v2 march over the whole map at the tiles' settings (K2, K1)."""
+        """Whole-map render with no amortization → [n, n, 4]: for fast3 the
+        v3 cell-gated march with the cycle's cone cache and the snapshot's
+        measured capacity buckets (K2, K3 on the card); for the other
+        kernels their tile march over the whole map at the tiles' settings
+        (fast2: v2 with the cone cache, K2 and K1; fast: the exact brick
+        march, K2; reference: the scan march)."""
         if params is None:
             params = self._march_params
         if sky_img is None:
             sky_img = self.sky_ring[self.ring.cloud_kernel_sky_slot]
-        if self.kernel == "fast2":
+        if self.kernel != "fast3":
             return _march_tile(
                 texel_directions(self.perf.texture_size, device=self.device),
-                params, self._bricks, self._cone_cache, sky_img,
+                params, self._noise_arg, sky_img,
                 region=self.perf.update_region_size,
                 steps=self.perf.march_steps,
                 light_steps=self.perf.light_steps, kernel=self.kernel)
@@ -894,4 +935,5 @@ class CloudSkyEngine:
         self._picked_sky = None
         self._v3_policy_cache = None
         self._derive_prebake_schedule()
-        self._cone_cache = self._build_cone(self._march_params)
+        if self._staged:
+            self._cone_cache = self._build_cone(self._march_params)

@@ -1,15 +1,22 @@
 """Cloud marches on brick tables and the per-cycle cone cache (torch).
 
-The part of `cloudscape_tpu.models.march_fast` that the default engine's
-serving loop and its full-hemisphere re-render run:
+The port of `cloudscape_tpu.models.march_fast`, but for its hierarchical
+marches (ROADMAP A13):
 
-- `BrickPack`: the noise pack as brick tables, channels precombined;
+- `BrickPack`: the noise pack as brick tables, channels precombined (3-D
+  tables optionally stored in bfloat16);
 - the Schneider density on brick tables (`clouds.glsl:109-137`), split at
   the erosion stage (`_density_pre_xyz` / `_density_finish_xyz`);
-- the per-cycle cone-density cache (`ConeCache`): the 17-sample secondary
-  (sun) march (`clouds.glsl:184-199`) precomputed on a shell-aligned grid,
-  either in one call (`build_cone_cache`) or in slices spread over a cycle's
-  ticks (`cone_occupancy_slice` → `cone_occupancy_finalize` →
+- the exact brick march (`march_bricks`): every sample's density, then the
+  17-sample secondary (sun) march (`clouds.glsl:184-199`) on every sample
+  (`compact=False`, `_march_chunk`) or only on the samples that can still
+  be seen, compacted by kernel K2 (`_march_core`); the referee of every
+  faster march, held against the scan march of `models/march.py`;
+- the per-cycle cone-density cache (`ConeCache`): the sun march
+  precomputed on a shell-aligned grid, either in one call
+  (`build_cone_cache` = `cone_occupancy_indices` → the cone march of the
+  occupied cells → `assemble_cone_cache`) or in slices spread over a
+  cycle's ticks (`cone_occupancy_slice` → `cone_occupancy_finalize` →
   `bake_cone_cells` → `cone_table_rows` → `wrap_cone_table`);
 - the dense tile march (`march_tile_dense`): every (ray, step) sample
   evaluated, then the phase-3 accumulation through kernel K1;
@@ -26,10 +33,15 @@ serving loop and its full-hemisphere re-render run:
   and per-tile ray-keep and live-cell fractions, from which the engine
   picks each tile's bucket (skip, v3 cell bucket or v2 ray bucket, dense).
 
+Some of this surface exists for parity with the JAX API, and no engine
+kernel reaches it (the tests hold it against JAX): `BrickPack.from_noise`'s
+`dtype`, `march_bricks`' `approx_light`, `cone_cache_res` and dense
+`compact=False` arm, and the `[..., 3]` wrappers `_weather_rb`,
+`_density_pre`, `_density_bricks` and `_cone_density`.
+
 Every compaction goes through kernel K2 (`compact`).
 Sample positions use the closed form p_i = p0 + dir·ss·i; the
 accumulation is the prefix-product form of `clouds.glsl:206-210`.
-Other marches (exact, hierarchical) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from cloudscape_tpu_torch.models.march import RANDOM_VECTORS, ambient_colors
 from cloudscape_tpu_torch.ops import math as m
 from cloudscape_tpu_torch.ops.accum import accumulate
 from cloudscape_tpu_torch.ops.brick import (
+    SAMPLE_CHUNK,
     BrickTable2D,
     BrickTable3D,
     TinyVolume3D,
@@ -77,19 +90,31 @@ class BrickPack:
     weather: BrickTable2D
 
     @staticmethod
-    def from_noise(noise: NoisePack) -> "BrickPack":
+    def from_noise(noise: NoisePack, dtype=None) -> "BrickPack":
+        """dtype: storage dtype of the 3-D noise tables, built in float32
+        and cast (None keeps float32; `torch.bfloat16` halves them, opt-in).
+        The samplers multiply their rows by float32 weights, so samples
+        come out float32. The weather table stays float32: its coverage
+        channel feeds a hard threshold."""
+        def cast(vol):
+            if dtype is None:
+                return vol
+            if isinstance(vol, BrickTable3D):
+                return dataclasses.replace(vol, table=vol.table.to(dtype))
+            return dataclasses.replace(vol, row=vol.row.to(dtype))
+
         large = []
         for a in noise.large:
             combined = torch.stack(
                 [a[..., 0], a[..., 1] * 0.625 + a[..., 2] * 0.25 + a[..., 3] * 0.125],
                 dim=-1)
-            large.append(build_tiny3(combined) if combined.numel() <= 128
-                         else build_brick3(combined, (4, 4, 4), (3, 3, 3)))
+            large.append(cast(build_tiny3(combined) if combined.numel() <= 128
+                              else build_brick3(combined, (4, 4, 4), (3, 3, 3))))
         small = []
         for a in noise.small:
             combined = (a[..., 0] * 0.625 + a[..., 1] * 0.25 + a[..., 2] * 0.125)[..., None]
-            small.append(build_tiny3(combined) if combined.numel() <= 128
-                         else build_brick3(combined, (8, 4, 4), (7, 3, 3)))
+            small.append(cast(build_tiny3(combined) if combined.numel() <= 128
+                              else build_brick3(combined, (8, 4, 4), (7, 3, 3))))
         w = noise.weather
         weather = build_brick2(torch.stack([w[..., 0], w[..., 2]], dim=-1),
                                (8, 8), (7, 7))
@@ -102,8 +127,14 @@ def _sample_volume_xyz(vol: Volume, qx, qy, qz):
     return sample_brick3_xyz(vol, qx, qy, qz)
 
 
+def _weather_rb(bp: BrickPack, pxz, weather_pos):
+    """(cloud_type, coverage) weather fetch (`clouds.glsl:169-174`) at
+    pxz [..., 2] (world x, z)."""
+    return _weather_rb_xy(bp, pxz[..., 0], pxz[..., 1], weather_pos)
+
+
 def _weather_rb_xy(bp: BrickPack, px, pz, weather_pos):
-    """(cloud_type, coverage) weather fetch (`clouds.glsl:169-174`)."""
+    """`_weather_rb` on component planes."""
     return sample_brick2_xy(bp.weather,
                             px * 0.00006 + 0.5 + weather_pos[0],
                             pz * 0.00006 + 0.5 + weather_pos[1])
@@ -152,6 +183,20 @@ def _density_bricks_xyz(px, py, pz, weather_rb, mip: float,
     return _density_finish_xyz(pre, hf, px, py, pz, mip, params, bp), hf
 
 
+def _density_pre(p, weather_rb, mip: float, params: MarchParams,
+                 bp: BrickPack):
+    """[..., 3] wrapper over `_density_pre_xyz`."""
+    return _density_pre_xyz(p[..., 0], p[..., 1], p[..., 2], weather_rb, mip,
+                            params, bp)
+
+
+def _density_bricks(p, weather_rb, mip: float, params: MarchParams,
+                    bp: BrickPack):
+    """[..., 3] wrapper over `_density_bricks_xyz`."""
+    return _density_bricks_xyz(p[..., 0], p[..., 1], p[..., 2], weather_rb,
+                               mip, params, bp)
+
+
 def _ray_setup(dirs, params: MarchParams, steps: int):
     """Per-ray geometry: (above, ndir, ss, p0, phase, ldir). Rays below the
     horizon are redirected straight up (their output is zeroed later)."""
@@ -193,14 +238,21 @@ def _light_offsets(ldir, light_steps: int):
 
 
 def _cone_density_xyz(px, py, pz, params: MarchParams, bp: BrickPack,
-                      light_offsets, distant_offset, light_steps: int):
-    """Secondary (sun) march density sum `cd` (`clouds.glsl:184-199`)."""
+                      light_offsets, distant_offset, light_steps: int,
+                      approx_weather: bool = False):
+    """Secondary (sun) march density sum `cd` (`clouds.glsl:184-199`).
+    approx_weather reuses the weather fetch at the sample position for the
+    six cone samples (the cone spans ≲ 0.1 weather texel), saving 6 of the
+    17 fetch rows."""
     cd = torch.zeros_like(px)
+    shared_weather = (_weather_rb_xy(bp, px, pz, params.weather_pos)
+                      if approx_weather else None)
     for j in range(light_steps):
         lx = px + light_offsets[j, 0]
         ly = py + light_offsets[j, 1]
         lz = pz + light_offsets[j, 2]
-        lweather = _weather_rb_xy(bp, lx, lz, params.weather_pos)
+        lweather = (shared_weather if approx_weather
+                    else _weather_rb_xy(bp, lx, lz, params.weather_pos))
         lt, _ = _density_bricks_xyz(lx, ly, lz, lweather, float(j), params, bp)
         cd = cd + lt
 
@@ -214,6 +266,39 @@ def _cone_density_xyz(px, py, pz, params: MarchParams, bp: BrickPack,
                                 lz * 0.00006 + 0.5)
     ldens, _ = _density_bricks_xyz(lx, ly, lz, lweather, 5.0, params, bp)
     return cd + torch.pow(ldens, (1.0 - lhf) * 0.8 + 0.5)
+
+
+def _cone_density(p, params: MarchParams, bp: BrickPack, light_offsets,
+                  distant_offset, light_steps: int, approx_weather: bool = False):
+    """[..., 3] wrapper over `_cone_density_xyz`."""
+    return _cone_density_xyz(p[..., 0], p[..., 1], p[..., 2], params, bp,
+                             light_offsets, distant_offset, light_steps,
+                             approx_weather)
+
+
+def _ceil_to(v: int, mult: int) -> int:
+    return (v + mult - 1) // mult * mult
+
+
+def _map_rows(fn, chunk: int, *arrays):
+    """fn over consecutive `chunk`-row slices of the arrays, concatenated
+    along dim 0 (a tuple result concatenates element by element)."""
+    n = arrays[0].shape[0]
+    outs = [fn(*(a[i:i + chunk] for a in arrays)) for i in range(0, n, chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+    return torch.cat(outs, dim=0)
+
+
+def _pad_blocks(flat, chunk: int, fill):
+    """Pad the leading dim to a multiple of chunk with rows equal to `fill`
+    and reshape to [k, chunk, ...]."""
+    n_pad = (-flat.shape[0]) % chunk
+    if n_pad:
+        pad = torch.as_tensor(fill, dtype=flat.dtype, device=flat.device).expand(
+            (n_pad,) + tuple(flat.shape[1:]))
+        flat = torch.cat([flat, pad], dim=0)
+    return flat.reshape((-1, chunk) + tuple(flat.shape[1:]))
 
 
 def _compact_mask(mask_flat, capacity: int, total: int):
@@ -304,15 +389,16 @@ def _cone_cells(cells, params: MarchParams, bp: BrickPack, light_steps: int,
                              distant_offset, light_steps)
 
 
-def build_cone_cache(params: MarchParams, bp: BrickPack,
-                     light_steps: int = 6, res=(16, 256, 256),
-                     extent: float = 220e3, chunk: int = 16384,
-                     sparse_capacity_frac: float = 0.45) -> ConeCache:
-    """Evaluate the cone density on the cache grid and pack it into a
-    clamp-wrap brick table. res = (n_hf, n_z, n_x). The cone march runs only
-    on cells whose pre-erosion density is positive, dilated by one cell,
-    compacted into `cone_capacity` slots by kernel K2; overflow leaves far
-    cells at cd = 0."""
+def cone_occupancy_indices(params: MarchParams, bp: BrickPack,
+                           res=(16, 256, 256), extent: float = 220e3,
+                           chunk: int = 16384,
+                           sparse_capacity_frac: float = 0.45):
+    """The cone bake's occupancy in one pass: the `pre > 0` predicate at
+    every cell center of the grid, dilated by one cell per axis (the
+    trilinear query footprint), compacted by kernel K2 into
+    `cone_capacity` slots → the ascending occupied-cell indices, fill = n.
+    The sliced form (`cone_occupancy_slice` → `cone_occupancy_finalize`)
+    gives the same indices."""
     nd, nh, nw = res
     n = nd * nh * nw
     dev = bp.weather.table.device
@@ -327,13 +413,32 @@ def build_cone_cache(params: MarchParams, bp: BrickPack,
     y = torch.sqrt(torch.clamp(rr * rr - (x * x + z * z), min=1.0))
     px, py, pz = (v.expand(res).reshape(-1) for v in (x, y, z))
     occ = _dilate(_pre_positive(px, py, pz, params, bp), res)
-    idx = _compact_mask(occ, cone_capacity(n, sparse_capacity_frac, chunk), n)
-    cd = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
+    return _compact_mask(occ, cone_capacity(n, sparse_capacity_frac, chunk), n)
+
+
+def assemble_cone_cache(cd_vol, extent: float = 220e3) -> ConeCache:
+    """Pack a fully baked [nd, nh, nw] cone-density volume into the cache's
+    clamp-wrap brick table (in one call; `cone_table_rows` +
+    `wrap_cone_table` is the sliced form)."""
+    return ConeCache(table=build_brick3(cd_vol[..., None], CONE_BRICK, CONE_STRIDE,
+                                        wrap="clamp"), extent=extent)
+
+
+def build_cone_cache(params: MarchParams, bp: BrickPack,
+                     light_steps: int = 6, res=(16, 256, 256),
+                     extent: float = 220e3, chunk: int = 16384,
+                     sparse_capacity_frac: float = 0.45) -> ConeCache:
+    """Evaluate the cone density on the cache grid and pack it into a
+    clamp-wrap brick table. res = (n_hf, n_z, n_x). The cone march runs only
+    on the cells `cone_occupancy_indices` keeps; overflow leaves far cells
+    at cd = 0."""
+    n = res[0] * res[1] * res[2]
+    idx = cone_occupancy_indices(params, bp, res, extent, chunk,
+                                 sparse_capacity_frac)
+    cd = torch.zeros((n + 1,), dtype=torch.float32, device=idx.device)
     # Fill entries (idx == n) land in the spare last slot and are dropped.
     cd[idx.to(torch.int64)] = _cone_cells(idx, params, bp, light_steps, res, extent)
-    table = build_brick3(cd[:n].reshape(nd, nh, nw, 1), CONE_BRICK, CONE_STRIDE,
-                         wrap="clamp")
-    return ConeCache(table=table, extent=extent)
+    return assemble_cone_cache(cd[:n].reshape(res), extent)
 
 
 def cone_occupancy_slice(occ, i0: int, params: MarchParams, bp: BrickPack,
@@ -450,6 +555,191 @@ def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
     return out.reshape(shape + (4,))
 
 
+# ------------------------------------------------------- exact brick march
+#
+# `march_bricks`: every sample's density on the brick tables, and the sun
+# march evaluated per sample (no cone cache unless one is given). The dense
+# form (`_march_chunk`) runs the sun march on every sample; the compacted
+# form (`_march_core`) runs it only on samples with t > 0 whose prefix
+# transmittance exceeds t_cutoff, compacted by kernel K2. Phase 3 is plain
+# PyTorch, the JAX package's prefix-product formula, so the referee does
+# not depend on kernel K1, which the marches it referees run.
+
+# Samples per piece of `_march_core`'s phase 2. Pieces bound only the
+# memory of the per-sample temporaries (the samplers chunk their gathers by
+# SAMPLE_CHUNK), so they are far larger than the JAX package's `chunk`-sized
+# `lax.map` pieces; the output does not depend on them.
+CONE_PIECE = 16 * SAMPLE_CHUNK
+
+
+def _prefix_accumulate(t, cd, hf, dt, t_prefix, beers_mask, phase, params,
+                       atmos, lss: float):
+    """Phase B on [n, steps] planes (`clouds.glsl:201-210` in prefix-product
+    form): L = Σ_i T_{<i}·radiance_i·(1 − dt_i)/max(t_i, 1e-7), alpha =
+    1 − Π dt. beers_mask (or None) zeroes the sun term of the samples it
+    excludes. Returns [n, 4]."""
+    atmosphere_sun, atmosphere_ambient, atmosphere_ground = atmos
+    beers = torch.exp(-params.density * cd * lss * 3.0)
+    powder = 1.0 - torch.exp(-params.density * cd * lss * 6.0)
+    beers_total = 2.0 * beers * powder
+    if beers_mask is not None:
+        beers_total = torch.where(beers_mask, beers_total, 0.0)
+    ambient = atmosphere_ground + (atmosphere_ambient - atmosphere_ground) * \
+        m.smoothstep(0.0, 1.0, hf)[..., None]
+    radiance = (ambient + (beers_total * phase[:, None])[..., None] * atmosphere_sun) \
+        * t[..., None]
+    contrib = t_prefix[..., None] * (radiance - radiance * dt[..., None]) / \
+        torch.clamp(t, min=1e-7)[..., None]
+    L = torch.sum(contrib, dim=1)
+    alpha = torch.clamp(1.0 - torch.prod(dt, dim=1), 0.0, 1.0)
+    return torch.cat([L, alpha[..., None]], dim=-1)
+
+
+def _transmittance(t, ss, params: MarchParams):
+    """(dt, exclusive prefix product of dt) of [n, steps] densities."""
+    dt = torch.exp(-params.density * t * ss[:, None])
+    t_prefix = torch.cat([torch.ones_like(dt[:, :1]),
+                          torch.cumprod(dt, dim=1)[:, :-1]], dim=1)
+    return dt, t_prefix
+
+
+def _march_chunk(dirs, params: MarchParams, bp: BrickPack, atmos,
+                 steps: int, light_steps: int):
+    """Dense Phase A+B for one chunk of rays: the density and the sun march
+    at every sample, then the prefix-product accumulation. dirs: [n, 3] →
+    [n, 4]."""
+    above, ndir, ss, p0, phase, ldir = _ray_setup(dirs, params, steps)
+    light_offsets, distant_offset, lss = _light_offsets(ldir, light_steps)
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dirs.device)
+    px, py, pz = _sample_xyz(p0, ndir, ss[:, None] * i_step[None, :])
+    weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
+    t, hf = _density_bricks_xyz(px, py, pz, weather, 0.0, params, bp)
+    cd = _cone_density_xyz(px, py, pz, params, bp, light_offsets,
+                           distant_offset, light_steps)
+    dt, t_prefix = _transmittance(t, ss, params)
+    out = _prefix_accumulate(t, cd, hf, dt, t_prefix, None, phase, params,
+                             atmos, lss)
+    return torch.where(above[:, None], out, 0.0)
+
+
+def _march_core(above, ndir, ss, p0, phase, ldir, params: MarchParams,
+                bp: BrickPack, atmos, steps: int, light_steps: int,
+                chunk: int, capacity_frac: float, t_cutoff: float,
+                approx_light: bool = False, cone_cache: ConeCache | None = None):
+    """Compacted march over prepared rays → [n, 4].
+
+    1. Dense, `chunk` rays at a time: the primary density t and height
+       fraction at every sample.
+    2. The sun march only matters where t > 0 (the reference's own
+       `if (t > 0)` guard) and where the prefix transmittance still
+       exceeds t_cutoff. Those samples are compacted by kernel K2 into
+       capacity_frac · n · steps slots (rounded up to `chunk`; overflow
+       drops the sun term of the excess samples), their positions are
+       recomputed from the flat indices, and each gets the 17-sample sun
+       march, or one cone-cache lookup when `cone_cache` is given. The
+       JAX package maps over every slot in `chunk`-sized pieces; this one
+       reads the compacted count once and marches only the filled slots,
+       in pieces of CONE_PIECE samples (fill slots are dropped by the
+       scatter either way). The results are scattered back to an
+       [n, steps] plane.
+    3. The prefix-product accumulation, `chunk` rays at a time."""
+    n = ndir.shape[0]
+    dev = ndir.device
+    light_offsets, distant_offset, lss = _light_offsets(ldir, light_steps)
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+    total = n * steps
+
+    def dense_chunk(p0c, ndirc, ssc):
+        px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
+        weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        return _density_bricks_xyz(px, py, pz, weather, 0.0, params, bp)
+
+    t, hf = _map_rows(dense_chunk, chunk, p0, ndir, ss)
+    dt, t_prefix = _transmittance(t, ss, params)
+
+    # ---- Phase 2: the sun march where it can matter.
+    active = (t > 0.0) & (t_prefix > t_cutoff) & above[:, None]
+    capacity = max(int(total * capacity_frac), chunk)
+    capacity += (-capacity) % chunk
+    idx = _compact_mask(active.reshape(-1), capacity, total)
+    idx = idx[:int(torch.count_nonzero(idx < total))].to(torch.int64)
+    # Per-ray geometry in one row (p0 xyz, ndir xyz, ss), gathered once per
+    # compacted sample; positions recomputed as phase 1 placed them.
+    geom = torch.cat([p0, ndir, ss[:, None]], dim=1)
+
+    def cone_piece(ip):
+        g = geom[torch.clamp(ip // steps, max=n - 1)]
+        tt = g[:, 6] * ((ip % steps).to(torch.float32) + 1.0)
+        ax, ay, az = (g[:, a] + g[:, 3 + a] * tt for a in range(3))
+        if cone_cache is not None:
+            qx, qz, qh = _cone_cache_coords_xyz(ax, ay, az, cone_cache.extent)
+            return sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        return _cone_density_xyz(ax, ay, az, params, bp, light_offsets,
+                                 distant_offset, light_steps,
+                                 approx_weather=approx_light)
+
+    cd = torch.zeros((total,), dtype=torch.float32, device=dev)
+    if idx.numel():
+        cd[idx] = _map_rows(cone_piece, CONE_PIECE, idx)
+    cd = cd.reshape(n, steps)
+
+    # ---- Phase 3: accumulation.
+    def accum_chunk(tc, cdc, hfc, dtc, tpc, actc, phc):
+        return _prefix_accumulate(tc, cdc, hfc, dtc, tpc, actc, phc, params,
+                                  atmos, lss)
+
+    out = _map_rows(accum_chunk, chunk, t, cd, hf, dt, t_prefix, active, phase)
+    return torch.where(above[:, None], out, 0.0)
+
+
+def _march_compact(flat, params: MarchParams, bp: BrickPack, atmos,
+                   steps: int, light_steps: int, chunk: int,
+                   capacity_frac: float, t_cutoff: float,
+                   approx_light: bool = False,
+                   cone_cache: ConeCache | None = None):
+    """The compacted march over world directions [n, 3]: per-ray setup,
+    then `_march_core`."""
+    above, ndir, ss, p0, phase, ldir = _ray_setup(flat, params, steps)
+    return _march_core(above, ndir, ss, p0, phase, ldir, params, bp, atmos,
+                       steps, light_steps, chunk, capacity_frac, t_cutoff,
+                       approx_light, cone_cache)
+
+
+def march_bricks(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
+                 steps: int = 128, light_steps: int = 6, chunk: int = 16384,
+                 compact: bool = True, capacity_frac: float = 0.25,
+                 t_cutoff: float = 1e-4, approx_light: bool = False,
+                 cone_cache: ConeCache | None = None, cone_cache_res=None):
+    """The exact brick march over world directions [..., 3] → [..., 4]
+    (L rgb, alpha). compact=True: `_march_core` (K2 compaction of the
+    samples the sun march can matter for); compact=False: the dense
+    `_march_chunk`, `chunk` rays at a time (the last chunk padded with
+    below-horizon rays, which march to zeros, and cut off). chunk bounds the
+    memory of the dense passes. cone_cache (compact only) replaces the sun
+    march with one cache lookup; cone_cache_res builds such a cache when
+    none is given."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    atmos = ambient_colors(params, sky_lut_img)
+    if cone_cache is None and cone_cache_res is not None:
+        cone_cache = build_cone_cache(params, bp, light_steps, res=cone_cache_res,
+                                      chunk=min(chunk, max(n, 1)))
+    if compact:
+        out = _march_compact(flat, params, bp, atmos, steps, light_steps,
+                             min(chunk, max(n, 1)), capacity_frac, t_cutoff,
+                             approx_light, cone_cache)
+        return out.reshape(shape + (4,))
+    if n <= chunk:
+        return _march_chunk(flat, params, bp, atmos, steps,
+                            light_steps).reshape(shape + (4,))
+    blocks = _pad_blocks(flat, chunk, (0.0, -1.0, 0.0))
+    out = torch.cat([_march_chunk(b, params, bp, atmos, steps, light_steps)
+                     for b in blocks])[:n]
+    return out.reshape(shape + (4,))
+
+
 # ---------------------------------------------------- v3 cell-gated march
 #
 # The full-hemisphere re-render (`march_bricks_v3`): a coarse prepass scores
@@ -461,20 +751,6 @@ def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
 # package's `lax.map` over padded chunks becomes a plain loop over chunks:
 # padded rows were sliced off there, so their results are the same without
 # them.
-
-def _ceil_to(v: int, mult: int) -> int:
-    return (v + mult - 1) // mult * mult
-
-
-def _map_rows(fn, chunk: int, *arrays):
-    """fn over consecutive `chunk`-row slices of the arrays, concatenated
-    along dim 0 (a tuple result concatenates element by element)."""
-    n = arrays[0].shape[0]
-    outs = [fn(*(a[i:i + chunk] for a in arrays)) for i in range(0, n, chunk)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
-    return torch.cat(outs, dim=0)
-
 
 def _dilate_max(m2):
     """3×3 max dilation of a 2-D grid with wrap-around, separable (rows then

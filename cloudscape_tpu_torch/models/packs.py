@@ -17,17 +17,7 @@ import torch
 
 from cloudscape_tpu_torch.models.density import NoisePack
 from cloudscape_tpu_torch.ops import noise_kernel
-
-
-def _pyramid3d(tex: torch.Tensor):
-    """Full mip chain of a [D, H, W, C] volume by 2×2×2 box filter, on the
-    volume's own device."""
-    levels = [tex]
-    while min(tex.shape[:3]) > 1:
-        d, h, w, c = tex.shape
-        tex = tex.reshape(d // 2, 2, h // 2, 2, w // 2, 2, c).mean(dim=(1, 3, 5))
-        levels.append(tex)
-    return tuple(levels)
+from cloudscape_tpu_torch.ops.sampling import build_pyramid3d
 
 
 def make_noise_pack(large_volume, small_volume, weather_image) -> NoisePack:
@@ -36,8 +26,8 @@ def make_noise_pack(large_volume, small_volume, weather_image) -> NoisePack:
     large_volume: [D,H,W,4]; small_volume: [D,H,W,3]; weather: [H,W,3]
     (weather is sampled miplessly, `weather.bmp.import: mipmaps=false`).
     All three float32 tensors on one device."""
-    return NoisePack(large=_pyramid3d(large_volume.float()),
-                     small=_pyramid3d(small_volume.float()),
+    return NoisePack(large=build_pyramid3d(large_volume.float()),
+                     small=build_pyramid3d(small_volume.float()),
                      weather=weather_image.float())
 
 

@@ -102,6 +102,11 @@ def build_brick3(volume, brick=(4, 4, 4), stride=(3, 3, 3),
                         stride=stride, grid=(nz, ny, nx), channels=c, wrap=wrap)
 
 
+# The JAX package's device-side builder (`build_brick3_device`) is the same
+# gather; `build_brick3` already runs on the volume's device.
+build_brick3_device = build_brick3
+
+
 def build_brick3_rows(volume, b0: int, count: int, brick=(4, 4, 4),
                       stride=(3, 3, 3), wrap: str = "repeat"):
     """Rows [b0, b0 + count) of `build_brick3`'s table — the sliceable form
@@ -205,6 +210,13 @@ def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):
     return _chunked(chunk, qx, qy, qz)
 
 
+def sample_brick3(bt: BrickTable3D, q):
+    """Trilinear fetch at q [..., 3] (x, y, z uv) → [..., C] (the table's
+    wrap). For parity with the JAX API; the marches call
+    `sample_brick3_xyz`."""
+    return sample_brick3_xyz(bt, q[..., 0], q[..., 1], q[..., 2])
+
+
 def sample_brick2_xy(bt: BrickTable2D, qu, qv):
     """Bilinear fetch on component planes (u, v) → [..., C]."""
     h, w = bt.dims
@@ -253,3 +265,9 @@ def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):
         return torch.sum(row[None] * wgt.reshape(-1, 1, L), dim=-1)
 
     return _chunked(chunk, qx, qy, qz)
+
+
+def sample_tiny3(tv: TinyVolume3D, q):
+    """Gather-free trilinear fetch at q [..., 3] → [..., C], modular wrap.
+    For parity with the JAX API; the marches call `sample_tiny3_xyz`."""
+    return sample_tiny3_xyz(tv, q[..., 0], q[..., 1], q[..., 2])

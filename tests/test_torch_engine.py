@@ -10,9 +10,13 @@ cloud ring ~104 dB and the composite ~102 dB after warm start + 20 ticks
 ~134 dB (gate 50). The "fast2" engine (the staged v2 march for every
 tile): ring ~104 dB, view ~102 dB, `render_full_hemisphere` ~104 dB; the
 fast3 v2 tile arm (a 40² map, threshold lowered to its 10² tiles): ring
-~97 dB, view ~102 dB (gates 50 dB). The JAX side runs its XLA forms (a CPU
-backend), so the port's kernel wrappers meet the JAX package's own CPU
-numerics here.
+~97 dB, view ~102 dB (gates 50 dB). The unstaged engines at PerfConfig(32,
+4) after the warm start and 6 ticks: "fast" (the exact brick march) ring
+119.28 dB, view 106.60 dB, `render_full_hemisphere` 119.45 dB; "reference"
+(the scan march) ring 71.94 dB, view 94.65 dB, `render_full_hemisphere`
+72.77 dB (gates 50 dB). The JAX side runs its XLA forms (a CPU backend),
+so the port's kernel wrappers meet the JAX package's own CPU numerics
+here.
 """
 
 import os
@@ -77,17 +81,22 @@ def _params():
     return jp, MarchParams.from_numpy(fields, device=DEV)
 
 
-def _engines(packs, kernel="fast3", size=32):
+SUN = (0.3, 0.5, -0.8)
+
+
+def _port_engine(tn, kernel="fast3", size=32, frames=16, **kw):
+    return CloudSkyEngine(perf=PerfConfig(size, frames, march_steps=16, light_steps=2),
+                          config=CloudConfig(cloud_coverage=0.6),
+                          sun=SunState(direction=SUN), noise=tn, cone_res=RES,
+                          device="cpu", kernel=kernel, **kw)
+
+
+def _engines(packs, kernel="fast3", size=32, frames=16, **kw):
     jn, tn = packs
-    sun = (0.3, 0.5, -0.8)
-    je = JEngine(perf=JPerf(size, 16, march_steps=16, light_steps=2),
-                 config=JCloud(cloud_coverage=0.6), sun=JSun(direction=sun),
-                 noise=jn, cone_res=RES, kernel=kernel)
-    te = CloudSkyEngine(perf=PerfConfig(size, 16, march_steps=16, light_steps=2),
-                        config=CloudConfig(cloud_coverage=0.6),
-                        sun=SunState(direction=sun), noise=tn, cone_res=RES,
-                        device="cpu", kernel=kernel)
-    return je, te
+    je = JEngine(perf=JPerf(size, frames, march_steps=16, light_steps=2),
+                 config=JCloud(cloud_coverage=0.6), sun=JSun(direction=SUN),
+                 noise=jn, cone_res=RES, kernel=kernel, **kw)
+    return je, _port_engine(tn, kernel, size, frames, **kw)
 
 
 def _view_dirs():
@@ -295,6 +304,44 @@ def test_fast3_v2_tile_arm_matches_jax(packs, monkeypatch):
     d = _view_dirs()
     assert psnr(te.render_view(torch.from_numpy(d)).numpy(),
                 np.asarray(je.render_view(jnp.asarray(d)))) >= 50.0
+
+
+@pytest.mark.parametrize("kernel", ["fast", "reference"])
+def test_unstaged_engine_matches_jax(packs, kernel):
+    """kernel="fast" (the exact brick march, K2 on the card) and
+    "reference" (the scan march) against the JAX engines, asked for
+    `tile_cull` and `cone_prebake`, which both packages ignore for these
+    kernels (no cone cache, no pending bake): the warm start and 6 ticks of
+    a 4-frame cycle, across a boundary, then the ring, a view and
+    `render_full_hemisphere` at ≥ 50 dB. A `save()` restored into a fresh
+    engine re-renders the hemisphere bitwise and ticks on bitwise."""
+    je, te = _engines(packs, kernel=kernel, frames=4, tile_cull=True,
+                      cone_prebake=True)
+    for e in (je, te):
+        assert not e.tile_cull and not e.cone_prebake and not e._staged
+    assert (te._bricks is None) == (kernel == "reference")
+    for i in range(6):
+        je.update_sky(now=i / 30.0)
+        te.update_sky(now=i / 30.0)
+    assert te._cone_cache is None and te._pending is None
+    ring_j, ring_t = np.asarray(je.cloud_ring), te.cloud_ring.numpy()
+    assert (ring_j[..., 3] > 0.1).mean() > 0.02
+    assert psnr(ring_t, ring_j) >= 50.0
+    d = _view_dirs()
+    view_t = te.render_view(torch.from_numpy(d)).numpy()
+    assert np.isfinite(view_t).all() and view_t.min() >= 0.0
+    assert psnr(view_t, np.asarray(je.render_view(jnp.asarray(d)))) >= 50.0
+    got = te.render_full_hemisphere().numpy()
+    assert got.shape == (32, 32, 4)
+    assert psnr(got, np.asarray(je.render_full_hemisphere())) >= 50.0
+
+    back = _port_engine(packs[1], kernel, frames=4)
+    back.restore(te.save())
+    np.testing.assert_array_equal(back.render_full_hemisphere().numpy(), got)
+    for i in range(6, 9):
+        te.update_sky(now=i / 30.0)
+        back.update_sky(now=i / 30.0)
+    np.testing.assert_array_equal(back.cloud_ring.numpy(), te.cloud_ring.numpy())
 
 
 def test_unported_modes_raise():

@@ -389,7 +389,7 @@ def test_tile_cull_matches_unculled(packs, kernel):
             ra[y0:y0 + region, x0:x0 + region] = tengine._march_tile(
                 texel_directions(n, x0=x0, y0=y0, width=region, height=region,
                                  device=DEV),
-                b._march_params, b._bricks, b._cone_cache,
+                b._march_params, b._noise_arg,
                 b.sky_ring[b.ring.cloud_kernel_sky_slot], region=region,
                 steps=16, light_steps=2, kernel=kernel)
     ra = ra.numpy()
