@@ -21,7 +21,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    elements (more than the blocks' shared memory holds); then K4–K6
    (noise) against their plain versions at the shipped sizes
    (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
-   not powers of two (48³, 20³, 100², seed 7), atol 2e-5;
+   not powers of two (48³, 20³, 100², seed 7), atol 2e-5; and the
+   engines' validation probe, which must launch K1–K3 once each;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
    steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
    generate) on the card:
@@ -72,6 +73,18 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    `march_bricks_v3`), both ≥ 40 dB against the dense march, v2 with every
    gate off ≥ 100 dB; K1 and K2 launched in the v2 call, K3 ≥ 2 times in
    the v3 one;
+   9b. bench/sweep.py config 5 (`run_config5`): `reference_noise_pack(seed=0)`
+   (procedural where the reference's BMPs are absent), 2048×1024
+   hemisphere rays × 128 adaptive steps, coarse 32, 4 row bands, the
+   sweep's scene and a (32, 512, 512) cone cache; the v1 row
+   (`march_hierarchical_banded`, capacity 0.08), the v3 row
+   (`hier_v3_auto_policy` + `march_hierarchical_v3_banded`) and the v3flat
+   row (per-band `v3_auto_policy` + `march_bricks_v3`), each the median of
+   3 after a warm call; v1 and v3 ≥ C5_DB against a 512-step exact march
+   on every 4th row and column; the kernel launches of each call of the
+   path (the pack, the cone cache, each policy, each row's warm call)
+   counted on their own; one band of each row marched again with its K2
+   and K3 calls recorded and held against their plain versions;
 10. a `kernel="fast2"` engine at PerfConfig() (every tile through the v2
    march): warm start, 20 render_frame ticks that launch K1 and K2, clouds
    in the ring, `render_full_hemisphere` (v2 over the map) ≥ 40 dB against
@@ -110,8 +123,19 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    image: ms by CUDA events, device launches and ms per call by
    torch.profiler (from a 1- and a 2-step march: the steps are alike), and
    `march_bricks` on the same inputs ≥ 40 dB from it;
-12. the fast3 and fast2 engines at a tiny size, without and with tile
-   cull, and the fast and reference engines, on the card and on the CPU
+   11e. a `kernel="hier"` engine at PerfConfig() on the phase-5 scene:
+   `can_run`, the warm start, 20 fused ticks within a cycle and 70 across
+   a boundary (CUDA events), K2 and K3 launched by the ticks, frames
+   finite, nonnegative and not black, clouds in the ring, and its
+   4-band `render_full_hemisphere` ≥ V3_ENGINE_DB against the dense march;
+   11f. (run after phase 8, on the phase-5 engine) `save_file` →
+   `load_file` into a new engine (rings and the cone table bitwise, the
+   next fused tick's frame and rings bitwise), `render_radiance_map(32)` sharp and
+   prefiltered (finite, nonnegative, +Y brighter than −Y, the solid
+   angles against 4π), and `set_performance(PerfConfig(384, 16))` on a
+   new fast3 engine with the warm re-init that fills its ring;
+12. the fast3, fast2 and hier engines at a tiny size, without and with
+   tile cull, and the fast and reference engines, on the card and on the CPU
    (where the wrappers take their plain versions): ring, view and
    (unculled) `render_full_hemisphere` ≥ 50 dB apart; and on the card,
    but for the reference engine, the fused `render_frame` against
@@ -128,10 +152,12 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    phase-7 re-render and of one phase-11b v3 tile, recorded as they ran
    (and held bitwise against the plain version there), and at the
    compactions of phase 8's referee (coverage 0.35) and phase 11c's
-   whole map and tile, which serve the referee and the unstaged fast
-   kernel, not the default engine, and so enter no pass;
+   whole map and tile, and of one band of each config-5 row (phase 9b),
+   which serve the referee, the unstaged fast kernel and config 5, not the
+   default engine, and so enter no pass;
    K3 1-D and [3, n] (one launch each) at the engine's and the headline's
-   hot-list capacities and on the v3 tile's recorded inputs;
+   hot-list capacities and on the v3 tile's and config 5's recorded
+   inputs;
    K4–K6 at the shipped sizes; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
@@ -144,8 +170,15 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
 phase 5's engine construction and config 4's pack; `launches_tile_cull`
-around phase 11b. `launches_per_pass` counts one pass: phase 5, phase 7's
-first render_full_hemisphere and phase 11b's timed window.
+around phase 11b; `launches_config5` by each call of config 5's path in
+phase 9b (the pack, the cone cache, the two policies, each row's warm
+call: zeroed just before the call, read just after); and
+`launches_hier_engine` around phase 11e (the counts zeroed before each).
+`launches_per_pass` counts one pass: phase 5, phase 7's first
+render_full_hemisphere and phase 11b's timed window, without the one
+launch of K1–K3 of phase 5's validation probe (a tiny input, not a pass's
+shape). Every engine the script builds must pass its validation
+(`can_run`).
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -807,7 +840,7 @@ def run_v3_engine(eng):
     ms = events_ms(eng.render_full_hemisphere, 3)
     # One more call with its compactions recorded, for the K2 timings at
     # the re-render's own shapes.
-    _, compactions = record_compactions(eng.render_full_hemisphere)
+    _, compactions, _ = record_kernels(eng.render_full_hemisphere)
     check_recorded("phase-7 re-render", compactions)
     rk, ck, hk = policy = eng._v3_policy(eng._march_params)
     ps, _ = eng._v3_march_knobs()
@@ -836,23 +869,56 @@ def run_v3_engine(eng):
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
-def record_compactions(fn):
+def record_kernels(fn):
     """Run fn() with every K2 call of `models/march_fast.py` recorded as
-    (mask, capacity, rank asked for); returns (fn's result, the calls)."""
+    (mask, capacity, rank asked for) and every K3 call as (values, heads);
+    returns (fn's result, the K2 calls, the K3 calls)."""
     from cloudscape_tpu_torch.models import march_fast
 
-    compactions = []
-    real = march_fast.compact
+    compactions, scans = [], []
+    real_c, real_s = march_fast.compact, march_fast.segscan
 
-    def recorder(mask, capacity, total, with_rank=True):
+    def rec_c(mask, capacity, total, with_rank=True):
         compactions.append((mask.clone(), capacity, with_rank))
-        return real(mask, capacity, total, with_rank)
+        return real_c(mask, capacity, total, with_rank)
 
-    march_fast.compact = recorder
+    def rec_s(v, h):
+        scans.append((v.clone(), h.clone()))
+        return real_s(v, h)
+
+    march_fast.compact, march_fast.segscan = rec_c, rec_s
     try:
-        return fn(), compactions
+        return fn(), compactions, scans
     finally:
-        march_fast.compact = real
+        march_fast.compact, march_fast.segscan = real_c, real_s
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+
+    accum.launches = compact.launches = segscan.launches = 0
+    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count, by its name in the kernels line."""
+    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+
+    return dict(accumulate=accum.launches, compact=compact.launches,
+                segscan=segscan.launches,
+                **{f"noise_{k}": v for k, v in noise_kernel.launches.items()})
+
+
+def counted(fn):
+    """(fn's result, the kernel launches of that one call): the counts are
+    zeroed just before the call and read just after it."""
+    import torch
+
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
 
 
 def run_headline(dev):
@@ -913,7 +979,7 @@ def run_headline(dev):
                                 chunk=32768, capacity_frac=0.2)
 
         # The first call, recorded, also warms the allocator to this size.
-        exact, compactions = record_compactions(referee)
+        exact, compactions, _ = record_kernels(referee)
         exact_ms = events_ms(referee, 1)[0]
         require(len(compactions) == 1 and compactions[0][0].numel() == WIDTH
                 * HEIGHT * STEPS, f"the referee made {len(compactions)} K2 calls")
@@ -1070,6 +1136,7 @@ def run_engine(dev, ticks: int):
     eng = CloudSkyEngine(perf=perf, config=CloudConfig(cloud_coverage=0.45),
                          sun=SunState(direction=(0.3, 0.25, -0.9)),
                          device=dev)
+    require(eng.can_run, "the default engine failed its validation")
     noise_launches = dict(noise_kernel.launches)
     require(all(v == 1 for v in noise_launches.values()),
             f"the engine's pack did not launch K4–K6 once each: {noise_launches}")
@@ -1135,6 +1202,7 @@ def run_staged_engine(dev, kernel: str, perf, ticks: int, hemisphere: bool):
     eng = CloudSkyEngine(perf=perf, config=CloudConfig(cloud_coverage=0.45),
                          sun=SunState(direction=(0.3, 0.25, -0.9)),
                          kernel=kernel, device=dev)
+    require(eng.can_run, f"the {kernel} engine failed its validation")
     eng.render_frame(eyedirs, now=0.0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -1198,6 +1266,7 @@ def run_fast_engine(dev):
     eng = CloudSkyEngine(perf=PerfConfig(), config=CloudConfig(cloud_coverage=0.45),
                          sun=SunState(direction=(0.3, 0.25, -0.9)), kernel="fast",
                          device=dev)
+    require(eng.can_run, "the fast engine failed its validation")
     eng.render_frame(eyedirs, now=0.0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -1221,7 +1290,7 @@ def run_fast_engine(dev):
     # One more tick, untimed, with its K2 calls recorded: the tile's
     # compaction (region² rays × steps samples) against the plain version.
     region, steps = eng.perf.update_region_size, eng.perf.march_steps
-    _, tile_calls = record_compactions(tick)
+    _, tile_calls, _ = record_kernels(tick)
     tile_calls = [c for c in tile_calls if c[0].numel() == region * region * steps]
     require(len(tile_calls) >= 1, "a fast tick made no K2 call at the tile's shape")
     check_recorded("a fast tick's tile", tile_calls)
@@ -1232,7 +1301,7 @@ def run_fast_engine(dev):
         out = eng.render_full_hemisphere()
 
     # The first call, recorded, also warms the allocator to the map's size.
-    again, compactions = record_compactions(eng.render_full_hemisphere)
+    again, compactions, _ = record_kernels(eng.render_full_hemisphere)
     hemi_ms = events_ms(hemi, 1)[0]
     n = eng.perf.texture_size ** 2 * eng.perf.march_steps
     require(len(compactions) == 1 and compactions[0][0].numel() == n,
@@ -1307,11 +1376,13 @@ def tiny_engine(d, noise, kernel: str, tile_cull: bool):
                        small=tuple(s.to(d) for s in noise.small),
                        weather=noise.weather.to(d))
     frames, _, steps = tiny_schedule(kernel)
-    return CloudSkyEngine(perf=PerfConfig(32, frames, march_steps=steps, light_steps=2),
-                          config=CloudConfig(cloud_coverage=0.6),
-                          sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
-                          cone_res=(8, 64, 64), kernel=kernel, tile_cull=tile_cull,
-                          device=d)
+    eng = CloudSkyEngine(perf=PerfConfig(32, frames, march_steps=steps, light_steps=2),
+                         config=CloudConfig(cloud_coverage=0.6),
+                         sun=SunState(direction=(0.3, 0.5, -0.8)), noise=pack,
+                         cone_res=(8, 64, 64), kernel=kernel, tile_cull=tile_cull,
+                         device=d)
+    require(eng.can_run, f"the tiny {kernel} engine on {d} failed its validation")
+    return eng
 
 
 def tiny_parity(dev, kernel: str, tile_cull: bool = False):
@@ -1410,7 +1481,6 @@ def run_tile_cull(dev):
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile
-    from cloudscape_tpu_torch.models import march_fast
     from cloudscape_tpu_torch.models.march_fast import march_tile_dense
     from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
     from cloudscape_tpu_torch.ops.octmap import texel_directions
@@ -1427,6 +1497,7 @@ def run_tile_cull(dev):
                            ground_color=(0.27, 0.19, 0.027, 1.0)),
         sun=SunState(direction=(0.3, 0.4, -0.85)), kernel="fast3",
         cone_res=CONE_RES, tile_cull=True, device=dev)
+    require(eng.can_run, "the tile-cull engine failed its validation")
     eng.render_frame(eye, now=0.0)  # the warm start
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -1502,33 +1573,24 @@ def run_tile_cull(dev):
     size, tex = eng.perf.texture_size, eng.ring.texture_to_update
     sky = eng.sky_ring[eng.ring.cloud_kernel_sky_slot]
     culled = torch.zeros((size, size, 4), dtype=torch.float32, device=dev)
-    compactions, scans = [], []
-    real_c, real_s = march_fast.compact, march_fast.segscan
-
-    def rec_c(mask, capacity, total, with_rank=True):
-        compactions.append((mask.clone(), capacity, with_rank))
-        return real_c(mask, capacity, total, with_rank)
-
-    def rec_s(v, h):
-        scans.append((v.clone(), h.clone()))
-        return real_s(v, h)
-
     for k, b in enumerate(eng._tile_buckets):
         if b == 0.0:
             continue
         y0, x0 = (k // tpr) * region, (k % tpr) * region
-        if k == v3_tiles[0]:
-            march_fast.compact, march_fast.segscan = rec_c, rec_s
-        try:
-            tile = _march_tile(
+
+        def march_one():
+            return _march_tile(
                 texel_directions(size, x0=x0, y0=y0, width=region, height=region,
                                  device=dev),
                 eng._march_params, eng._noise_arg, sky,
                 region=region, steps=eng.perf.march_steps,
                 light_steps=eng.perf.light_steps, kernel="fast3",
                 ray_keep_frac=b if b < 1.0 else None)
-        finally:
-            march_fast.compact, march_fast.segscan = real_c, real_s
+
+        if k == v3_tiles[0]:
+            tile, compactions, scans = record_kernels(march_one)
+        else:
+            tile = march_one()
         require(k >= eng.ring.frame or torch.equal(
             tile, ring[tex, y0:y0 + region, x0:x0 + region]),
             f"tile {k} (bucket {b}) marched again differs from the tick's")
@@ -1555,6 +1617,307 @@ def run_tile_cull(dev):
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
         frame_mean=float(frame.mean()))
+
+
+# bench/sweep.py's config 5 (`bench/sweep.py:183-259`): hemisphere rays,
+# adaptive steps, coarse probes a ray and row bands.
+C5_WIDTH, C5_HEIGHT, C5_STEPS, C5_COARSE, C5_BANDS = 2048, 1024, 128, 32, 4
+# Every C5_GT_STRIDE-th row and column of config 5 is marched at C5_GT_STEPS
+# steps by the exact march (rays are independent, so that is the converged
+# render at those texels), and the v1 and v3 rows are held at C5_DB against
+# it there (tests/test_hierarchical.py's gates).
+C5_GT_STRIDE, C5_GT_STEPS, C5_DB = 4, 512, 40.0
+
+
+def run_config5(dev):
+    """Phase 9b: bench/sweep.py config 5 on the port. The pack is
+    `reference_noise_pack(seed=0)`, which is `procedural_noise_pack(0)`
+    (K4–K6) where the reference's two BMPs are absent, with the sweep's
+    scene (sun (0.3, 0.4, −0.85), coverage 0.35), 2048×1024 hemisphere rays
+    and a (32, 512, 512) cone cache. Three rows, each a warm call and the
+    median of 3 by CUDA events: v1 (`march_hierarchical_banded`, capacity
+    0.08), v3 (`hier_v3_auto_policy` over 4 bands, then
+    `march_hierarchical_v3_banded`) and v3flat (`v3_auto_policy` and
+    `march_bricks_v3(ray_stride=2)` on each 512×2048 band). Quality: the
+    exact march at C5_GT_STEPS steps on every C5_GT_STRIDE-th row and
+    column; v1 and v3 held at C5_DB there, v3flat reported. One band of
+    each row is marched again with its K2 and K3 calls recorded (phase 13
+    times them), and those are held against the plain versions. Each call
+    of the path (the pack, the cone cache, the two policies and each row's
+    warm call) has its kernel launches counted on their own: the counts
+    are zeroed just before the call and read just after it."""
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+    from cloudscape_tpu_torch.models.density import MarchParams
+    from cloudscape_tpu_torch.models.march_fast import (
+        BrickPack, build_cone_cache, hier_v3_auto_policy, march_bricks,
+        march_bricks_v3, march_hierarchical, march_hierarchical_banded,
+        march_hierarchical_v3, march_hierarchical_v3_banded, v3_auto_policy)
+    from cloudscape_tpu_torch.models.packs import REFERENCE_ASSET_DIR, reference_noise_pack
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    procedural = not all(os.path.exists(os.path.join(REFERENCE_ASSET_DIR, f))
+                         for f in ("worlnoise.bmp", "weather.bmp"))
+    launches = {}
+    bricks, launches["pack"] = counted(
+        lambda: BrickPack.from_noise(reference_noise_pack(seed=0, device=dev)))
+    require(all(v == 1 for k, v in launches["pack"].items() if k.startswith("noise_")),
+            f"config 5's pack did not launch K4–K6 once each: {launches['pack']}")
+    sun = np.array([0.3, 0.4, -0.85])
+    sun /= np.linalg.norm(sun)
+    sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
+                             torch.tensor(sun, dtype=torch.float32, device=dev))
+    params = MarchParams.create(
+        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.35,
+        light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]), device=dev)
+    dirs = torch.from_numpy(hemisphere_dirs(C5_WIDTH, C5_HEIGHT)).to(dev)
+    hb = C5_HEIGHT // C5_BANDS
+    bands = [dirs[b * hb:(b + 1) * hb] for b in range(C5_BANDS)]
+    cone, launches["cone_cache"] = counted(
+        lambda: build_cone_cache(params, bricks, 6, res=CONE_RES, chunk=65536))
+    common = dict(steps=C5_STEPS, chunk=32768, cone_cache=cone)
+    hier = dict(common, coarse_steps=C5_COARSE)
+
+    t0 = time.perf_counter()
+    (rk, ck, hk, cell_frac, hot_frac), launches["hier_v3_auto_policy"] = counted(
+        lambda: hier_v3_auto_policy(dirs, params, bricks, steps=C5_STEPS,
+                                    coarse_steps=C5_COARSE, bands=C5_BANDS))
+    hier_policy_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flat_policies, launches["v3_auto_policy"] = counted(
+        lambda: [v3_auto_policy(d, params, bricks, steps=C5_STEPS)[:3] for d in bands])
+    flat_policy_ms = (time.perf_counter() - t0) * 1e3
+
+    def flat_band(d, pol):
+        return march_bricks_v3(d, params, bricks, sky, cell_keep_frac=pol[1],
+                               hot_keep_frac=pol[2], ray_keep_frac=pol[0],
+                               ray_stride=2, **common)
+
+    v3_knobs = dict(cell_keep_frac=ck, hot_keep_frac=hk, ray_keep_frac=rk, **hier)
+    # name: (the whole render, its first band alone)
+    row_fns = {
+        "hierarchical_2048x1024x128": (
+            lambda: march_hierarchical_banded(dirs, params, bricks, sky, bands=C5_BANDS,
+                                              capacity_frac=0.08, **hier),
+            lambda: march_hierarchical(bands[0], params, bricks, sky,
+                                       capacity_frac=0.08, **hier)),
+        "hierarchical_2048x1024x128_v3": (
+            lambda: march_hierarchical_v3_banded(dirs, params, bricks, sky,
+                                                 bands=C5_BANDS, **v3_knobs),
+            lambda: march_hierarchical_v3(bands[0], params, bricks, sky, **v3_knobs)),
+        "hierarchical_2048x1024x128_v3flat": (
+            lambda: torch.cat([flat_band(d, pol) for d, pol in zip(bands, flat_policies)]),
+            lambda: flat_band(bands[0], flat_policies[0])),
+    }
+    rows, outs = {}, {}
+    for name, (whole, _) in row_fns.items():
+        out, launches[name] = counted(whole)
+        k2, k3 = launches[name]["compact"], launches[name]["segscan"]
+        ms = events_ms(whole, 3)
+        require(out.shape == (C5_HEIGHT, C5_WIDTH, 4) and bool(torch.isfinite(out).all()),
+                f"config 5 {name}: wrong shape or not finite")
+        require(k2 >= C5_BANDS, f"config 5 {name} launched K2 {k2} times")
+        require(name.endswith("x128") or k3 >= 2 * C5_BANDS,
+                f"config 5 {name} launched K3 {k3} times")
+        outs[name] = out
+        rows[name] = dict(ms=statistics.median(ms), all_ms=ms, k2=k2, k3=k3,
+                          cloud_frac=float((out[..., 3] > 0.1).float().mean()))
+    s = C5_GT_STRIDE
+    gt_dirs = dirs[::s, ::s].contiguous()
+    t0 = time.perf_counter()
+    gt = march_bricks(gt_dirs, params, bricks, sky, steps=C5_GT_STEPS, chunk=32768,
+                      capacity_frac=0.5)
+    torch.cuda.synchronize()
+    gt_ms = (time.perf_counter() - t0) * 1e3
+    require(bool(torch.isfinite(gt).all()), "config 5 ground truth not finite")
+    gt_np = gt.cpu().numpy()
+    for name, out in outs.items():
+        rows[name]["db"] = psnr(out[::s, ::s].cpu().numpy(), gt_np)
+    for name in ("hierarchical_2048x1024x128", "hierarchical_2048x1024x128_v3"):
+        require(rows[name]["db"] >= C5_DB, f"config 5 {name} vs the {C5_GT_STEPS}-step "
+                f"ground truth {rows[name]['db']:.2f} dB < {C5_DB}")
+    recorded = {name: record_kernels(band)[1:] for name, (_, band) in row_fns.items()}
+    k3_err = max(check_recorded(f"config 5 {name}, band 0", comps, scans)
+                 for name, (comps, scans) in recorded.items())
+    return dict(procedural=procedural, rows=rows, policy=(rk, ck, hk),
+                cell_frac=cell_frac, hot_frac=hot_frac, hier_policy_ms=hier_policy_ms,
+                flat_policies=flat_policies, flat_policy_ms=flat_policy_ms,
+                gt_ms=gt_ms, gt_shape=tuple(gt.shape[:2]), recorded=recorded,
+                launches=launches, k3_err=k3_err)
+
+
+# Ticks of phase 11e's hier engine after its warm start: a window within one
+# cycle, then one that crosses a boundary.
+HIER_TICKS = (20, 70)
+
+
+def run_hier_engine(dev):
+    """Phase 11e: a `kernel="hier"` engine at PerfConfig() on the phase-5
+    scene and camera: `can_run`, the warm start, then HIER_TICKS fused
+    `render_frame` ticks (the first window crosses no cycle boundary, the
+    second one), each timed by CUDA events. The kernel counts are zeroed
+    before the construction: K4–K6 once each, K2 and K3 within the ticks.
+    Frames finite, nonnegative and not black, clouds in the ring; then
+    `render_full_hemisphere` (the 4-band window-lattice v3) finite and
+    ≥ V3_ENGINE_DB against the dense march over the same texels."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.models.march_fast import march_tile_dense
+    from cloudscape_tpu_torch.ops import compact, segscan
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    eye = camera_dirs(1280, 720, dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CloudSkyEngine(perf=PerfConfig(), config=CloudConfig(cloud_coverage=0.45),
+                         sun=SunState(direction=(0.3, 0.25, -0.9)), kernel="hier",
+                         device=dev)
+    require(eng.can_run, "the hier engine failed its validation")
+    eng.render_frame(eye, now=0.0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    k_warm = (compact.launches, segscan.launches)
+    windows, frame, i = [], None, 0
+
+    def tick():
+        nonlocal frame
+        frame = eng.render_frame(eye, now=i / 60.0)
+
+    for n in HIER_TICKS:
+        ms, crossed = [], 0
+        for _ in range(n):
+            i += 1
+            crossed += eng.ring.frame >= eng.perf.frames_to_update
+            ms += events_ms(tick, 1)
+        windows.append(dict(ms=ms, boundaries=crossed))
+    require([w["boundaries"] for w in windows] == [0, 1],
+             f"hier tick windows crossed {[w['boundaries'] for w in windows]} boundaries")
+    launches = read_counts()
+    k2, k3 = compact.launches - k_warm[0], segscan.launches - k_warm[1]
+    require(k2 > 0 and k3 > 0, f"the hier ticks launched K2 {k2}, K3 {k3} times")
+    require(all(v == 1 for k, v in launches.items() if k.startswith("noise_")),
+            f"the hier engine's pack did not launch K4–K6 once each: {launches}")
+    require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+            "hier frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, "hier frame is black")
+    ring = eng.cloud_ring
+    require(bool(torch.isfinite(ring).all()), "hier cloud ring is not finite")
+    cloud_frac = float((ring[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, "no clouds in the hier cloud ring")
+    out = eng.render_full_hemisphere()
+    hemi_ms = events_ms(eng.render_full_hemisphere, 1)[0]
+    require(bool(torch.isfinite(out).all()), "hier render_full_hemisphere not finite")
+    dense = march_tile_dense(
+        texel_directions(eng.perf.texture_size, device=dev), eng._march_params,
+        eng._bricks, eng.sky_ring[eng.ring.cloud_kernel_sky_slot],
+        steps=eng.perf.march_steps, light_steps=eng.perf.light_steps, chunk=16384,
+        cone_cache=eng._cone_cache)
+    hemi_db = psnr(out.cpu().numpy(), dense.cpu().numpy())
+    require(hemi_db >= V3_ENGINE_DB,
+            f"hier render_full_hemisphere vs dense {hemi_db:.2f} dB < {V3_ENGINE_DB}")
+    return dict(warm_s=warm_s, windows=windows, k2=k2, k3=k3, launches=launches,
+                cloud_frac=cloud_frac, hemi_ms=hemi_ms, hemi_db=hemi_db,
+                policy=eng._v3_policy_cache,
+                hemi_cloud_frac=float((out[..., 3] > 0.1).float().mean()))
+
+
+def run_api(dev, eng):
+    """Phase 11f: the engine API on the card. `save_file` of the phase-5
+    engine, `load_file` into a new engine (rings bitwise equal, and its
+    one-pass cone cache bitwise the phase-5 engine's prebaked one), then the
+    next fused tick of both (frames and rings bitwise equal);
+    `render_radiance_map(32)` and its prefiltered chain (finite,
+    nonnegative, the +Y face brighter than −Y; each mip's solid angles
+    against their f64 formula and, at 32² and 16², 4π within 1e-3);
+    `set_performance(PerfConfig(texture_size=384, frames_to_update=16))` on
+    a new fast3 engine, then a warm re-init that fills the ring."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine, cubemap_solid_angles
+
+    path = os.path.join(ROOT, "build", "chip_smoke_state.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    eng.save_file(path)
+    twin = CloudSkyEngine(perf=eng.perf, config=eng.config, sun=eng.sun,
+                          noise=eng.noise, device=dev)
+    require(twin.can_run, "the load_file engine failed its validation")
+    twin.load_file(path)
+    os.remove(path)
+    require(bitwise_equal(twin.cloud_ring, eng.cloud_ring)
+            and bitwise_equal(twin.sky_ring, eng.sky_ring), "load_file rings differ")
+    # The restored engine bakes its cone cache in one pass; the phase-5
+    # engine holds the one its prebake sliced: the same cells, the same bits.
+    cone_diff = float((twin._cone_cache.table.table - eng._cone_cache.table.table)
+                      .abs().max())
+    require(bitwise_equal(twin._cone_cache.table.table, eng._cone_cache.table.table),
+            f"the restored cone table differs from the prebaked one by {cone_diff:.3g}")
+    eye = camera_dirs(1280, 720, dev)
+    now = (TICKS + 1) / 60.0
+    x0, y0 = eng.ring.update_position
+    region, tex = eng.perf.update_region_size, eng.ring.texture_to_update
+    fa, fb = eng.render_frame(eye, now=now), twin.render_frame(eye, now=now)
+    tile_cloud = float((eng.cloud_ring[tex, y0:y0 + region, x0:x0 + region, 3] > 0.1)
+                       .float().mean())
+    require(bitwise_equal(twin.cloud_ring, eng.cloud_ring),
+            "the next tick's rings differ after load_file")
+    require(bitwise_equal(fa, fb), "the next tick's frames differ after load_file")
+    del twin
+
+    sharp = eng.render_radiance_map(32)
+    radiance_ms = events_ms(lambda: eng.render_radiance_map(32), 1)[0]
+    mips = eng.render_radiance_map(32, prefilter=True)
+    prefilter_ms = events_ms(lambda: eng.render_radiance_map(32, prefilter=True), 1)[0]
+    require([tuple(m.shape) for m in mips]
+            == [(6, s, s, 3) for s in (32, 16, 8, 4)], "radiance mips have wrong shapes")
+    for m in [sharp] + mips:
+        require(bool(torch.isfinite(m).all()) and float(m.min()) >= 0.0,
+                "radiance map not finite and nonnegative")
+        require(float(m[2].mean()) > float(m[3].mean()),
+                "radiance map's +Y face not brighter than -Y")
+    require(bitwise_equal(sharp, mips[0]), "the sharp map differs from the chain's base")
+    sa_dev = {}
+    for size in (32, 16, 8, 4):
+        t = (np.arange(size, dtype=np.float64) + 0.5) / size * 2.0 - 1.0
+        u, v = np.meshgrid(t, t, indexing="xy")
+        formula = 6.0 * float(np.sum((2.0 / size) ** 2 / (u * u + v * v + 1.0) ** 1.5))
+        got = float(cubemap_solid_angles(size, device=dev).double().sum())
+        sa_dev[size] = got / (4.0 * math.pi) - 1.0
+        require(abs(got - formula) <= 1e-5 * formula,
+                f"{size}² solid angles sum to {got}, their formula to {formula}")
+        require(size < 16 or abs(sa_dev[size]) <= 1e-3,
+                f"{size}² solid angles miss 4π by {sa_dev[size]:.3g}")
+
+    fresh = CloudSkyEngine(perf=PerfConfig(), config=CloudConfig(cloud_coverage=0.45),
+                           sun=SunState(direction=(0.3, 0.25, -0.9)), noise=eng.noise,
+                           device=dev)
+    require(fresh.can_run, "the set_performance engine failed its validation")
+    fresh.set_performance(PerfConfig(texture_size=384, frames_to_update=16))
+    require(fresh.can_run and fresh.needs_full_sky_init
+            and tuple(fresh.cloud_ring.shape) == (3, 384, 384, 4),
+            "set_performance did not rebuild at 384²/16")
+    frame = None
+
+    def reinit():
+        nonlocal frame
+        frame = fresh.render_frame(eye, now=0.0)
+
+    reinit_ms = events_ms(reinit, 1)[0]
+    require(bool(torch.isfinite(frame).all()) and float(frame.mean()) > 1e-3,
+            "the re-initialized engine's frame is not finite or is black")
+    cloud_frac = float((fresh.cloud_ring[..., 3] > 0.1).float().mean())
+    require(cloud_frac > 0.0, "the warm re-init left no clouds in the ring")
+    return dict(tile=(x0, y0), tile_cloud=tile_cloud,
+                radiance_ms=radiance_ms, prefilter_ms=prefilter_ms,
+                sa_dev=sa_dev, reinit_ms=reinit_ms, cloud_frac=cloud_frac,
+                region=fresh.perf.update_region_size,
+                up=float(sharp[2].mean()), down=float(sharp[3].mean()))
 
 
 def trace_calls(fn, reps: int = 10, pad: int = TRACE_PAD):
@@ -1644,7 +2007,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     start = time.perf_counter()
 
     def stamp(phases: str) -> None:
@@ -1671,6 +2034,16 @@ def main() -> int:
         print(f"K4–K6 noise {kname} {size} (and {odd}): max_abs_err {nr['err']:.3g}, "
               f"{nr['ms']:.4f} ms kernel vs {nr['plain_ms']:.4f} ms plain ({card})",
               flush=True)
+    # Every engine on the card validates itself with one probe launch of
+    # K1–K3 on a tiny input; those launches are counted here and kept out
+    # of the per-pass counts, which price each launch at a pass's shape.
+    from cloudscape_tpu_torch.engine import _probe_kernels
+
+    _, probe = counted(lambda: _probe_kernels(dev))
+    probe = {k: probe[k] for k in ("accumulate", "compact", "segscan")}
+    require(all(v == 1 for v in probe.values()),
+            f"the validation probe did not launch K1–K3 once each: {probe}")
+    print(f"validation probe (every engine construction): launches {probe}", flush=True)
     stamp("1-4")
 
     eng, r = run_engine(dev, TICKS)
@@ -1719,7 +2092,6 @@ def main() -> int:
     # Phase 11d's inputs: the phase-5 engine's params, pack and sky image.
     scan_inputs = (eng._march_params, eng.noise, eng._bricks,
                    eng.sky_ring[eng.ring.cloud_kernel_sky_slot].clone())
-    del eng
     stamp("6-7b")
     headline = run_headline(dev)
     for h in headline:
@@ -1739,6 +2111,22 @@ def main() -> int:
     k3_launches = segscan.launches
     stamp("8")
 
+    api = run_api(dev, eng)
+    del eng
+    print(f"save_file -> load_file (phase-5 engine): rings bitwise, the next fused "
+          f"tick's frame and rings bitwise (its tile at {api['tile']}, cloud fraction "
+          f"{api['tile_cloud']:.4f}; the prebaked and the restored cone tables "
+          f"bitwise)", flush=True)
+    print(f"render_radiance_map(32): {api['radiance_ms']:.2f} ms, +Y face mean "
+          f"{api['up']:.4f} vs -Y {api['down']:.4f}; prefiltered chain 32/16/8/4: "
+          f"{api['prefilter_ms']:.2f} ms; solid angles vs 4π (relative) "
+          + ", ".join(f"{k}² {v:+.3g}" for k, v in api["sa_dev"].items())
+          + f" ({card})", flush=True)
+    print(f"set_performance(384, 16) on a fresh fast3 engine: warm re-init "
+          f"({api['region']}² tiles) {api['reinit_ms']:.2f} ms, cloud fraction "
+          f"{api['cloud_frac']:.4f} ({card})", flush=True)
+    stamp("11f")
+
     c4 = run_config4(dev)
     print(f"config 4 pack (K4–K6, 128³ + 32³ + 512²): {c4['gen_ms']:.3f} ms, "
           f"launches {c4['noise_launches']} ({card})", flush=True)
@@ -1755,6 +2143,31 @@ def main() -> int:
     k1_64_err = check_accumulate(dev, c4["n_kept"], 64)
     print(f"K1 accumulate [{c4['n_kept']},64] (config 4's kept rays): max_abs_err "
           f"{k1_64_err:.3g}", flush=True)
+    stamp("9")
+
+    c5 = run_config5(dev)
+    print(f"config 5 pack: reference_noise_pack(seed=0), "
+          f"{'procedural (the reference BMPs are absent)' if c5['procedural'] else 'the BMPs'}"
+          f"; hier_v3_auto_policy (4 bands) {c5['policy']} (cell_frac "
+          f"{c5['cell_frac']:.4f}, hot_frac {c5['hot_frac']:.4f}) in "
+          f"{c5['hier_policy_ms']:.1f} ms; the flat bands' v3_auto_policy "
+          f"{c5['flat_policies']} in {c5['flat_policy_ms']:.1f} ms; ground truth "
+          f"{c5['gt_shape'][1]}x{c5['gt_shape'][0]}x{C5_GT_STEPS} in {c5['gt_ms']:.1f} ms "
+          f"({card})", flush=True)
+    for row_name, row in c5["rows"].items():
+        comps, scans = c5["recorded"][row_name]
+        print(f"config 5 {row_name}: median {row['ms']:.2f} ms "
+              f"({' '.join(f'{t:.2f}' for t in row['all_ms'])}); {row['db']:.2f} dB vs "
+              f"the {C5_GT_STEPS}-step ground truth; K2 x{row['k2']}, K3 x{row['k3']} a "
+              f"call; band 0 K2 " + ", ".join(f"{m.numel()}->{cap}" for m, cap, _ in comps)
+              + f"; K3 {[tuple(v.shape) for v, _ in scans]}; cloud fraction "
+              f"{row['cloud_frac']:.4f} ({card})", flush=True)
+    print(f"config 5 recorded K2 calls bitwise, K3 max_abs_err {c5['k3_err']:.3g}",
+          flush=True)
+    for call, n in c5["launches"].items():
+        print(f"config 5 launches, {call} (one call): "
+              + ", ".join(f"{k} {v}" for k, v in n.items() if v), flush=True)
+    stamp("9b")
 
     from cloudscape_tpu_torch import PerfConfig
 
@@ -1820,8 +2233,23 @@ def main() -> int:
           f"{sm['cloud_frac']:.4f} ({card})", flush=True)
     stamp("11d")
 
+    he = run_hier_engine(dev)
+    print(f"hier engine 768²/64/128 (96² tiles through the window-lattice v3): start "
+          f"{he['warm_s']:.2f} s; render_frame 1280x720 ticks: " + "; ".join(
+              f"{len(w['ms'])} across {w['boundaries']} boundary: median "
+              f"{statistics.median(w['ms']):.2f} ms, max {max(w['ms']):.2f}"
+              for w in he["windows"])
+          + f"; K2 x{he['k2']}, K3 x{he['k3']} in the ticks; cloud fraction "
+          f"{he['cloud_frac']:.4f}; render_full_hemisphere (4 bands, policy "
+          f"{he['policy']}) {he['hemi_ms']:.2f} ms, {he['hemi_db']:.2f} dB vs dense, "
+          f"cloud fraction {he['hemi_cloud_frac']:.4f} ({card})", flush=True)
+    print("hier tick ms: " + " ".join(f"{t:.1f}" for w in he["windows"] for t in w["ms"]),
+          flush=True)
+    stamp("11e")
+
     for kernel, tile_cull in (("fast3", False), ("fast3", True), ("fast2", False),
-                              ("fast2", True), ("fast", False), ("reference", False)):
+                              ("fast2", True), ("hier", False), ("hier", True),
+                              ("fast", False), ("reference", False)):
         t = tiny_parity(dev, kernel, tile_cull)
         what = f"tiny {kernel}{' tile_cull' if tile_cull else ''} engine"
         hemi = "" if t["hemi_db"] is None else \
@@ -1867,19 +2295,30 @@ def main() -> int:
         + [time_segscan(dev, h["caps"][2], k) for h in headline for k in (1, 3)]
         + [time_segscan_on(sv, sh) for sv, sh in c["scans"]],
     }
+    # Config 5's band-0 calls (phase 9b), as they ran: config 5 is not the
+    # default engine's pass, so they enter no launches-per-pass group.
+    n_k3_pass = len(rows["segscan"])
+    for name, (comps, scans) in c5["recorded"].items():
+        rows["compact"] += [dict(time_compact(m, cap, wr), serves=f"config 5 {name}")
+                            for m, cap, wr in comps]
+        rows["segscan"] += [dict(time_segscan_on(sv, sh), serves=f"config 5 {name}")
+                            for sv, sh in scans]
+    # Phase 5 without its engine's validation probe.
+    p5_k1, p5_k2 = r["k1"] - probe["accumulate"], r["k2"] - probe["compact"]
     # Launches per pass by the shape they ran at: phase 5 and the tile-cull
     # window's prebake finalize at the finalize's shape, phase 7's and the
     # v3 tiles' at theirs (K3: half 1-D, half [3, n] in phase 7).
     n7, nt = len(v["compactions"]), len(c["compactions"])
     k2_rows = rows["compact"]
-    k2_finalize = r["k2"] + v["k2"] - n7 + max(c["k2"] - c["v3_tiles"] * nt, 0)
+    k2_finalize = p5_k2 + v["k2"] - n7 + max(c["k2"] - c["v3_tiles"] * nt, 0)
     groups = {
-        "accumulate": [(r["k1"] + v["k1"] + c["k1"], rows["accumulate"][0])],
+        "accumulate": [(p5_k1 + v["k1"] + c["k1"], rows["accumulate"][0])],
         "compact": [(k2_finalize, k2_rows[0])]
         + [(1, row) for row in k2_rows[2:2 + n7]]
         + [(c["v3_tiles"], row) for row in k2_rows[2 + n7:2 + n7 + nt]],
         "segscan": [(v["k3"] / 2, rows["segscan"][0]), (v["k3"] / 2, rows["segscan"][1])]
-        + [(c["v3_tiles"], row) for row in rows["segscan"][2 + 2 * len(headline):]],
+        + [(c["v3_tiles"], row)
+           for row in rows["segscan"][2 + 2 * len(headline):n_k3_pass]],
     }
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
@@ -1903,13 +2342,14 @@ def main() -> int:
     # engine ticks; K3: the full-hemisphere and headline renders; K4–K6:
     # the engine's construction and config 4's pack); launches_tile_cull:
     # the tile-cull phase's (construction, warm start and every tick).
-    # launches_per_pass: phase 5 (construction, warm start, the ticks),
-    # phase 7's first render_full_hemisphere and the tile-cull timed window.
+    # launches_per_pass: phase 5 (construction but its validation probe,
+    # warm start, the ticks), phase 7's first render_full_hemisphere and
+    # the tile-cull timed window.
     meta = [
         ("accumulate", "accum.cu", "accum_pallas.py:101", r["k1"],
-         r["k1"] + v["k1"] + c["k1"], c["phase"]["k1"], max(k1_err, k1_64_err)),
+         p5_k1 + v["k1"] + c["k1"], c["phase"]["k1"], max(k1_err, k1_64_err)),
         ("compact", "compact.cu", "compact_pallas.py:184", r["k2"],
-         r["k2"] + v["k2"] + c["k2"], c["phase"]["k2"], 0.0),
+         p5_k2 + v["k2"] + c["k2"], c["phase"]["k2"], 0.0),
         ("segscan", "segscan.cu", "segscan_pallas.py:121", k3_launches,
          v["k3"] + c["k3"], c["phase"]["k3"], max(k3_err, c["k3_err"])),
     ]
@@ -1928,7 +2368,12 @@ def main() -> int:
             "replaces": f"cloudscape_tpu/ops/{tpu}",
             "launches": launches, "launches_per_pass": per_pass,
             "launches_tile_cull": cull_launches,
-            "max_abs_err": err, "shape": main_row["shape"],
+            # Config 5 (phase 9b): each call of its path counted alone;
+            # the hier engine (phase 11e): its construction, warm start and
+            # ticks.
+            "launches_config5": {call: n[kname] for call, n in c5["launches"].items()},
+            "launches_hier_engine": he["launches"].get(kname, 0),
+            "max_abs_err": max(err, c5["k3_err"]) if kname == "segscan" else err, "shape": main_row["shape"],
             "ms": main_row["device_us"] / 1e3, "device_us": main_row["device_us"],
             "device_us_write_flush": main_row["device_us_write_flush"],
             "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
@@ -1956,7 +2401,7 @@ def main() -> int:
             f"{row['bound_us']:.2f} us)" for n, row in groups[kname]), flush=True)
     stamp("13")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

@@ -1,21 +1,23 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
-The port of `cloudscape_tpu.engine.CloudSkyEngine` on one device, for all
-its kernels but "hier": the staged kernels, the default `kernel="fast3"`
-(dense tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above;
-with `tile_cull`, the v3 cell-gated march at each tile's cell bucket) and
+The port of `cloudscape_tpu.engine.CloudSkyEngine` on one device, for
+every kernel: the staged kernels, the default `kernel="fast3"` (dense
+tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above; with
+`tile_cull`, the v3 cell-gated march at each tile's cell bucket),
 `kernel="fast2"` (the v2 march for every tile; with `tile_cull`, at each
-tile's ray bucket), and the unstaged `kernel="fast"` (the exact brick
+tile's ray bucket) and `kernel="hier"` (the hierarchical window-lattice v3
+march for every tile), and the unstaged `kernel="fast"` (the exact brick
 march) and `kernel="reference"` (the scan march), and for their
 full-hemisphere re-render (`render_full_hemisphere`: the v3 march for
-fast3, the kernel's own tile march over the whole map for the others).
-It owns the texture rings on its device, schedules the
-amortized tile updates, integrates wind, snapshots kernel parameters once
-per cycle, bakes the next cycle's cone-density cache, sky LUT and tile-cull
-map across the current cycle's ticks (`cone_prebake`), serves the
-amortized tick through the display-pair fused `render_frame` by default,
-and exposes the user API (sun/config setters, view rendering,
-save/restore).
+fast3, the banded hierarchical v3 march for hier, the kernel's own tile
+march over the whole map for the others). It owns the texture rings on
+its device, schedules the amortized tile updates, integrates wind,
+snapshots kernel parameters once per cycle, bakes the next cycle's
+cone-density cache, sky LUT and tile-cull map across the current cycle's
+ticks (`cone_prebake`), serves the amortized tick through the
+display-pair fused `render_frame` by default, and exposes the user API
+(sun/config/performance setters, the validate-then-enable `can_run` gate,
+view and radiance-map rendering, save/restore and save_file/load_file).
 
 Where the JAX engine donates buffers to jitted `dynamic_update_slice`s, this
 one writes tiles, LUT slots and bake slices into its tensors in place; each
@@ -26,6 +28,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import json
+import sys
 import time as _time
 from typing import Any, Dict, List, Optional
 
@@ -36,7 +41,7 @@ from cloudscape_tpu_torch.config import CloudConfig, PerfConfig, SunState
 from cloudscape_tpu_torch.models import atmosphere
 from cloudscape_tpu_torch.models.compositor import composite, composite_display
 from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
-from cloudscape_tpu_torch.models.march import march
+from cloudscape_tpu_torch.models.march import RANDOM_VECTORS, march
 from cloudscape_tpu_torch.models.march_fast import (
     BrickPack,
     _ceil_to,
@@ -49,15 +54,19 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_table_rows,
     cull_finalize,
     cull_raw_slice,
+    hier_v3_auto_policy,
     march_bricks,
     march_bricks_v2,
     march_bricks_v3,
+    march_hierarchical_v3,
+    march_hierarchical_v3_banded,
     march_tile_dense,
     select_cell_keep_frac,
     v3_auto_policy,
     wrap_cone_table,
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+from cloudscape_tpu_torch.ops import _cuda, accum, compact, segscan
 from cloudscape_tpu_torch.ops.brick import brick3_grid, build_brick2_device
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.temporal import FrameData, RingState
@@ -71,6 +80,76 @@ V3_TILE_CELL_BUCKETS = (0.25, 0.375, 0.5, 0.65, 0.8)
 # Cone-bake chunk of the JAX engine; it sets the compacted capacity
 # (`cone_capacity`), so the port uses the same value.
 _CONE_CHUNK = 65536
+_KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
+
+
+def _probe_kernels(device) -> None:
+    """Build the kernel library and launch each of its marching kernels (K1
+    accumulate, K2 compact, K3 segscan) once on a tiny input on `device`;
+    raises on a failed build or launch, or an output of the wrong shape or
+    not finite. The comparisons with the plain versions are the tests' and
+    chip_smoke's."""
+    _cuda.lib()
+    f32 = dict(dtype=torch.float32, device=device)
+    n, steps = 2, 8
+    acc = accum.accumulate(
+        torch.full((n, steps), -0.1, **f32), torch.full((n, steps), -0.2, **f32),
+        torch.linspace(0.0, 1.0, n * steps, **f32).reshape(n, steps),
+        torch.ones((n,), **f32), torch.ones((n,), dtype=torch.bool, device=device),
+        torch.linspace(0.1, 1.2, 12, **f32))
+    mask = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0], dtype=torch.bool, device=device)
+    idx = compact.compact(mask, 3, 8, with_rank=True)[0]
+    scan = segscan.segscan(torch.arange(8, **f32), mask)
+    if tuple(acc.shape) != (n, 4) or tuple(idx.shape) != (3,) \
+            or tuple(scan.shape) != (8,):
+        raise RuntimeError(f"probe shapes {tuple(acc.shape)}, {tuple(idx.shape)}, "
+                           f"{tuple(scan.shape)}")
+    if not bool(torch.isfinite(acc).all() & torch.isfinite(scan).all()):
+        raise RuntimeError("a probe's output is not finite")
+
+
+@functools.lru_cache(maxsize=8)
+def _cubemap_directions_np(size: int) -> np.ndarray:
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size * 2.0 - 1.0
+    u, v = np.meshgrid(t, t, indexing="xy")
+    one = np.ones_like(u)
+    d = np.stack([
+        np.stack([one, -v, -u], -1),   # +X
+        np.stack([-one, -v, u], -1),   # -X
+        np.stack([u, one, v], -1),     # +Y
+        np.stack([u, -one, -v], -1),   # -Y
+        np.stack([u, -v, one], -1),    # +Z
+        np.stack([-u, -v, -one], -1),  # -Z
+    ])
+    return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def cubemap_directions(size: int, device="cuda") -> torch.Tensor:
+    """[6, size, size, 3] unit directions of a cubemap's texel centers, GL
+    face order and orientation (+X, −X, +Y, −Y, +Z, −Z), on `device`."""
+    return torch.tensor(_cubemap_directions_np(size), device=device)
+
+
+def cubemap_solid_angles(size: int, device="cuda") -> torch.Tensor:
+    """[6, size, size] solid angle of each texel, the cosine-cubed form
+    (2/size)² / ‖(u, v, 1)‖³ (close enough at probe sizes), on `device`."""
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size * 2.0 - 1.0
+    u, v = np.meshgrid(t, t, indexing="xy")
+    sa = (2.0 / size) ** 2 / np.power(u * u + v * v + 1.0, 1.5)
+    return torch.tensor(np.broadcast_to(sa, (6, size, size)).astype(np.float32),
+                        device=device)
+
+
+def _prefilter_mip(colors, dirs_in, sa_in, dirs_out, exponent: float):
+    """One roughness mip by spherical convolution: each output direction
+    integrates the whole base cubemap (colors [n_in, 3] at dirs_in with
+    solid angles sa_in) under the normalized lobe max(d_out·d_in, 0)^exponent,
+    as one [n_out, n_in] weight matrix times the colors (no face seams)."""
+    w = torch.clamp(dirs_out @ dirs_in.T, min=0.0)
+    if exponent != 1.0:
+        w = torch.pow(w, exponent)
+    w = w * sa_in[None, :]
+    return (w @ colors) / torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1e-12)
 
 
 def _prepass_steps(steps: int) -> int:
@@ -94,11 +173,15 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
     sun term). The staged kernels take a (BrickPack, ConeCache) pair:
     without a cull bucket, "fast3" marches tiles below V3_TILE_MIN_RAYS
     rays densely and larger ones through the staged v2 march, and "fast2"
-    takes the v2 march for every tile. The whole-map render of every
-    kernel but fast3 is this march over the map, as in the JAX engine:
-    fast and fast2 chunk its rays by min(region², 16384), and reference
-    marches the whole map in one call. The v2 capacity is the JAX engine's
-    0.5 of the samples.
+    takes the v2 march for every tile. "hier" takes the hierarchical
+    window-lattice v3 march (`march_hierarchical_v3`) with every capacity
+    bucket 1.0 and no ray select (the engine's buckets are measured on the
+    standard lattice and would undercount the windows' live cells), ray
+    stride 1, coarse_steps min(32, max(8, steps / 4)). The whole-map render
+    of fast, fast2 and reference is this march over the map, as in the JAX
+    engine: fast and fast2 chunk its rays by min(region², 16384), and
+    reference marches the whole map in one call. The v2 capacity is the
+    JAX engine's 0.5 of the samples.
 
     With tile cull, ray_keep_frac is the tile's bucket strictly between 0
     and 1 (the engine writes 0.0 tiles as zeros and marches 1.0 tiles
@@ -106,7 +189,8 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
     cell-gated march at that cell bucket, hot bucket 0.5, ray stride 2,
     cell margin 0.1 and no ray select. For fast2 it is the kept-ray
     fraction, ranked by `cull_prio`, the tile's window of the cycle's
-    priority map."""
+    priority map. "hier" takes fast2's buckets and ignores all but the 0.0
+    skip, which the engine handles."""
     if kernel == "reference":
         return march(dirs, params, noise, sky_img, steps=steps,
                      light_steps=light_steps)
@@ -116,6 +200,13 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
                             chunk=min(region * region, 16384), capacity_frac=0.5)
     bricks, cone_cache = noise
     n = int(np.prod(dirs.shape[:-1]))
+    if kernel == "hier":
+        return march_hierarchical_v3(
+            dirs, params, bricks, sky_img, steps=steps, light_steps=light_steps,
+            chunk=min(n, 16384), coarse_steps=min(32, max(8, steps // 4)),
+            cell_keep_frac=1.0, hot_keep_frac=1.0, ray_keep_frac=None,
+            cone_cache=cone_cache, prepass_steps=_prepass_steps(steps),
+            ray_stride=1)
     if kernel == "fast3":
         if ray_keep_frac is not None and 0.0 < ray_keep_frac < 1.0 \
                 and dirs.dim() == 3:
@@ -208,11 +299,14 @@ class CloudSkyEngine:
         `procedural_noise_pack(0)` generated on that device, the pack the
         JAX engine falls back to when the reference's assets are absent.
 
-        kernel: the staged kernels, both against the per-cycle cone cache:
+        kernel: the staged kernels, all against the per-cycle cone cache:
         "fast3" (default; tiles below V3_TILE_MIN_RAYS rays march densely,
         larger ones through the staged v2 march; the whole-map render is
-        the v3 march) or "fast2" (the v2 march for every tile and the
-        whole-map render); or the unstaged "fast" (the exact brick march,
+        the v3 march), "fast2" (the v2 march for every tile and the
+        whole-map render) or "hier" (config 5's hierarchical march: each
+        ray's steps spread over its occupied window, through the v3 core;
+        the whole-map render is its banded form); or the unstaged "fast"
+        (the exact brick march,
         `march_bricks`, with its own sun march and no cone cache) or
         "reference" (the scan march, `march`, on the noise pyramids: the
         numerics anchor, slow). cone_res: (hf, z, x) resolution of the
@@ -228,12 +322,16 @@ class CloudSkyEngine:
         the all-culled result, are written), 1.0 when culling would remove
         too little (the unculled arm), else fast3's live-cell capacity
         (the v3 tile arm) or fast2's kept-ray fraction. Off by default:
-        culled tiles are close to, not equal to, unculled ones. tile_cull
-        and cone_prebake are ignored by the unstaged kernels, as in JAX."""
-        if kernel == "hier":
-            raise NotImplementedError("kernel='hier' is not ported yet "
-                                      "(ROADMAP A13)")
-        if kernel not in ("fast", "fast2", "fast3", "reference"):
+        culled tiles are close to, not equal to, unculled ones. "hier"
+        takes fast2's buckets but marches every tile that is not skipped
+        whole. tile_cull and cone_prebake are ignored by the unstaged
+        kernels, as in JAX.
+
+        can_run: set by `_validate_kernels` before the first snapshot (and
+        again by `set_performance`); when it is false the engine builds
+        nothing and `update_cycle`, `update_sky` and `render_frame` do no
+        work (the reference's invalid-shader guard)."""
+        if kernel not in _KERNEL_MODES:
             raise ValueError(f"unknown kernel {kernel!r}")
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet "
@@ -243,7 +341,7 @@ class CloudSkyEngine:
         self.cone_res = tuple(cone_res)
         # "Staged" kernels march against the per-cycle cone-density cache;
         # only they cull tiles and prebake the next cycle.
-        self._staged = kernel in ("fast2", "fast3")
+        self._staged = kernel in ("fast2", "fast3", "hier")
         self.tile_cull = bool(tile_cull) and self._staged
         self.cone_prebake = self._staged if cone_prebake is None \
             else (bool(cone_prebake) and self._staged)
@@ -279,7 +377,60 @@ class CloudSkyEngine:
         self._start_time: Optional[float] = None
         self.needs_full_sky_init = True
         self._sky_lut_needs_full_update = True  # sky_lut.gd `needs_full_update`
-        self._refresh_frame_data(now)
+        # Validate-then-enable, like the reference's invalid-shader guard
+        # (`cloud_sky.gd:362-364`). The JAX engine validates after its first
+        # snapshot; here the snapshot's cone bake launches the kernels, so
+        # validation comes first and a disabled engine takes no snapshot.
+        self.can_run = self._validate_kernels()
+        if self.can_run:
+            self._refresh_frame_data(now)
+        else:
+            self._march_params = self.frame_data.to_march_params(self.device)
+
+    def _check_shapes(self) -> None:
+        """The shapes the tile update needs (what the JAX engine's abstract
+        evaluation of its tile kernel checks); raises ValueError."""
+        n, region = self.perf.texture_size, self.perf.update_region_size
+        if region < 1 or n % region:
+            raise ValueError(f"tile {region} does not divide texture {n}")
+        if tuple(self.cloud_ring.shape) != (3, n, n, 4) or \
+                tuple(self.sky_ring.shape) != (3,) + self.SKY_LUT_SHAPE:
+            raise ValueError(f"rings {tuple(self.cloud_ring.shape)}, "
+                             f"{tuple(self.sky_ring.shape)} do not fit texture {n}")
+        if self.perf.march_steps < 1 or not \
+                0 <= self.perf.light_steps <= len(RANDOM_VECTORS):
+            raise ValueError(f"march_steps {self.perf.march_steps}, light_steps "
+                             f"{self.perf.light_steps} (at most {len(RANDOM_VECTORS)})")
+        if self._staged and (len(self.cone_res) != 3 or min(self.cone_res) < 2):
+            raise ValueError(f"cone_res {self.cone_res}")
+        nz = self.noise
+        if not (nz.large and nz.small and nz.large[0].dim() == 4
+                and nz.large[0].shape[-1] == 4 and nz.small[0].dim() == 4
+                and nz.small[0].shape[-1] == 3 and nz.weather.dim() == 3
+                and nz.weather.shape[-1] == 3):
+            raise ValueError("noise pack levels are not [D, H, W, 4], "
+                             "[D, H, W, 3] and a [H, W, 3] weather map")
+        for t in (*nz.large, *nz.small, nz.weather, self.cloud_ring,
+                  self.transmittance):
+            if t.device.type != self.device.type:
+                raise ValueError(f"a tensor on {t.device}, the engine on {self.device}")
+
+    def _validate_kernels(self) -> bool:
+        """Check the shapes and, on the card, build the kernels and launch
+        each marching kernel once on a tiny input. A failure
+        disables the engine (one line on stderr) instead of raising from
+        the render loop."""
+        try:
+            self._check_shapes()
+            if self.device.type == "cuda":
+                _probe_kernels(self.device)
+                torch.cuda.synchronize(self.device)
+            return True
+        except Exception as e:  # noqa: BLE001 — any failure disables
+            first = (str(e).strip().splitlines() or [type(e).__name__])[0]
+            print(f"cloudscape_tpu_torch: kernel validation failed, engine "
+                  f"disabled: {first}", file=sys.stderr)
+            return False
 
     # ------------------------------------------------------------------ API
 
@@ -293,6 +444,29 @@ class CloudSkyEngine:
     def set_config(self, config: CloudConfig) -> None:
         """Dynamic parameter change; snapshotted at the next cycle boundary."""
         self.config = config
+
+    def set_performance(self, perf: PerfConfig) -> None:
+        """Performance-settings change (`cloud_sky.gd:35-50`): tear down the
+        cloud ring, derive the tile schedule again (with the divisibility
+        auto-correction), request a full warm re-init and validate again."""
+        corrected = perf.validate()
+        if corrected.texture_size != perf.texture_size:
+            # `cloud_sky.gd:114` prints the same correction notice.
+            print("cloudscape_tpu_torch: texture_size is not a multiple of "
+                  f"sqrt(frames_to_update), changing to: {corrected.texture_size}")
+        self.perf = corrected
+        n = self.perf.texture_size
+        self.cloud_ring = torch.zeros((3, n, n, 4), dtype=torch.float32,
+                                      device=self.device)
+        self._display_pair = None
+        self.ring.reset()
+        self._pending = None  # a snapshot and slices of the old shapes
+        self._picked_sky = None
+        self._v3_policy_cache = None
+        self._prio_map = self._tile_buckets = None
+        self._derive_prebake_schedule()
+        self.request_full_sky_init()
+        self.can_run = self._validate_kernels()
 
     def request_full_sky_init(self) -> None:
         """`cloud_sky.gd:120-121`."""
@@ -696,6 +870,8 @@ class CloudSkyEngine:
     def update_cycle(self, now: Optional[float] = None) -> None:
         """Complete one full amortized cycle in one call (batch/offline use);
         the same rotation, snapshot and LUT phasing as `update_sky`."""
+        if not self.can_run:
+            return
         now = self._now(now)
         if self.needs_full_sky_init:
             self.needs_full_sky_init = False
@@ -736,7 +912,10 @@ class CloudSkyEngine:
     def update_sky(self, now: Optional[float] = None) -> None:
         """One per-frame tick (`cloud_sky.gd:129-163`): rotate rings at cycle
         boundaries, refresh FrameData + sky LUT, update one tile, advance
-        the cursor, advance the pending bake."""
+        the cursor, advance the pending bake. No work when `can_run` is
+        false (`cloud_sky.gd:130-131`)."""
+        if not self.can_run:
+            return
         self._begin_tick(now)
         self._write_tile()
         self._end_tick()
@@ -804,13 +983,13 @@ class CloudSkyEngine:
         `update_sky`, the composite over the cycle's display-pair tables.
         fused=False is `update_sky` + `render_view`. The two agree to
         float reassociation (the pair lerps after one row fetch), with the
-        rings bitwise equal."""
+        rings bitwise equal. When `can_run` is false it only composites."""
         if fused is None:
             fused = amortized
         if not amortized:
             self.update_cycle(now)
             return self.render_view(eyedirs, deband=deband)
-        if not fused:
+        if not fused or not self.can_run:
             self.update_sky(now)
             return self.render_view(eyedirs, deband=deband)
         self._begin_tick(now)
@@ -852,14 +1031,20 @@ class CloudSkyEngine:
                                sky_img=None) -> torch.Tensor:
         """Whole-map render with no amortization → [n, n, 4]: for fast3 the
         v3 cell-gated march with the cycle's cone cache and the snapshot's
-        measured capacity buckets (K2, K3 on the card); for the other
-        kernels their tile march over the whole map at the tiles' settings
-        (fast2: v2 with the cone cache, K2 and K1; fast: the exact brick
-        march, K2; reference: the scan march)."""
+        measured capacity buckets (K2, K3 on the card); for hier the
+        banded hierarchical v3 march (4 row bands when the edge is a
+        multiple of 4 and at least 256), its buckets from
+        `hier_v3_auto_policy` over the whole texel grid, cached for the
+        cycle's snapshot; for the other kernels their tile march over the
+        whole map at the tiles' settings (fast2: v2 with the cone cache, K2
+        and K1; fast: the exact brick march, K2; reference: the scan
+        march)."""
         if params is None:
             params = self._march_params
         if sky_img is None:
             sky_img = self.sky_ring[self.ring.cloud_kernel_sky_slot]
+        if self.kernel == "hier":
+            return self._render_hier(params, sky_img)
         if self.kernel != "fast3":
             return _march_tile(
                 texel_directions(self.perf.texture_size, device=self.device),
@@ -877,9 +1062,62 @@ class CloudSkyEngine:
             cell_keep_frac=ck, hot_keep_frac=hk, cone_cache=self._cone_cache,
             ray_keep_frac=rk, prepass_steps=ps, ray_stride=stride)
 
-    def render_radiance_map(self, *args, **kwargs):
-        raise NotImplementedError("render_radiance_map is not ported yet "
-                                  "(ROADMAP A16)")
+    def _render_hier(self, params, sky_img) -> torch.Tensor:
+        """The hier kernel's whole-map render (`render_full_hemisphere`).
+        The window lattice takes ray stride 1 whatever the edge."""
+        n_tex, steps = self.perf.texture_size, self.perf.march_steps
+        bands = 4 if n_tex % 4 == 0 and n_tex >= 256 else 1
+        coarse = min(32, max(8, steps // 4))
+        ps, _ = self._v3_march_knobs()
+        dirs = texel_directions(n_tex, device=self.device)
+        cycle = params is self._march_params
+        if cycle and self._v3_policy_cache is not None:
+            rk, ck, hk = self._v3_policy_cache
+        else:
+            rk, ck, hk, _, _ = hier_v3_auto_policy(
+                dirs, params, self._bricks, steps=steps, coarse_steps=coarse,
+                bands=bands, prepass_steps=ps)
+            if cycle:
+                self._v3_policy_cache = (rk, ck, hk)
+        return march_hierarchical_v3_banded(
+            dirs, params, self._bricks, sky_img, bands=bands, steps=steps,
+            light_steps=self.perf.light_steps,
+            chunk=min(n_tex * n_tex // bands, 32768), coarse_steps=coarse,
+            cell_keep_frac=ck, hot_keep_frac=hk, ray_keep_frac=rk,
+            cone_cache=self._cone_cache, prepass_steps=ps, ray_stride=1)
+
+    def render_radiance_map(self, size: int = 32, prefilter: bool = False):
+        """Environment probe (the Sky resource's radiance cubemap,
+        `cloud_sky/clouds_sky.tres:8`): the current sky composited over a
+        6-face cubemap (`cubemap_directions`, GL face order).
+
+        prefilter=False returns the sharp [6, size, size, 3] linear-HDR
+        cubemap. prefilter=True returns the roughness mip chain: a list of
+        [6, s, s, 3] levels at s = size, size/2, …, 4, level k the base
+        convolved with a normalized cosine-power lobe of exponent
+        2/r² − 2 at r = k / n_mips (`_prefilter_mip`, over the whole sphere,
+        so face seams are exact)."""
+        base = self.render_view(cubemap_directions(size, device=self.device))
+        if not prefilter:
+            return base
+        n_in = 6 * size * size
+        dirs_in = cubemap_directions(size, device=self.device).reshape(n_in, 3)
+        sa_in = cubemap_solid_angles(size, device=self.device).reshape(n_in)
+        colors = base.reshape(n_in, 3)
+        sizes, s = [], size
+        while s > 4:
+            s //= 2
+            sizes.append(s)
+        sizes = sizes or [max(size // 2, 1)]
+        mips = [base]
+        for k, s in enumerate(sizes, start=1):
+            r = k / len(sizes)
+            exponent = max(2.0 / (r * r) - 2.0, 1.0) if r < 1.0 else 1.0
+            out = _prefilter_mip(colors, dirs_in, sa_in,
+                                 cubemap_directions(s, device=self.device).reshape(-1, 3),
+                                 float(exponent))
+            mips.append(out.reshape(6, s, s, 3))
+        return mips
 
     # ------------------------------------------------------------ checkpoint
 
@@ -899,6 +1137,27 @@ class CloudSkyEngine:
             "needs_full_sky_init": self.needs_full_sky_init,
             "blend_amount": self.blend_amount,
         }
+
+    def save_file(self, path: str) -> None:
+        """Write `save()` to one .npz: the two rings and the rest as a JSON
+        header (uint8), the JAX engine's layout, so either package loads
+        the other's file."""
+        state = self.save()
+        header = {k: v for k, v in state.items() if k not in ("cloud_ring", "sky_ring")}
+        header["frame_data"] = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                                for k, v in header["frame_data"].items()}
+        np.savez_compressed(
+            path, cloud_ring=state["cloud_ring"], sky_ring=state["sky_ring"],
+            header=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8))
+
+    def load_file(self, path: str) -> None:
+        """Restore from a `save_file` .npz (this engine's or the JAX
+        engine's)."""
+        with np.load(path) as z:
+            state = json.loads(bytes(z["header"]).decode())
+            state["cloud_ring"] = z["cloud_ring"]
+            state["sky_ring"] = z["sky_ring"]
+        self.restore(state)
 
     def restore(self, state: Dict[str, Any]) -> None:
         """Load a `save()` dict — this engine's or the JAX engine's."""

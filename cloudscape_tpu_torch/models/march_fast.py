@@ -1,7 +1,6 @@
 """Cloud marches on brick tables and the per-cycle cone cache (torch).
 
-The port of `cloudscape_tpu.models.march_fast`, but for its hierarchical
-marches (ROADMAP A13):
+The port of `cloudscape_tpu.models.march_fast`:
 
 - `BrickPack`: the noise pack as brick tables, channels precombined (3-D
   tables optionally stored in bfloat16);
@@ -27,6 +26,10 @@ marches (ROADMAP A13):
   (`v2_auto_policy`): ray cull, one shared occupied-sample compaction,
   erosion and cone lookup on that list, phase 3 through K1. It serves the
   engine's "fast2" kernel and the "fast3" tiles of ≥ 65,536 rays;
+- the hierarchical marches of config 5 and the engine's "hier" kernel
+  (`march_hierarchical`, `march_hierarchical_v3`, their banded forms and
+  `hier_v3_auto_policy`): each ray's step budget spread over its occupied
+  window, found by a coarse pass;
 - the tile-cull map (the engine's: `cull_raw_slice` → `cull_finalize`,
   sliced over a cycle's ticks or in one slice; the JAX API's one pass:
   `cull_priority_map`): per-ray priorities
@@ -409,8 +412,11 @@ def cone_occupancy_indices(params: MarchParams, bp: BrickPack,
     x = xs[None, None, :]
     z = zs[None, :, None]
     rr = r[:, None, None]
-    # Beyond-horizon cells have no shell point; clamp onto the shell.
-    y = torch.sqrt(torch.clamp(rr * rr - (x * x + z * z), min=1.0))
+    # Beyond-horizon cells have no shell point; clamp onto the shell. The
+    # same roundings as `_cell_centers` (r² − x² − z², left to right), so
+    # the sliced occupancy keeps the same cells: grouped as r² − (x² + z²),
+    # ~130 of the 8.4 M cells of a (32, 512, 512) grid came out otherwise.
+    y = torch.sqrt(torch.clamp(rr * rr - x * x - z * z, min=1.0))
     px, py, pz = (v.expand(res).reshape(-1) for v in (x, y, z))
     occ = _dilate(_pre_positive(px, py, pz, params, bp), res)
     return _compact_mask(occ, cone_capacity(n, sparse_capacity_frac, chunk), n)
@@ -1315,19 +1321,31 @@ def cull_cell_stats(dirs, params: MarchParams, bp: BrickPack,
     shape = tuple(dirs.shape[:-1])
     flat = dirs.reshape(-1, 3)
     above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
-    prio, occ_cells, meta = _cull_prepass(
-        above, ndir, ss, p0, params, bp, steps, prepass_steps,
-        min(chunk, max(flat.shape[0], 1)),
-        shape if len(shape) == 2 else None, ray_stride, cell_margin)
+    return _cell_stats(above, ndir, ss, p0, params, bp, steps, prepass_steps,
+                       min(chunk, max(flat.shape[0], 1)),
+                       shape if len(shape) == 2 else None, ray_stride,
+                       cell_margin, prepass_margin)
+
+
+def _cell_stats(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
+                steps: int, prepass_steps: int, chunk: int,
+                cull_shape: tuple | None, ray_stride: int, cell_margin: float,
+                prepass_margin: float):
+    """(keep_frac, cell_frac) of `_cull_prepass` over prepared rays: the
+    fraction of rays above the keep margin and the mean live-cell fraction
+    over all rays (a stride-subsampled grid's rows expanded to every ray),
+    as Python floats."""
+    n = ndir.shape[0]
+    prio, occ_cells, meta = _cull_prepass(above, ndir, ss, p0, params, bp, steps,
+                                          prepass_steps, chunk, cull_shape,
+                                          ray_stride, cell_margin)
     keep = (prio > -prepass_margin).to(torch.float32).mean()
     if meta is not None and meta[2] > 1:
         gh, gw, stride = meta
         P = occ_cells.shape[-1]
-        occ_full = occ_cells.reshape(gh, 1, gw, 1, P).expand(
-            gh, stride, gw, stride, P).reshape(flat.shape[0], P)
-    else:
-        occ_full = occ_cells
-    live = occ_full & above[:, None]
+        occ_cells = occ_cells.reshape(gh, 1, gw, 1, P).expand(
+            gh, stride, gw, stride, P).reshape(n, P)
+    live = occ_cells & above[:, None]
     return float(keep), float(live.to(torch.float32).mean())
 
 
@@ -1355,18 +1373,25 @@ def hot_cell_fraction(dirs, params: MarchParams, bp: BrickPack,
     stride-th ray at the full step count."""
     flat = dirs.to(torch.float32).reshape(-1, 3)[::stride]
     above, ndir, ss, p0, _, _ = _ray_setup(flat, params, steps)
+    return _hot_fraction(above, ndir, ss, p0, params, bp, steps, prepass_steps,
+                         min(chunk, max(flat.shape[0], 1)))
+
+
+def _hot_fraction(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
+                  steps: int, prepass_steps: int, chunk: int) -> float:
+    """The fraction of (ray, coarse cell) blocks of prepared rays with any
+    `pre > 0` sample at the fine positions."""
+    n = ndir.shape[0]
     spc = steps // prepass_steps
-    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=flat.device)
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=ndir.device)
 
     def dense_chunk(p0c, ndirc, ssc):
         px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
-        w =_weather_rb_xy(bp, px, pz, params.weather_pos)
-        pre_c, _ = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
-        return pre_c > 0.0
+        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        return _density_pre_xyz(px, py, pz, w, 0.0, params, bp)[0] > 0.0
 
-    nr = flat.shape[0]
-    occ = _map_rows(dense_chunk, min(chunk, max(nr, 1)), p0, ndir, ss)
-    hot = torch.any(occ.reshape(nr, prepass_steps, spc), dim=2) & above[:, None]
+    occ = _map_rows(dense_chunk, chunk, p0, ndir, ss)
+    hot = torch.any(occ.reshape(n, prepass_steps, spc), dim=2) & above[:, None]
     return float(hot.to(torch.float32).mean())
 
 
@@ -1383,10 +1408,257 @@ def v3_auto_policy(dirs, params: MarchParams, bp: BrickPack,
         cell_margin=cell_margin, prepass_steps=prepass_steps)
     hot_frac = hot_cell_fraction(dirs, params, bp, steps=steps,
                                  prepass_steps=prepass_steps)
+    return _v3_buckets(keep, cell_frac, hot_frac)
+
+
+def _v3_buckets(keep: float, cell_frac: float, hot_frac: float):
+    """(ray_keep_frac, cell_keep_frac, hot_keep_frac, cell_frac, hot_frac):
+    the buckets of the measured fractions."""
     rk = select_ray_keep_frac(keep)
     ck = select_cell_keep_frac(cell_frac / max(rk, 1e-6))
     hk = select_cell_keep_frac(hot_frac / max(rk * ck, 1e-6), margin=1.2)
     return rk, ck, hk, cell_frac, hot_frac
+
+
+# ---------------------------------------------------- hierarchical marches
+#
+# bench/sweep.py's config 5 and the engine's "hier" kernel: a coarse pass
+# finds each ray's occupied [a, b] window on the shell segment, and the fine
+# march spends its whole step budget inside that window. v1
+# (`march_hierarchical`) compacts the rays with an occupied window (K2) and
+# marches them through `_march_core`; v3 (`march_hierarchical_v3`) runs the
+# cell-gated `_march_core3` on the window lattice of every ray. The banded
+# forms march horizontal row bands one after another, which bounds memory.
+
+def _hier_windows(flat, params: MarchParams, bp: BrickPack, steps: int,
+                  coarse_steps: int, chunk: int, occupancy_margin: float):
+    """Per-ray occupied t-window on the shell segment, over all rays of
+    `flat` [n, 3]: `coarse_steps` pre-erosion probes at mip 2 a ray, live
+    where `pre > -occupancy_margin`, dilated one coarse cell along the ray
+    (zero-padded, no wrap), the window from the first to the last live
+    cell. Returns (above, ndir, phase, ldir, start, shelldist, a, b,
+    any_occ), a and b as fractions of the segment."""
+    dev = flat.device
+    above, ndir, ss, _, phase, ldir = _ray_setup(flat, params, steps)
+    shelldist = ss * steps
+    # _ray_setup's p0 carries the jitter; the window starts at the entry.
+    cam = torch.tensor([0.0, GROUND_RADIUS, 0.0], dtype=torch.float32, device=dev)
+    start = cam + ndir * m.intersect_sphere_far(cam.expand(ndir.shape), ndir,
+                                                SKY_B_RADIUS)[..., None]
+    k_c = (torch.arange(coarse_steps, dtype=torch.float32, device=dev) + 0.5) \
+        / coarse_steps
+
+    def coarse_chunk(startc, ndirc, sdc):
+        px, py, pz = _sample_xyz(startc, ndirc, sdc[:, None] * k_c[None, :])
+        w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        return _density_pre_xyz(px, py, pz, w, 2.0, params, bp)[0]
+
+    pre_c = _map_rows(coarse_chunk, chunk, start, ndir, shelldist)
+    occ = pre_c > -occupancy_margin
+    pad = torch.zeros_like(occ[:, :1])
+    occ = occ | torch.cat([pad, occ[:, :-1]], dim=1) | torch.cat([occ[:, 1:], pad], dim=1)
+    any_occ = torch.any(occ, dim=1) & above
+    idx_c = torch.arange(coarse_steps, device=dev)[None, :]
+    first = torch.min(torch.where(occ, idx_c, coarse_steps + 1), dim=1).values
+    last = torch.max(torch.where(occ, idx_c, -1), dim=1).values
+    a = torch.clamp(first.to(torch.float32) / coarse_steps, 0.0, 1.0)
+    b = torch.clamp((last.to(torch.float32) + 1.0) / coarse_steps, 0.0, 1.0)
+    b = torch.maximum(b, a + 1.0 / coarse_steps)
+    return above, ndir, phase, ldir, start, shelldist, a, b, any_occ
+
+
+def _window_origin(start, ndir, shelldist, a, b, steps: int):
+    """(ss, p0) of the fine march over each ray's [a, b] window: the step
+    that spreads `steps` samples over it, and the jittered origin (the
+    dither of `_ray_setup`, hashed from the shell entry)."""
+    ss = (b - a) * shelldist / steps
+    p0 = start + ndir * (a * shelldist + m.hash_iq(start * 10.0) * ss)[..., None]
+    return ss, p0
+
+
+def _hier_window_lattice(flat, params: MarchParams, bp: BrickPack,
+                         steps: int, coarse_steps: int, chunk: int,
+                         occupancy_margin: float):
+    """The window-adjusted fine lattice of every ray, no compaction:
+    (above_w, ndir, ss_w, p0_w, phase) with above_w = above & any_occ (a
+    ray with an empty window renders zeros, as in `march_hierarchical`)."""
+    above, ndir, phase, _, start, shelldist, a, b, any_occ = _hier_windows(
+        flat, params, bp, steps, coarse_steps, chunk, occupancy_margin)
+    ss_w, p0_w = _window_origin(start, ndir, shelldist, a, b, steps)
+    return above & any_occ, ndir, ss_w, p0_w, phase
+
+
+def march_hierarchical(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
+                       steps: int = 128, light_steps: int = 6,
+                       coarse_steps: int = 16, chunk: int = 16384,
+                       capacity_frac: float = 0.25, t_cutoff: float = 1e-4,
+                       ray_capacity_frac: float = 1.0,
+                       occupancy_margin: float = 0.3,
+                       approx_light: bool = False,
+                       cone_cache: ConeCache | None = None):
+    """Hierarchical march (config 5, v1) over world directions [..., 3] →
+    [..., 4] (L rgb, alpha).
+
+    1. `_hier_windows`: each ray's occupied window from the coarse pass.
+    2. The rays with an occupied window are compacted (K2) into
+       max(n·ray_capacity_frac, chunk) slots, rounded up to `chunk`. At
+       the default 1.0 none can overflow; below it, overflowed rays render
+       black, so lower it only for scenes of known, bounded occupancy.
+    3. The compacted rays march `steps` samples over their windows through
+       `_march_core` (its sample compaction through K2); the results go
+       back to their rays and every other ray is zero."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    atmos = ambient_colors(params, sky_lut_img)
+    above, ndir, phase, ldir, start, shelldist, a, b, any_occ = _hier_windows(
+        flat, params, bp, steps, coarse_steps, chunk, occupancy_margin)
+
+    ray_cap = _ceil_to(max(int(n * ray_capacity_frac), chunk), chunk)
+    ridx = _compact_mask(any_occ, ray_cap, n).to(torch.int64)
+    rsafe = torch.clamp(ridx, max=n - 1)
+    ss_r, p0_r = _window_origin(start[rsafe], ndir[rsafe], shelldist[rsafe],
+                                a[rsafe], b[rsafe], steps)
+    out_r = _march_core(above[rsafe] & (ridx < n), ndir[rsafe], ss_r, p0_r,
+                        phase[rsafe], ldir, params, bp, atmos, steps,
+                        light_steps, chunk, capacity_frac, t_cutoff,
+                        approx_light, cone_cache)
+    # Fill slots (ridx = n) land in a spare last row, sliced off.
+    out = torch.zeros((n + 1, 4), dtype=torch.float32, device=flat.device)
+    out[ridx] = out_r
+    return out[:n].reshape(shape + (4,))
+
+
+def _banded(fn, dirs, bands: int, *args, **kwargs):
+    """fn over `bands` horizontal row bands of dirs [H, W, 3], one call
+    each, concatenated by rows."""
+    H = dirs.shape[0]
+    if H % bands:
+        raise ValueError(f"rows {H} not divisible by bands {bands}")
+    rows = H // bands
+    return torch.cat([fn(dirs[i * rows:(i + 1) * rows], *args, **kwargs)
+                      for i in range(bands)], dim=0)
+
+
+def march_hierarchical_banded(dirs, *args, bands: int = 4, **kwargs):
+    """`march_hierarchical` over `bands` row bands of dirs [H, W, 3], which
+    bounds memory to a band's planes and compaction buffers. Rays are
+    independent, so at capacities that do not overflow this is the
+    monolithic render; capacities are pooled per band, so under overflow
+    other samples drop."""
+    return _banded(march_hierarchical, dirs, bands, *args, **kwargs)
+
+
+def march_hierarchical_v3(dirs, params: MarchParams, bp: BrickPack,
+                          sky_lut_img, steps: int = 128,
+                          light_steps: int = 6, coarse_steps: int = 32,
+                          chunk: int = 32768, cell_keep_frac: float = 0.5,
+                          hot_keep_frac: float = 0.5,
+                          ray_keep_frac: float | None = None,
+                          cone_cache: ConeCache | None = None,
+                          cone_res=(32, 512, 512), prepass_steps: int = 32,
+                          ray_stride: int = 1, cell_margin: float = 0.1,
+                          occupancy_margin: float = 0.3,
+                          accum: str = "segmented"):
+    """Hierarchical march through the v3 cell-gated core over world
+    directions [..., 3] → [..., 4]: `_march_core3` on the window lattice
+    (`_hier_window_lattice`), so the prepass probes the window-adjusted
+    steps, the ray cull drops rays with an empty window, the cell gate
+    skips the gaps inside wide windows and the hot compaction confines
+    erosion and the cone lookup to occupied cells. Size the buckets with
+    `hier_v3_auto_policy`. ray_stride stays 1 on the window lattice: each
+    ray's coarse cell k spans its own t-range, so a stride neighbour's
+    occupancy row does not describe it. Builds a cone cache when none is
+    given."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
+    atmos = ambient_colors(params, sky_lut_img)
+    if cone_cache is None:
+        cone_cache = build_cone_cache(params, bp, light_steps, res=cone_res,
+                                      chunk=min(chunk, max(n, 1)))
+    above_w, ndir, ss_w, p0_w, phase = _hier_window_lattice(
+        flat, params, bp, steps, coarse_steps, chunk, occupancy_margin)
+    out = _march_core3(above_w, ndir, ss_w, p0_w, phase, params, bp, atmos,
+                       steps, min(chunk, max(n, 1)), cell_keep_frac, cone_cache,
+                       ray_keep_frac, prepass_steps,
+                       shape if len(shape) == 2 else None, ray_stride,
+                       cell_margin, hot_keep_frac, accum)
+    return out.reshape(shape + (4,))
+
+
+def march_hierarchical_v3_banded(dirs, *args, bands: int = 4, **kwargs):
+    """`march_hierarchical_v3` over `bands` row bands of dirs [H, W, 3].
+    Not the monolithic render: the prepass's 3×3 dilation sees only the
+    band's rows and the capacities are pooled per band (size them with
+    `hier_v3_auto_policy(bands=...)`)."""
+    return _banded(march_hierarchical_v3, dirs, bands, *args, **kwargs)
+
+
+def _hier_cull_cell_stats(dirs, params: MarchParams, bp: BrickPack,
+                          steps: int = 128, coarse_steps: int = 32,
+                          prepass_steps: int = 32, chunk: int = 32768,
+                          ray_stride: int = 1, cell_margin: float = 0.1,
+                          prepass_margin: float = 0.02,
+                          occupancy_margin: float = 0.3):
+    """`cull_cell_stats` on the window lattice: (keep_frac, cell_frac) from
+    `_cull_prepass` over the window-adjusted steps, as Python floats."""
+    dirs = dirs.to(torch.float32)
+    shape = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    ch = min(chunk, max(flat.shape[0], 1))
+    above_w, ndir, ss_w, p0_w, _ = _hier_window_lattice(
+        flat, params, bp, steps, coarse_steps, ch, occupancy_margin)
+    return _cell_stats(above_w, ndir, ss_w, p0_w, params, bp, steps,
+                       prepass_steps, ch, shape if len(shape) == 2 else None,
+                       ray_stride, cell_margin, prepass_margin)
+
+
+def hier_hot_cell_fraction(dirs, params: MarchParams, bp: BrickPack,
+                           steps: int = 128, coarse_steps: int = 32,
+                           prepass_steps: int = 32, stride: int = 8,
+                           chunk: int = 16384,
+                           occupancy_margin: float = 0.3) -> float:
+    """`hot_cell_fraction` on the window lattice: the fraction of (ray,
+    coarse cell) blocks with any `pre > 0` sample at the window-adjusted
+    fine positions, on every stride-th ray (the window math is per ray, so
+    the subset's windows are the full grid's)."""
+    flat = dirs.to(torch.float32).reshape(-1, 3)[::stride]
+    ch = min(chunk, max(flat.shape[0], 1))
+    above_w, ndir, ss_w, p0_w, _ = _hier_window_lattice(
+        flat, params, bp, steps, coarse_steps, ch, occupancy_margin)
+    return _hot_fraction(above_w, ndir, ss_w, p0_w, params, bp, steps,
+                         prepass_steps, ch)
+
+
+def hier_v3_auto_policy(dirs, params: MarchParams, bp: BrickPack,
+                        steps: int = 128, coarse_steps: int = 32,
+                        ray_stride: int = 1, cell_margin: float = 0.1,
+                        prepass_steps: int = 32, bands: int = 1):
+    """`v3_auto_policy` on the window lattice, for `march_hierarchical_v3`:
+    (ray_keep_frac, cell_keep_frac, hot_keep_frac, cell_frac, hot_frac).
+    Windows concentrate live cells inside clouds, so the standard
+    lattice's policy would undersize the buckets. With bands > 1 (for the
+    banded march, whose capacities are pooled per band) each fraction is
+    the maximum over the bands, so the buckets cover the densest band."""
+    H = dirs.shape[0]
+    if H % bands:
+        raise ValueError(f"rows {H} not divisible by bands {bands}")
+    rows = H // bands
+    keep = cell_frac = hot_frac = 0.0
+    for i in range(bands):
+        band = dirs[i * rows:(i + 1) * rows]
+        k, cf = _hier_cull_cell_stats(
+            band, params, bp, steps=steps, coarse_steps=coarse_steps,
+            ray_stride=ray_stride, cell_margin=cell_margin,
+            prepass_steps=prepass_steps)
+        hf = hier_hot_cell_fraction(band, params, bp, steps=steps,
+                                    coarse_steps=coarse_steps,
+                                    prepass_steps=prepass_steps)
+        keep, cell_frac, hot_frac = max(keep, k), max(cell_frac, cf), max(hot_frac, hf)
+    return _v3_buckets(keep, cell_frac, hot_frac)
 
 
 # ------------------------------------------------------ v2 staged march
@@ -1436,19 +1708,19 @@ def _march_core2(above, ndir, ss, p0, phase, params: MarchParams,
        render as empty sky.
     2. Dense pass in chunks of `chunk` rays: weather and the pre-erosion
        density `pre` (and hf) at every sample; with t_cutoff > 0 the
-       occlusion bound (`_occlusion_live`) masks samples out.
+       occlusion bound (`_occlusion_live`) masks samples out. With
+       weather_every = K > 1 the weather is fetched at every K-th step
+       only and lerped between those nodes (a measured quality loss in the
+       JAX package, tests/test_march_v2.py; off by default).
     3. The occupied samples (`pre > 0`, the exact occupancy predicate) are
        compacted (K2) into `v2_capacity` slots; erosion and the cone-cache
        lookup run on that list and are scattered back to [n, steps] planes.
     4. Capacity overflow (K2's rank ≥ capacity) takes an ALU-only fallback:
        erosion at the detail noise's mean (hfbm = 0.5) and no sun term.
-    5. Phase 3 through K1.
-
-    Only `weather_every=1` is ported: the along-ray weather lerp is a
-    measured loss in the JAX package and is left out."""
-    if weather_every != 1:
-        raise NotImplementedError("weather_every > 1 (the along-ray weather "
-                                  "lerp) is not ported (ROADMAP, Leave out)")
+    5. Phase 3 through K1."""
+    K = weather_every
+    if K < 1 or steps % K:
+        raise ValueError(f"weather_every {K} must divide steps {steps}")
     n = ndir.shape[0]
     n_out = n
     dev = ndir.device
@@ -1472,11 +1744,20 @@ def _march_core2(above, ndir, ss, p0, phase, params: MarchParams,
         n = ray_cap
     total = n * steps
     i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+    # The weather nodes' step numbers (i - 1) and the lerp fractions.
+    i_node = torch.arange(steps // K + 1, dtype=torch.float32, device=dev) * K
+    frac = (torch.arange(K, dtype=torch.float32, device=dev) / K)[None, None, :, None]
 
     # ---- Dense pass: weather + pre (+ hf), chunked over rays.
     def pre_chunk(p0c, ndirc, ssc):
         px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
-        w =_weather_rb_xy(bp, px, pz, params.weather_pos)
+        if K == 1:
+            w = _weather_rb_xy(bp, px, pz, params.weather_pos)
+        else:
+            wx, _, wz = _sample_xyz(p0c, ndirc, ssc[:, None] * (i_node[None, :] + 1.0))
+            wn = _weather_rb_xy(bp, wx, wz, params.weather_pos)
+            w0, w1 = wn[:, :-1, None, :], wn[:, 1:, None, :]
+            w = (w0 + (w1 - w0) * frac).reshape(wn.shape[0], steps, 2)
         pre_c, hf_c = _density_pre_xyz(px, py, pz, w, 0.0, params, bp)
         occ = pre_c > 0.0
         if t_cutoff > 0.0:

@@ -114,6 +114,15 @@ class RingState:
         self.texture_to_blend_to = (self.texture_to_blend_to + 1) % 3
         self.frame = 0
 
+    def reset(self) -> None:
+        """Back to the first cycle's slots and cursor (a performance change
+        tears the rings down); the sky-LUT slot is kept."""
+        self.texture_to_update = 0
+        self.texture_to_blend_from = 1
+        self.texture_to_blend_to = 2
+        self.update_position = (0, 0)
+        self.frame = 0
+
     def advance_cursor(self, update_region_size: int, texture_size: int) -> None:
         """Row-major tile sweep (`cloud_sky.gd:156-162`)."""
         x, y = self.update_position

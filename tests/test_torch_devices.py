@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cloudscape_tpu_torch import PerfConfig
+from cloudscape_tpu_torch import engine
 from cloudscape_tpu_torch.engine import CloudSkyEngine
 from cloudscape_tpu_torch.models import atmosphere, compositor, packs
 from cloudscape_tpu_torch.models.density import MarchParams
@@ -56,7 +57,23 @@ ENTRY_POINTS = {
     "texel_directions": lambda **kw: octmap.texel_directions(8, **kw),
     "FrameData.to_march_params": lambda **kw: FrameData().to_march_params(**kw),
     "CloudSkyEngine": lambda **kw: _tiny_engine(**kw).cloud_ring,
+    "cubemap_directions": lambda **kw: engine.cubemap_directions(4, **kw),
+    "cubemap_solid_angles": lambda **kw: engine.cubemap_solid_angles(4, **kw),
+    # With no asset folder the pack is the procedural one, at tiny sizes here.
+    "reference_noise_pack": lambda **kw: _tiny_reference_pack(**kw),
 }
+
+
+def _tiny_reference_pack(**kw):
+    """`reference_noise_pack` where its assets are absent, with the
+    procedural pack it falls back to made at tiny sizes."""
+    real = packs.procedural_noise_pack
+    packs.procedural_noise_pack = lambda seed, device="cuda": real(
+        seed, base_size=4, detail_size=4, weather_size=8, device=device)
+    try:
+        return packs.reference_noise_pack("/nonexistent", **kw)
+    finally:
+        packs.procedural_noise_pack = real
 
 
 def _tensors(out):
