@@ -134,6 +134,20 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    prefiltered (finite, nonnegative, +Y brighter than −Y, the solid
    angles against 4π), and `set_performance(PerfConfig(384, 16))` on a
    new fast3 engine with the warm re-init that fills its ring;
+   11g. the mesh (`run_mesh`): `render_hemisphere_sharded` at 768² × 128
+   steps on `make_mesh(["cuda:0"] * 4)` (fast3 ≥ 60 dB from the
+   single-card v3, K2 and K3 launched at least once a shard; fast2 at atol
+   1e-6 from the single v2; 2 shards against 4 reported), the v3 prepass
+   on 4 shards bitwise the unsharded one, the scan march sharded at 768² ×
+   16 steps bitwise the single march and `full_frame_step_sharded`'s
+   psum'd mean luminance at rtol 1e-6; a fast3 `tile_cull` engine at
+   `PerfConfig()` on the 4-shard mesh in lockstep with a single-card twin
+   for 70 `render_frame` ticks across a boundary (equal buckets, dense
+   and skip tiles within atol 1e-6, rings ≥ 35 dB apart and a v3 tile at
+   capacity 1.0 on the shards ≥ 100 dB from the card's, K1–K3 launched,
+   the split path, medians by CUDA events beside a `StageTimer`); and a
+   mixed [cuda:0, cpu] mesh's v3 render and tiny culled engine ≥ 50 dB
+   from the CPU's (the engine's twin on a [cpu, cpu] mesh);
 12. the fast3, fast2 and hier engines at a tiny size, without and with
    tile cull, and the fast and reference engines, on the card and on the CPU
    (where the wrappers take their plain versions): ring, view and
@@ -173,7 +187,10 @@ phase 5's engine construction and config 4's pack; `launches_tile_cull`
 around phase 11b; `launches_config5` by each call of config 5's path in
 phase 9b (the pack, the cone cache, the two policies, each row's warm
 call: zeroed just before the call, read just after); and
-`launches_hier_engine` around phase 11e (the counts zeroed before each).
+`launches_hier_engine` around phase 11e (the counts zeroed before each);
+`launches_mesh` by phase 11g's mesh path (zeroed at its start, every
+sharded call and the mesh engine read around the call, the single-card
+references left out) and `launches_mesh_ticks` by its 70 mesh ticks.
 `launches_per_pass` counts one pass: phase 5, phase 7's first
 render_full_hemisphere and phase 11b's timed window, without the one
 launch of K1–K3 of phase 5's validation probe (a tiny input, not a pass's
@@ -1827,6 +1844,353 @@ def run_hier_engine(dev):
                 hemi_cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
+# Phase 11g: the mesh. Shards of one card (`make_mesh(["cuda:0"] * 4)`) run
+# in threads of their own on the card's one stream; MESH_TICKS engine ticks
+# in lockstep with a single-card twin, across one rotation boundary.
+MESH_SHARDS, MESH_TICKS = 4, 70
+# Steps of the sharded scan march (phase 11g step 3): its launches grow
+# with steps and shards, not with rays.
+MESH_SCAN_STEPS = 16
+# Gate of the sharded v3 render against the single-card one with the same
+# knobs (tests/test_sharding.py's). And of the culled mesh engine's rings
+# against its single-card twin's: the v3 march sizes its capacities per
+# shard, as the JAX package's does, so a 24-row shard holding more than a
+# quarter of a tile's live cells drops its farthest ones where the whole
+# tile does not. On the card the rings measured 39.85 dB apart while a v3
+# tile of the cycle at capacity 1.0 on the 4 shards measured 178.00 dB from
+# the single card's (NVIDIA H100 80GB HBM3, 700.00 W); the gate is phase
+# 11b's floor for a culled map, TILE_CULL_DB, and phase 11g holds that v3
+# tile at capacity 1.0 at 100 dB.
+MESH_V3_DB, MESH_RING_DB = 60.0, 35.0
+
+
+def run_mesh(dev):
+    """Phase 11g: the port's mesh (`parallel/sharding.py`) on shards of the
+    one card, and on a mixed card + CPU mesh. The mesh path's launches
+    (steps 1–4: every sharded call and the mesh engine, not the single-card
+    references) are summed into `launches` from the counts zeroed at the
+    phase's start and read around each call.
+
+    1. `render_hemisphere_sharded` at 768² × 128 steps on 4 shards: fast3
+       (the default v3_policy) ≥ MESH_V3_DB from the single-card v3 march
+       with the same knobs and K2 and K3 launched at least once a shard;
+       fast2 at atol 1e-6 from the single-card v2 march; the fast3 render
+       on 2 shards against the one on 4 (bitwise, or its max |Δ|); each
+       call (one of each) timed by CUDA events.
+    2. The v3 prepass's (prio, occ) on 4 shards, bitwise the unsharded one.
+    3. The scan march sharded at 768² × MESH_SCAN_STEPS, bitwise the single
+       `march`; `full_frame_step_sharded` at the same size: the psum'd mean
+       luminance at rtol 1e-6 from the host's f64 mean.
+    4. A fast3 `tile_cull` engine at `PerfConfig()` (96² tiles, 24 rows a
+       shard) on bench.py's serving scene with a 4-shard mesh, and its
+       single-card twin: the warm start, then MESH_TICKS `render_frame`
+       ticks of the 1280×720 camera in lockstep (each timed by CUDA events,
+       the mesh engine's also by a `StageTimer`): equal buckets, every
+       dense and skip tile within atol 1e-6 of the twin's, the rings ≥
+       MESH_RING_DB apart (a v3 tile at capacity 1.0 on the shards ≥ 100
+       dB from the single card's), K2 and K3 launched by the ticks and K1
+       by the engine, the split path taken (no display-pair tables),
+       frames finite, nonnegative and not black.
+    5. A mixed mesh [cuda:0, cpu] (replicated inputs and halo rows cross
+       devices): the sharded fast3 render at 64² × 8 steps, ≥ 50 dB (phase
+       12's gate) from the CPU's single-device v3, and a tiny fast3
+       `tile_cull` engine (64², 4 frames, 6 ticks across a boundary), ≥ 50
+       dB from its twin on a [cpu, cpu] mesh (the same per-shard
+       capacities).
+    6. The StageTimer's ms a tick against the CUDA events' (reported; a
+       difference above 10% is flagged)."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.models import atmosphere
+    from cloudscape_tpu_torch.models.density import MarchParams
+    from cloudscape_tpu_torch.models.march import march
+    from cloudscape_tpu_torch.models.march_fast import (
+        BrickPack, _cull_prepass, _ray_setup, build_cone_cache, march_bricks_v2,
+        march_bricks_v3)
+    from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.parallel.sharding import (
+        P, full_frame_step_sharded, make_mesh, render_hemisphere_sharded,
+        shard_map, tree_map)
+    from cloudscape_tpu_torch.utils.image import psnr
+    from cloudscape_tpu_torch.utils.profiling import StageTimer
+
+    size, steps, light = 768, 128, 6
+    pack = procedural_noise_pack(0, device=dev)
+    bricks = BrickPack.from_noise(pack)
+    sun = np.array([0.3, 0.4, -0.85])
+    sun /= np.linalg.norm(sun)
+    sun_t = torch.tensor(sun, dtype=torch.float32, device=dev)
+    tlut = atmosphere.transmittance_lut(device=dev)
+    sky = atmosphere.sky_lut(tlut, sun_t)
+    params = MarchParams.create(
+        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.35,
+        light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]),
+        device=dev)
+    cone = build_cone_cache(params, bricks, light, res=CONE_RES, chunk=65536)
+    dirs = texel_directions(size, device=dev)
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    mesh2 = make_mesh([dev] * 2)
+    zero_counts()
+    launches = read_counts()  # all zero
+    out = dict(card=card_line(), step_s=[])
+    t_step = time.perf_counter()
+
+    def step_done():
+        nonlocal t_step
+        out["step_s"].append(time.perf_counter() - t_step)
+        t_step = time.perf_counter()
+
+    def mesh_call(fn, *args, **kw):
+        """fn(*args, **kw) with its launches added to `launches`; returns
+        (result, its launches)."""
+        torch.cuda.synchronize()
+        before = read_counts()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        for k, v in delta.items():
+            launches[k] += v
+        return res, delta
+
+    def sharded(kernel, m=mesh, noise=(bricks, cone)):
+        return render_hemisphere_sharded(m, size, params, noise, sky, steps=steps,
+                                         light_steps=light, kernel=kernel)
+
+    # Step 1: the sharded v3 and v2 renders against the single card's, each
+    # call timed by CUDA events.
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end)
+
+    (s3, out["v3_ms"]), d3 = mesh_call(timed, sharded, "fast3")
+    require(d3["compact"] >= MESH_SHARDS and d3["segscan"] >= MESH_SHARDS,
+            f"the sharded v3 render launched K2 {d3['compact']}, K3 {d3['segscan']} "
+            f"times on {MESH_SHARDS} shards")
+    require(bool(torch.isfinite(s3).all()), "the sharded v3 render is not finite")
+
+    def single3():
+        return march_bricks_v3(dirs, params, bricks, sky, steps=steps,
+                               light_steps=light, chunk=16384, cell_keep_frac=0.75,
+                               hot_keep_frac=0.75, cone_cache=cone,
+                               ray_keep_frac=1.0, prepass_steps=32, ray_stride=2)
+
+    v3, out["v3_single_ms"] = timed(single3)
+    out["v3_db"] = psnr(s3.cpu().numpy(), v3.cpu().numpy())
+    out["v3_equal"] = float((s3 == v3).all(-1).float().mean())
+    require(out["v3_db"] >= MESH_V3_DB,
+            f"sharded v3 vs single {out['v3_db']:.2f} dB < {MESH_V3_DB}")
+    (s3_2, out["v3_2_ms"]), _ = mesh_call(timed, sharded, "fast3", mesh2)
+    out["v3_2v4_diff"] = float((s3_2 - s3).abs().max())
+    out["v3_2v4_texels"] = int((s3_2 != s3).any(-1).sum())
+    (s2, out["v2_ms"]), d2 = mesh_call(timed, sharded, "fast2")
+
+    def single2():
+        return march_bricks_v2(dirs, params, bricks, sky, steps=steps,
+                               light_steps=light, chunk=16384, capacity_frac=0.3,
+                               cone_cache=cone)
+
+    v2, out["v2_single_ms"] = timed(single2)
+    out["v2_diff"] = float((s2 - v2).abs().max())
+    require(out["v2_diff"] <= 1e-6, f"sharded v2 vs single: max |d| {out['v2_diff']:.3g}")
+    require(d2["compact"] >= MESH_SHARDS and d2["accumulate"] >= MESH_SHARDS,
+            f"the sharded v2 render launched K2 {d2['compact']}, K1 "
+            f"{d2['accumulate']} times on {MESH_SHARDS} shards")
+    out["k_v3"], out["k_v2"] = d3, d2
+    del s3, s3_2, v3, s2, v2
+    step_done()
+
+    # Step 2: the v3 prepass gate on 4 shards.
+    def prepass(d, axis_name=None):
+        H, W = d.shape[0], d.shape[1]
+        above, ndir, ss, p0, _, _ = _ray_setup(d.reshape(-1, 3), params, steps)
+        prio, occ, _ = _cull_prepass(above, ndir, ss, p0, params, bricks, steps, 32,
+                                     16384, (H, W), 2, 0.1, axis_name)
+        return prio.reshape(H, W), occ.reshape(H // 2, W // 2, 32)
+
+    (prio_s, occ_s), _ = mesh_call(shard_map(
+        lambda d: prepass(d, "rays"), mesh, in_specs=(P("rays"),),
+        out_specs=(P("rays"), P("rays"))), dirs)
+    prio_1, occ_1 = prepass(dirs)
+    require(bitwise_equal(prio_s, prio_1) and torch.equal(occ_s, occ_1),
+            "the sharded v3 prepass differs from the unsharded one")
+    require(bool(occ_1.any()) and not bool(occ_1.all()), "the v3 gate is vacuous")
+    out["occ_frac"] = float(occ_1.float().mean())
+    del prio_s, occ_s, prio_1, occ_1
+    step_done()
+
+    # Step 3: the scan march and the whole frame step, sharded.
+    sr, _ = mesh_call(render_hemisphere_sharded, mesh, size, params, pack, sky,
+                      steps=MESH_SCAN_STEPS, light_steps=light, kernel="reference")
+    t0 = time.perf_counter()
+    ref = march(dirs, params, pack, sky, steps=MESH_SCAN_STEPS, light_steps=light)
+    torch.cuda.synchronize()
+    out["scan_single_ms"] = (time.perf_counter() - t0) * 1e3
+    out["scan_diff"] = float((sr - ref).abs().max())
+    require(bitwise_equal(sr, ref), f"the sharded scan march differs from the single "
+            f"one: max |d| {out['scan_diff']:.3g}")
+    del sr, ref
+    t0 = time.perf_counter()
+    (tile, fsky, mean), _ = mesh_call(
+        full_frame_step_sharded, params, pack, tlut, sun_t, texture_size=size,
+        steps=MESH_SCAN_STEPS, light_steps=light, mesh=mesh)
+    out["frame_step_ms"] = (time.perf_counter() - t0) * 1e3
+    host = float(tile[..., :3].cpu().numpy().astype(np.float64).mean())
+    out["mean_lum"], out["mean_lum_host"] = float(mean), host
+    require(abs(float(mean) - host) <= 1e-6 * abs(host) and host > 0.0,
+            f"psum'd mean luminance {float(mean)!r} vs the host's {host!r}")
+    require(tuple(fsky.shape) == (100, 200, 4) and bool(torch.isfinite(tile).all()),
+            "full_frame_step_sharded's outputs")
+    del tile
+    step_done()
+
+    # Step 4: the culled mesh engine and its single-card twin in lockstep.
+    eye = camera_dirs(1280, 720, dev)
+    kw = dict(perf=PerfConfig(), kernel="fast3", cone_res=CONE_RES, tile_cull=True,
+              config=CloudConfig(cloud_coverage=0.35, sun_disk_scale=2.0,
+                                 wind_speed=10.0, ground_color=(0.27, 0.19, 0.027, 1.0)),
+              sun=SunState(direction=(0.3, 0.4, -0.85)), device=dev)
+    t0 = time.perf_counter()
+    eng, k_start = mesh_call(lambda: CloudSkyEngine(**kw, mesh=mesh))
+    require(eng.can_run, "the mesh engine failed its validation")
+    _, k_warm = mesh_call(eng.render_frame, eye, now=0.0)  # the warm start
+    out["warm_s"] = time.perf_counter() - t0
+    twin = CloudSkyEngine(**kw)
+    require(twin.can_run, "the mesh engine's twin failed its validation")
+    twin.render_frame(eye, now=0.0)
+    region = eng.perf.update_region_size
+    tpr = eng.perf.texture_size // region
+    timer = StageTimer()
+    mesh_ms, twin_ms, dense_diff, arms, boundaries = [], [], 0.0, [], 0
+    tick_launches = dict.fromkeys(launches, 0)
+    frame = None
+    for i in range(1, MESH_TICKS + 1):
+        boundaries += eng.ring.frame >= eng.perf.frames_to_update
+
+        def mesh_tick():
+            nonlocal frame
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with timer.stage("mesh_tick", rays=region * region, fence=eng.cloud_ring):
+                start.record()
+                frame = eng.render_frame(eye, now=i / 60.0)
+                end.record()
+            mesh_ms.append(start.elapsed_time(end))
+
+        _, d = mesh_call(mesh_tick)
+        for k, v in d.items():
+            tick_launches[k] += v
+        twin_ms += events_ms(lambda: twin.render_frame(eye, now=i / 60.0), 1)
+        require(eng._tile_buckets == twin._tile_buckets,
+                f"tick {i}: the mesh engine's buckets differ from the twin's")
+        k = eng.ring.frame - 1  # the tile this tick wrote
+        b = eng._tile_buckets[k]
+        arms.append(tile_arm(b))
+        y0, x0 = (k // tpr) * region, (k % tpr) * region
+        tex = eng.ring.texture_to_update
+        a = eng.cloud_ring[tex, y0:y0 + region, x0:x0 + region]
+        t = twin.cloud_ring[tex, y0:y0 + region, x0:x0 + region]
+        if b >= 1.0 or b == 0.0:
+            diff = float((a - t).abs().max())
+            require(diff <= 1e-6, f"tick {i}: {tile_arm(b)} tile {k} differs from "
+                    f"the twin's by {diff:.3g}")
+            dense_diff = max(dense_diff, diff)
+    require(boundaries == 1, f"{boundaries} boundaries in the mesh ticks, not 1")
+    require(eng._display_pair is None, "the mesh engine's render_frame built the "
+            "display-pair tables (it must take update_sky + render_view)")
+    require(frame.shape == eye.shape and bool(torch.isfinite(frame).all())
+            and float(frame.min()) >= 0.0, "mesh frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, "mesh frame is black")
+    # The serving scene's tiles are skips and v3 buckets (K2, K3); K1 runs
+    # in the construction's probe and the (unsharded) warm start's dense
+    # tiles, and through the shards in step 1's v2 render.
+    engine_launches = {k: k_start[k] + k_warm[k] + v for k, v in tick_launches.items()}
+    require(tick_launches["compact"] > 0 and tick_launches["segscan"] > 0
+            and engine_launches["accumulate"] > 0,
+            f"the mesh engine launched {engine_launches}, its ticks {tick_launches}")
+    out["ring_db"] = psnr(eng.cloud_ring.cpu().numpy(), twin.cloud_ring.cpu().numpy())
+    require(out["ring_db"] >= MESH_RING_DB,
+            f"mesh engine vs twin rings {out['ring_db']:.2f} dB < {MESH_RING_DB}")
+    # A v3 tile of the cycle at capacity 1.0: on the shards as on one card
+    # (no shard can overflow), but for K3's sums over other ranges.
+    k = next(j for j, b in enumerate(twin._tile_buckets) if tile_arm(b) == "v3")
+    out["v3_tile"] = k
+    tile_dirs = texel_directions(size, x0=(k % tpr) * region, y0=(k // tpr) * region,
+                                 width=region, height=region, device=dev)
+
+    def full_v3(d, axis_name=None):
+        return march_bricks_v3(d, twin._march_params, twin._bricks,
+                               twin.sky_ring[twin.ring.cloud_kernel_sky_slot],
+                               steps=steps, light_steps=light, chunk=16384,
+                               cell_keep_frac=1.0, hot_keep_frac=1.0,
+                               cone_cache=twin._cone_cache,
+                               prepass_steps=twin._v3_march_knobs()[0],
+                               ray_stride=2, axis_name=axis_name)
+
+    full_s = shard_map(lambda d: full_v3(d, "rays"), mesh, (P("rays"),),
+                       P("rays"))(tile_dirs)
+    out["v3_tile_full_db"] = psnr(full_s.cpu().numpy(), full_v3(tile_dirs).cpu().numpy())
+    require(out["v3_tile_full_db"] >= 100.0, f"a v3 tile at capacity 1.0 on the "
+            f"shards vs the single card {out['v3_tile_full_db']:.2f} dB < 100")
+    out.update(mesh_ms=mesh_ms, twin_ms=twin_ms, dense_diff=dense_diff,
+               arms={a: arms.count(a) for a in ("skip", "v3", "dense")},
+               tick_launches=tick_launches, engine_launches=engine_launches,
+               timer_ms=timer.as_dict()["mesh_tick"]["total_s"] * 1e3 / MESH_TICKS,
+               cloud_frac=float((eng.cloud_ring[..., 3] > 0.1).float().mean()))
+    out["timer_vs_events"] = out["timer_ms"] / statistics.mean(mesh_ms) - 1.0
+    out["launches"] = dict(launches)
+    del eng, twin
+    step_done()
+
+    # Step 5: a mixed mesh, one card and the CPU.
+    cpu = torch.device("cpu")
+    mixed = make_mesh([dev, cpu])
+    small = procedural_noise_pack(1, 16, 16, 64, device=dev)
+    sb = BrickPack.from_noise(small)
+    scone = build_cone_cache(params, sb, 2, res=(8, 64, 64), chunk=4096)
+    mixed_out = render_hemisphere_sharded(mixed, 64, params, (sb, scone), sky, steps=8,
+                                          light_steps=2, kernel="fast3")
+
+    def to_cpu(x):
+        return x.to(cpu)
+
+    cpu_v3 = march_bricks_v3(
+        texel_directions(64, device=cpu), tree_map(to_cpu, params),
+        tree_map(to_cpu, sb), sky.cpu(), steps=8, light_steps=2, chunk=16384,
+        cell_keep_frac=0.75, hot_keep_frac=0.75, cone_cache=tree_map(to_cpu, scone),
+        ray_keep_frac=1.0, prepass_steps=2, ray_stride=2)
+    out["mixed_render_db"] = psnr(mixed_out.cpu().numpy(), cpu_v3.numpy())
+    require(out["mixed_render_db"] >= 50.0,
+            f"mixed-mesh v3 vs the CPU's {out['mixed_render_db']:.2f} dB < 50")
+    tiny = dict(perf=PerfConfig(64, 4, march_steps=8, light_steps=2),
+                config=CloudConfig(cloud_coverage=0.6),
+                sun=SunState(direction=(0.3, 0.5, -0.8)), cone_res=(8, 64, 64),
+                kernel="fast3", tile_cull=True)
+    me = CloudSkyEngine(**tiny, noise=small, device=dev, mesh=mixed)
+    # Its CPU twin on a 2-shard CPU mesh: the same per-shard capacities.
+    ce = CloudSkyEngine(**tiny, noise=tree_map(to_cpu, small), device=cpu,
+                        mesh=make_mesh([cpu, cpu]))
+    require(me.can_run and ce.can_run, "the tiny mixed-mesh engines' validation")
+    for i in range(6):  # across a boundary
+        me.update_sky(now=i / 30.0)
+        ce.update_sky(now=i / 30.0)
+    out["mixed_ring_db"] = psnr(me.cloud_ring.cpu().numpy(), ce.cloud_ring.numpy())
+    out["mixed_same_buckets"] = me._tile_buckets == ce._tile_buckets
+    out["mixed_v3_tiles"] = sum(0.0 < b < 1.0 for b in me._tile_buckets)
+    require(out["mixed_ring_db"] >= 50.0,
+            f"mixed-mesh engine vs the CPU's rings {out['mixed_ring_db']:.2f} dB < 50")
+    step_done()
+    return out
+
+
 def run_api(dev, eng):
     """Phase 11f: the engine API on the card. `save_file` of the phase-5
     engine, `load_file` into a new engine (rings bitwise equal, and its
@@ -2247,6 +2611,47 @@ def main() -> int:
           flush=True)
     stamp("11e")
 
+    mo = run_mesh(dev)
+    print(f"mesh {MESH_SHARDS} shards of one card, 768x768x128 (bench.py's scene, "
+          f"coverage 0.35): sharded v3 {mo['v3_ms']:.2f} ms (2 shards "
+          f"{mo['v3_2_ms']:.2f}) vs single {mo['v3_single_ms']:.2f} ms, "
+          f"{mo['v3_db']:.2f} dB from the single v3, {mo['v3_equal']:.4f} of "
+          f"texels equal, K2 x{mo['k_v3']['compact']}, K3 x{mo['k_v3']['segscan']}; "
+          f"2 vs 4 shards max |d| {mo['v3_2v4_diff']:.3g} on {mo['v3_2v4_texels']} "
+          f"texels; sharded v2 {mo['v2_ms']:.2f} ms vs single "
+          f"{mo['v2_single_ms']:.2f} ms, max |d| {mo['v2_diff']:.3g}, K1 "
+          f"x{mo['k_v2']['accumulate']}, K2 x{mo['k_v2']['compact']} ({card})",
+          flush=True)
+    print(f"mesh v3 prepass 768²: (prio, occ) bitwise the unsharded ones, "
+          f"{mo['occ_frac']:.4f} of the coarse cells live; scan march "
+          f"768x768x{MESH_SCAN_STEPS} sharded bitwise the single march (single "
+          f"{mo['scan_single_ms']:.1f} ms); full_frame_step_sharded "
+          f"{mo['frame_step_ms']:.1f} ms, mean luminance {mo['mean_lum']!r} vs the "
+          f"host's {mo['mean_lum_host']!r} ({card})", flush=True)
+    flag = " (differs by more than 10%)" if abs(mo["timer_vs_events"]) > 0.1 else ""
+    print(f"mesh engine (fast3 tile_cull, PerfConfig(), {MESH_SHARDS} shards of 24 "
+          f"rows) vs its single-card twin over {MESH_TICKS} render_frame ticks "
+          f"across a boundary: start {mo['warm_s']:.2f} s; tick median "
+          f"{statistics.median(mo['mesh_ms']):.2f} ms (max {max(mo['mesh_ms']):.2f}) "
+          f"vs the twin's {statistics.median(mo['twin_ms']):.2f} ms (max "
+          f"{max(mo['twin_ms']):.2f}), CUDA events; StageTimer {mo['timer_ms']:.2f} "
+          f"ms a tick vs the events' mean {statistics.mean(mo['mesh_ms']):.2f} "
+          f"({mo['timer_vs_events']:+.1%}{flag}); arms {mo['arms']}; buckets equal "
+          f"every tick; dense and skip tiles max |d| {mo['dense_diff']:.3g}; rings "
+          f"{mo['ring_db']:.2f} dB apart (tile {mo['v3_tile']} at capacity 1.0: "
+          f"{mo['v3_tile_full_db']:.2f} dB); split path (no pair tables); the ticks "
+          f"launched {mo['tick_launches']} (the engine in all "
+          f"{mo['engine_launches']}); cloud fraction {mo['cloud_frac']:.4f} "
+          f"({card})", flush=True)
+    print("mesh tick ms: " + " ".join(f"{t:.1f}" for t in mo["mesh_ms"]), flush=True)
+    print(f"mixed mesh [cuda:0, cpu]: sharded v3 64x64x8 {mo['mixed_render_db']:.1f} dB "
+          f"from the CPU's; tiny fast3 tile_cull engine rings "
+          f"{mo['mixed_ring_db']:.1f} dB from its [cpu, cpu] twin's (same buckets "
+          f"{mo['mixed_same_buckets']}, {mo['mixed_v3_tiles']} v3 tiles); the "
+          f"mesh phase's steps took " + ", ".join(f"{t:.1f}" for t in mo["step_s"])
+          + " s", flush=True)
+    stamp("11g")
+
     for kernel, tile_cull in (("fast3", False), ("fast3", True), ("fast2", False),
                               ("fast2", True), ("hier", False), ("hier", True),
                               ("fast", False), ("reference", False)):
@@ -2373,6 +2778,11 @@ def main() -> int:
             # ticks.
             "launches_config5": {call: n[kname] for call, n in c5["launches"].items()},
             "launches_hier_engine": he["launches"].get(kname, 0),
+            # The mesh (phase 11g, steps 1–4): every sharded call and the
+            # mesh engine's construction, warm start and ticks; and its
+            # MESH_TICKS ticks alone, on MESH_SHARDS shards.
+            "launches_mesh": mo["launches"][kname],
+            "launches_mesh_ticks": mo["tick_launches"][kname],
             "max_abs_err": max(err, c5["k3_err"]) if kname == "segscan" else err, "shape": main_row["shape"],
             "ms": main_row["device_us"] / 1e3, "device_us": main_row["device_us"],
             "device_us_write_flush": main_row["device_us_write_flush"],

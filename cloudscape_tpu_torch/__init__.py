@@ -7,9 +7,12 @@ the default `CloudSkyEngine` loop: procedural noise pack → brick tables →
 transmittance and sky-view LUTs → per-cycle cone-density cache → dense tile
 march → composite; the engine's full-hemisphere re-render, the v3
 cell-gated march; the v2, exact brick, scan and hierarchical marches and
-the engine kernels that serve them; and the engine's whole API (`can_run`,
+the engine kernels that serve them; the engine's whole API (`can_run`,
 `set_performance`, save and restore to dicts and files, the radiance
-map). Six steps run as CUDA kernels on a CUDA device
+map); multi-device meshes (`parallel/sharding.py`: the engine's tile and
+whole-hemisphere renders sharded by rows, one thread per shard); and the
+tooling (`utils/profiling.py`, the `examples/` demo and screenshots).
+Six steps run as CUDA kernels on a CUDA device
 (`csrc/accum.cu`, `csrc/compact.cu`, `csrc/segscan.cu`, `csrc/noise.cu`);
 for CPU tensors the same wrappers run their plain PyTorch versions.
 """

@@ -1,7 +1,8 @@
 """CloudSkyEngine: host-side orchestration of the cloudscape pipeline (PyTorch port).
 
-The port of `cloudscape_tpu.engine.CloudSkyEngine` on one device, for
-every kernel: the staged kernels, the default `kernel="fast3"` (dense
+The port of `cloudscape_tpu.engine.CloudSkyEngine` on one device, or
+with each tick's tile sharded over a device mesh (`mesh=`), for every
+kernel: the staged kernels, the default `kernel="fast3"` (dense
 tiles below `V3_TILE_MIN_RAYS` rays, the staged v2 march above; with
 `tile_cull`, the v3 cell-gated march at each tile's cell bucket),
 `kernel="fast2"` (the v2 march for every tile; with `tile_cull`, at each
@@ -69,6 +70,8 @@ from cloudscape_tpu_torch.models.packs import procedural_noise_pack
 from cloudscape_tpu_torch.ops import _cuda, accum, compact, segscan
 from cloudscape_tpu_torch.ops.brick import brick3_grid, build_brick2_device
 from cloudscape_tpu_torch.ops.octmap import texel_directions
+from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
+                                                    replicate, shard_map)
 from cloudscape_tpu_torch.temporal import FrameData, RingState
 
 # fast3 tiles without a cull bucket take the dense march below this many
@@ -163,7 +166,8 @@ def _prepass_steps(steps: int) -> int:
 
 def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
                 steps: int, light_steps: int, kernel: str,
-                ray_keep_frac: Optional[float] = None, cull_prio=None):
+                ray_keep_frac: Optional[float] = None, cull_prio=None,
+                axis_name: Optional[str] = None):
     """The tile march of every kernel; noise is the engine's `_noise_arg`.
 
     "reference" runs the scan march on the NoisePack. "fast" runs the exact
@@ -190,7 +194,13 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
     cell margin 0.1 and no ray select. For fast2 it is the kept-ray
     fraction, ranked by `cull_prio`, the tile's window of the cycle's
     priority map. "hier" takes fast2's buckets and ignores all but the 0.0
-    skip, which the engine handles."""
+    skip, which the engine handles.
+
+    axis_name (a mesh engine's shard, inside `shard_map`): dirs' rows are
+    sharded over that mesh axis, and fast3's v3 arm exchanges its prepass
+    dilations' boundary rows with the neighbouring shards. The other arms
+    are per-ray math on the shard's rows (hier's window probe and fast2's
+    ray ranking see only the shard's rows, as in JAX)."""
     if kernel == "reference":
         return march(dirs, params, noise, sky_img, steps=steps,
                      light_steps=light_steps)
@@ -216,7 +226,7 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
                 cell_keep_frac=float(ray_keep_frac), hot_keep_frac=0.5,
                 cone_cache=cone_cache, ray_keep_frac=None,
                 prepass_steps=_prepass_steps(steps), ray_stride=2,
-                cell_margin=0.1)
+                cell_margin=0.1, axis_name=axis_name)
         if n < V3_TILE_MIN_RAYS:
             return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
                                     light_steps=light_steps,
@@ -327,15 +337,25 @@ class CloudSkyEngine:
         whole. tile_cull and cone_prebake are ignored by the unstaged
         kernels, as in JAX.
 
+        mesh: an optional `parallel.sharding.Mesh` (`make_mesh`): each
+        tick's tile is marched with its rows sharded over the mesh, one
+        thread per shard (`_update_tile_mesh`), the rings and every other
+        state staying on `device`. The tile edge must be a multiple of the
+        mesh size. The warm start, `update_cycle` and
+        `render_full_hemisphere` stay unsharded, and `render_frame` takes
+        `update_sky` + `render_view` (no fused tick), as in JAX. Composes
+        with tile_cull: each shard culls its own rows from the tile's
+        window of the priority map.
+
         can_run: set by `_validate_kernels` before the first snapshot (and
         again by `set_performance`); when it is false the engine builds
         nothing and `update_cycle`, `update_sky` and `render_frame` do no
         work (the reference's invalid-shader guard)."""
         if kernel not in _KERNEL_MODES:
             raise ValueError(f"unknown kernel {kernel!r}")
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported yet "
-                                      "(ROADMAP A15)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.sharding.Mesh (make_mesh), "
+                            f"got {type(mesh).__name__}")
         self.kernel = kernel
         self.device = torch.device(device)
         self.cone_res = tuple(cone_res)
@@ -349,6 +369,9 @@ class CloudSkyEngine:
         self._prio_map = None
         self._tile_buckets: Optional[List[float]] = None
         self.perf = perf.validate()
+        self.mesh = mesh
+        self._check_mesh(self.perf)
+        self._mesh_noise_cache = None
         self.config = config
         self.sun = sun
         self.noise = noise if noise is not None else \
@@ -387,6 +410,13 @@ class CloudSkyEngine:
         else:
             self._march_params = self.frame_data.to_march_params(self.device)
 
+    def _check_mesh(self, perf: PerfConfig) -> None:
+        """The JAX engine's mesh check: the tile's rows split evenly over
+        the mesh; raises ValueError."""
+        if self.mesh is not None and perf.update_region_size % self.mesh.size:
+            raise ValueError(f"update_region_size {perf.update_region_size} is "
+                             f"not a multiple of the mesh size {self.mesh.size}")
+
     def _check_shapes(self) -> None:
         """The shapes the tile update needs (what the JAX engine's abstract
         evaluation of its tile kernel checks); raises ValueError."""
@@ -416,15 +446,19 @@ class CloudSkyEngine:
                 raise ValueError(f"a tensor on {t.device}, the engine on {self.device}")
 
     def _validate_kernels(self) -> bool:
-        """Check the shapes and, on the card, build the kernels and launch
-        each marching kernel once on a tiny input. A failure
-        disables the engine (one line on stderr) instead of raising from
-        the render loop."""
+        """Check the shapes and, on each card the engine or its mesh uses,
+        build the kernels and launch each marching kernel once on a tiny
+        input; the mesh's cards are probed here, before any shard thread
+        starts. A failure disables the engine (one line on stderr) instead
+        of raising from the render loop."""
         try:
             self._check_shapes()
-            if self.device.type == "cuda":
-                _probe_kernels(self.device)
-                torch.cuda.synchronize(self.device)
+            devices = [self.device] + ([] if self.mesh is None
+                                       else self.mesh.distinct_devices())
+            for d in dict.fromkeys(devices):
+                if d.type == "cuda":
+                    _probe_kernels(d)
+                    torch.cuda.synchronize(d)
             return True
         except Exception as e:  # noqa: BLE001 — any failure disables
             first = (str(e).strip().splitlines() or [type(e).__name__])[0]
@@ -454,6 +488,7 @@ class CloudSkyEngine:
             # `cloud_sky.gd:114` prints the same correction notice.
             print("cloudscape_tpu_torch: texture_size is not a multiple of "
                   f"sqrt(frames_to_update), changing to: {corrected.texture_size}")
+        self._check_mesh(corrected)
         self.perf = corrected
         n = self.perf.texture_size
         self.cloud_ring = torch.zeros((3, n, n, 4), dtype=torch.float32,
@@ -823,6 +858,54 @@ class CloudSkyEngine:
             cull_prio=cull_prio)
         self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
 
+    def _mesh_noise(self) -> list:
+        """The noise argument replicated over the mesh, one per shard
+        (`replicate`: moved once to each distinct device), copied again
+        only when it changes: the cone cache, once a cycle."""
+        arg = self._noise_arg
+        leaves = arg if isinstance(arg, tuple) else (arg,)
+        cached = self._mesh_noise_cache
+        if cached is None or any(a is not b for a, b in zip(cached[0], leaves)):
+            cached = self._mesh_noise_cache = (leaves,
+                                               replicate(arg, self.mesh.devices))
+        return cached[1]
+
+    def _update_tile_mesh(self, tex_idx: int, x0: int, y0: int, prio_map=None,
+                          ray_keep_frac: Optional[float] = None) -> None:
+        """`_update_tile` with the tile's rows sharded over the mesh
+        (`shard_map`, one thread per shard), the counterpart of the JAX
+        engine's `_update_tile_mesh`. The parameters, the noise argument
+        and the sky LUT are replicated; a cull bucket's window of prio_map
+        is sharded with the rays, so each shard culls its own rows (fast2's
+        ray threshold is then per shard: close to, not equal to, the
+        unsharded tile). Each shard marches `_march_tile` with its rows as
+        the region and the mesh axis bound, so fast3's v3 arm exchanges its
+        prepass halo rows. The tile comes back on the mesh's first device
+        and is written into the ring in place."""
+        region = self.perf.update_region_size
+        axis = self.mesh.axis_name
+        dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
+                                width=region, height=region, device=self.device)
+        args = [dirs]
+        if prio_map is not None and ray_keep_frac is not None:
+            args.append(prio_map[y0:y0 + region, x0:x0 + region])
+        noise = self._mesh_noise()
+        params = replicate(self._march_params, self.mesh.devices)
+        sky = replicate(self.sky_ring[self.ring.cloud_kernel_sky_slot],
+                        self.mesh.devices)
+
+        def shard_fn(d, cp=None):
+            i = axis_index(axis)
+            return _march_tile(
+                d, params[i], noise[i], sky[i], region=max(d.shape[0], 1),
+                steps=self.perf.march_steps, light_steps=self.perf.light_steps,
+                kernel=self.kernel, ray_keep_frac=ray_keep_frac, cull_prio=cp,
+                axis_name=axis)
+
+        tile = shard_map(shard_fn, self.mesh, in_specs=(P(axis),) * len(args),
+                         out_specs=P(axis))(*args)
+        self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
+
     def _clear_tile(self, tex_idx: int, x0: int, y0: int) -> None:
         """The tile-cull 0.0 bucket: a tile whose whole priority window sits
         below the keep margin renders what the march returns for all-culled
@@ -832,11 +915,15 @@ class CloudSkyEngine:
 
     def _write_tile(self) -> None:
         """This tick's tile at the cursor, by its cull bucket: zeros for the
-        0.0 bucket (`skip_march`), else the march."""
+        0.0 bucket (`skip_march`), else the march, sharded over the mesh
+        when the engine has one."""
         x0, y0 = self.ring.update_position
         prio_map, rk = self._tile_cull_args(x0, y0)
         if rk == 0.0:
             self._clear_tile(self.ring.texture_to_update, x0, y0)
+        elif self.mesh is not None:
+            self._update_tile_mesh(self.ring.texture_to_update, x0, y0,
+                                   prio_map, rk)
         else:
             self._update_tile(self.ring.texture_to_update, x0, y0, prio_map, rk)
 
@@ -978,18 +1065,19 @@ class CloudSkyEngine:
         frame. amortized=True ticks one tile; amortized=False completes a
         whole cycle first and composites with `render_view`.
 
-        fused (default: on when amortized; the port has no mesh) serves the
-        tick through `_render_frame_fused`: the same scheduling as
-        `update_sky`, the composite over the cycle's display-pair tables.
-        fused=False is `update_sky` + `render_view`. The two agree to
-        float reassociation (the pair lerps after one row fetch), with the
-        rings bitwise equal. When `can_run` is false it only composites."""
+        fused (default: on when amortized without a mesh) serves the tick
+        through `_render_frame_fused`: the same scheduling as `update_sky`,
+        the composite over the cycle's display-pair tables. fused=False, and
+        any tick of a mesh engine, is `update_sky` + `render_view`. The two
+        agree to float reassociation (the pair lerps after one row fetch),
+        with the rings bitwise equal. When `can_run` is false it only
+        composites."""
         if fused is None:
-            fused = amortized
+            fused = amortized and self.mesh is None
         if not amortized:
             self.update_cycle(now)
             return self.render_view(eyedirs, deband=deband)
-        if not fused or not self.can_run:
+        if not fused or self.mesh is not None or not self.can_run:
             self.update_sky(now)
             return self.render_view(eyedirs, deband=deband)
         self._begin_tick(now)

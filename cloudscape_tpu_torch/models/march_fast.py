@@ -75,6 +75,7 @@ from cloudscape_tpu_torch.ops.brick import (
 )
 from cloudscape_tpu_torch.ops.compact import compact
 from cloudscape_tpu_torch.ops.segscan import segscan
+from cloudscape_tpu_torch.parallel.sharding import axis_size, ppermute
 
 Volume = Union[BrickTable3D, TinyVolume3D]
 
@@ -758,18 +759,40 @@ def march_bricks(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
 # padded rows were sliced off there, so their results are the same without
 # them.
 
-def _dilate_max(m2):
+def _halo_rows(a, axis_name: str):
+    """±1-row halo of a grid whose rows are sharded over the mesh axis
+    `axis_name`: each shard receives its upper neighbour's last row and its
+    lower neighbour's first row through a cyclic `ppermute` ring, whose
+    wrap reproduces `torch.roll`'s, so a dilation of the halo'd block is
+    bitwise the unsharded dilation of the whole grid. Returns [rows + 2,
+    ...] (halo row 0 above, row -1 below)."""
+    n = axis_size(axis_name)
+    down = [(i, (i + 1) % n) for i in range(n)]
+    up = [(i, (i - 1) % n) for i in range(n)]
+    top = ppermute(a[-1:], axis_name, down)
+    bot = ppermute(a[:1], axis_name, up)
+    return torch.cat([top, a, bot], dim=0)
+
+
+def _dilate_max(m2, axis_name: str | None = None):
     """3×3 max dilation of a 2-D grid with wrap-around, separable (rows then
-    columns). The JAX package's sharded arm (a halo exchange of one row) is
-    not ported (ROADMAP A15)."""
-    d = torch.maximum(m2, torch.maximum(torch.roll(m2, 1, 0), torch.roll(m2, -1, 0)))
+    columns). axis_name: the grid's rows are sharded over that mesh axis,
+    and the row pass takes a `_halo_rows` halo instead of `torch.roll`
+    (bitwise equal)."""
+    if axis_name is None:
+        d = torch.maximum(m2, torch.maximum(torch.roll(m2, 1, 0),
+                                            torch.roll(m2, -1, 0)))
+    else:
+        e = _halo_rows(m2, axis_name)
+        d = torch.maximum(e[1:-1], torch.maximum(e[:-2], e[2:]))
     return torch.maximum(d, torch.maximum(torch.roll(d, 1, 1), torch.roll(d, -1, 1)))
 
 
 def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
                   steps: int, prepass_steps: int, chunk: int,
                   cull_shape: tuple | None, ray_stride: int = 1,
-                  cell_margin: float | None = None):
+                  cell_margin: float | None = None,
+                  axis_name: str | None = None):
     """Coarse prepass shared by the ray cull and the v3 cell gate.
 
     Returns (prio, occ_cells, meta):
@@ -786,7 +809,10 @@ def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
     Three arms: a 2-D grid with ray_stride > 1 dividing both sides scores
     every stride-th ray per axis and nearest-upsamples the dilated priority;
     a 2-D grid otherwise scores every ray; a flat ray list gets no dilation
-    across rays."""
+    across rays. axis_name (inside `shard_map` only): the grid's rows are
+    sharded over that mesh axis, and the dilations across rows exchange
+    one boundary row with the neighbouring shards (`_halo_rows`), so the
+    sharded priority and cell gate are bitwise the unsharded ones."""
     n = ndir.shape[0]
     dev = ndir.device
     i_pre = (torch.arange(prepass_steps, dtype=torch.float32, device=dev) + 1.0) \
@@ -826,7 +852,11 @@ def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
         if grid:
             gh, gw = (hs, ws) if sub else cull_shape
             o = occ.reshape(gh, gw, prepass_steps)
-            o = o | torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
+            if axis_name is None:
+                o = o | torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
+            else:
+                e = _halo_rows(o, axis_name)
+                o = e[1:-1] | e[:-2] | e[2:]
             o = o | torch.roll(o, 1, 1) | torch.roll(o, -1, 1)
             occ = o.reshape(n_p, prepass_steps)
             meta = (gh, gw, ray_stride if sub else 1)
@@ -839,14 +869,14 @@ def _cull_prepass(above, ndir, ss, p0, params: MarchParams, bp: BrickPack,
     prio = torch.where(above_p, prio, neg_inf)
     if sub:
         d2 = torch.maximum(prio.reshape(hs, ws),
-                           _dilate_max(prio.reshape(hs, ws)) - 0.1)
+                           _dilate_max(prio.reshape(hs, ws), axis_name) - 0.1)
         prio = d2.repeat_interleave(ray_stride, dim=0) \
             .repeat_interleave(ray_stride, dim=1).reshape(-1)
         return torch.where(above, prio, neg_inf), occ_cells, meta
     if grid:
         m2 = prio.reshape(cull_shape)
         prio = torch.where(above, torch.maximum(
-            prio, _dilate_max(m2).reshape(-1) - 0.1), neg_inf)
+            prio, _dilate_max(m2, axis_name).reshape(-1) - 0.1), neg_inf)
     return prio, occ_cells, meta
 
 
@@ -1094,7 +1124,8 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
                  ray_keep_frac: float | None = None,
                  prepass_steps: int = 32, cull_shape: tuple | None = None,
                  ray_stride: int = 1, cell_margin: float = 0.1,
-                 hot_keep_frac: float = 0.5, accum: str = "segmented"):
+                 hot_keep_frac: float = 0.5, accum: str = "segmented",
+                 axis_name: str | None = None):
     """Cell-gated march core (v3).
 
     1. `_cull_prepass` scores rays and marks live coarse cells (each covers
@@ -1126,7 +1157,7 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
 
     prio, occ_cells, meta = _cull_prepass(
         above, ndir, ss, p0, params, bp, steps, P, chunk, cull_shape,
-        ray_stride, cell_margin)
+        ray_stride, cell_margin, axis_name)
 
     n_kept, cap_c, cap_h = v3_capacities(n, steps, chunk, cell_keep_frac,
                                          ray_keep_frac, P, hot_keep_frac)
@@ -1267,12 +1298,20 @@ def march_bricks_v3(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
                     ray_keep_frac: float | None = None,
                     prepass_steps: int = 32, ray_stride: int = 1,
                     cell_margin: float = 0.1, hot_keep_frac: float = 0.5,
-                    accum: str = "segmented"):
+                    accum: str = "segmented", axis_name: str | None = None):
     """Cell-gated march (`_march_core3`) over world directions [..., 3] →
     [..., 4] (L rgb, alpha): the full-hemisphere re-render. Fine sample
     placement is the dense march's; a [H, W] direction grid enables the
     prepass dilations and ray_stride. Size the buckets with
-    `v3_auto_policy`. Builds a cone cache when none is given."""
+    `v3_auto_policy`. Builds a cone cache when none is given.
+
+    axis_name (inside `shard_map` only): dirs' rows are sharded over that
+    mesh axis, and the prepass dilations exchange one boundary row with
+    the neighbouring shards, so the cell gate is bitwise the unsharded
+    one. Capacities are sized per shard: keep the buckets overflow-free
+    for that equivalence. Unlike the JAX package, which keeps its Pallas
+    segmented scan off the sharded path, each shard runs the hot list
+    through kernel K3 on the card, as an unsharded march does."""
     dirs = dirs.to(torch.float32)
     shape = tuple(dirs.shape[:-1])
     flat = dirs.reshape(-1, 3)
@@ -1286,7 +1325,7 @@ def march_bricks_v3(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
                        min(chunk, max(n, 1)), cell_keep_frac, cone_cache,
                        ray_keep_frac, prepass_steps,
                        shape if len(shape) == 2 else None, ray_stride,
-                       cell_margin, hot_keep_frac, accum)
+                       cell_margin, hot_keep_frac, accum, axis_name)
     return out.reshape(shape + (4,))
 
 

@@ -30,6 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIB = None
+# The lock of the kernel wrappers' launch counts (`launches`). The kernels
+# are called through ctypes, which releases the interpreter lock, and a
+# mesh's shards call them from threads of their own (`parallel/sharding.py`),
+# so a bare `launches += 1` could lose a count.
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:

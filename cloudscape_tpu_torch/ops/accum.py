@@ -28,6 +28,14 @@ from cloudscape_tpu_torch.ops import _cuda
 launches = 0
 
 
+def _count_launch() -> None:
+    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
+    threads)."""
+    global launches
+    with _cuda.COUNT_LOCK:
+        launches += 1
+
+
 def accumulate_reference(A, cd3, hf, phase, above, scal):
     """Plain PyTorch version of the kernel (the correctness reference)."""
     scal = scal.reshape(-1)
@@ -88,7 +96,6 @@ def vector_loads(steps: int, *planes) -> bool:
 def accumulate(A, cd3, hf, phase, above, scal):
     """[n, steps] folded planes + per-ray phase/above + [12] scalars →
     [n, 4] (L rgb, alpha)."""
-    global launches
     if A.device.type == "cpu":
         return accumulate_reference(A, cd3, hf, phase, above, scal)
     if A.device.type != "cuda":
@@ -103,5 +110,5 @@ def accumulate(A, cd3, hf, phase, above, scal):
             lanes_per_ray(steps), int(vector_loads(steps, A, cd3, hf)),
             _cuda.stream_handle(A.device))
     _cuda.check(rc, "accumulate")
-    launches += 1
+    _count_launch()
     return out

@@ -21,6 +21,14 @@ from cloudscape_tpu_torch.ops import _cuda
 
 launches = 0
 
+
+def _count_launch() -> None:
+    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
+    threads)."""
+    global launches
+    with _cuda.COUNT_LOCK:
+        launches += 1
+
 # The launch of csrc/compact.cu: blocks of 256 threads, as many on one SM
 # as its launch bounds promise, the fewest 16-byte words a block takes
 # before another block is worth it, and the most shared memory a block
@@ -63,7 +71,6 @@ def compact_reference(mask, capacity: int, total: int, with_rank: bool = True):
 def compact(mask, capacity: int, total: int, with_rank: bool = True):
     """mask: flat bool/uint8 tensor → (idx [capacity], rank [n] or None),
     int32."""
-    global launches
     if mask.device.type == "cpu":
         return compact_reference(mask, capacity, total, with_rank)
     if mask.device.type != "cuda":
@@ -88,5 +95,5 @@ def compact(mask, capacity: int, total: int, with_rank: bool = True):
             idx.data_ptr(), rank.data_ptr() if with_rank else None,
             counts.data_ptr(), blocks, _cuda.stream_handle(dev))
     _cuda.check(rc, "compact")
-    launches += 1
+    _count_launch()
     return idx, rank

@@ -22,6 +22,13 @@ from cloudscape_tpu_torch.ops import noise
 launches = {"base": 0, "detail": 0, "weather": 0}
 
 
+def _count_launch(name: str) -> None:
+    """Add one to `launches[name]`, under `_cuda.COUNT_LOCK` (shards launch
+    from threads)."""
+    with _cuda.COUNT_LOCK:
+        launches[name] += 1
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
@@ -39,7 +46,7 @@ def _launch(name: str, entry: str, shape, size: int, seed: int, dev):
         rc = getattr(_cuda.lib(), entry)(out.data_ptr(), size, seed & 0xFFFFFFFF,
                                          _cuda.stream_handle(dev))
     _cuda.check(rc, entry)
-    launches[name] += 1
+    _count_launch(name)
     return out
 
 

@@ -21,6 +21,14 @@ from cloudscape_tpu_torch.ops import _cuda
 
 launches = 0
 
+
+def _count_launch() -> None:
+    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
+    threads)."""
+    global launches
+    with _cuda.COUNT_LOCK:
+        launches += 1
+
 # The launch of csrc/segscan.cu: blocks of 256 threads, as many on one SM
 # as its launch bounds promise, each scanning rounds of BLOCK_ROUND
 # elements (8 warps × 32 lanes × 4), and the most shared memory a block
@@ -78,7 +86,6 @@ def _check(values, heads) -> None:
 def segscan(values, heads):
     """values: f32 [n] or [k, n] (1 ≤ k ≤ 4); heads: bool/uint8 [n] → the
     segmented inclusive prefix sum of each row, f32 of values' shape."""
-    global launches
     _check(values, heads)
     if values.device.type == "cpu":
         return segscan_reference(values, heads)
@@ -101,5 +108,5 @@ def segscan(values, heads):
             values.data_ptr(), heads.data_ptr(), rows, n, rounds, blocks, stash,
             out.data_ptr(), scratch.data_ptr(), scratch_len, _cuda.stream_handle(dev))
     _cuda.check(rc, "segscan")
-    launches += 1
+    _count_launch()
     return out

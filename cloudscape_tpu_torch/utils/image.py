@@ -1,4 +1,6 @@
-"""Image metrics and PNG output (numpy only), as in `cloudscape_tpu.utils.image`."""
+"""Image metrics, the display chain and PNG output (numpy only), as in
+`cloudscape_tpu.utils.image`; a tensor on the card is brought to the host
+(`.cpu()`) first."""
 
 from __future__ import annotations
 
@@ -25,6 +27,36 @@ def tonemap_aces(x, white: float = 3.53):
     def f(v):
         return (v * (a * v + b)) / (v * (c * v + d) + e)
     return np.clip(f(x) / f(white), 0.0, 1.0)
+
+
+def downsample2x(img: np.ndarray) -> np.ndarray:
+    """2×2 box downsample of an [H, W, C] frame — the SSAA pattern for this
+    engine (a pure ray renderer has no geometry edges for MSAA; the demo
+    scene's `project.godot` MSAA maps to: render the view grid at 2× and
+    box-filter down). An odd last row or column is dropped."""
+    img = np.asarray(img)
+    h, w = img.shape[0] & ~1, img.shape[1] & ~1
+    img = img[:h, :w]
+    return 0.25 * (img[0::2, 0::2] + img[1::2, 0::2]
+                   + img[0::2, 1::2] + img[1::2, 1::2])
+
+
+def srgb_encode(x):
+    """Linear → sRGB OETF (Godot converts to sRGB after tonemapping when
+    rendering to an 8-bit swapchain; previews must do the same or they come
+    out ~2.2-gamma too dark)."""
+    x = np.clip(np.asarray(x, dtype=np.float64), 0.0, 1.0)
+    return np.where(x <= 0.0031308, 12.92 * x,
+                    1.055 * np.power(x, 1.0 / 2.4) - 0.055)
+
+
+def display_encode(img, white: float = 3.53):
+    """The reference demo's display chain for an HDR linear frame: ACES
+    tonemap (tonemap_mode=3, tonemap_white=3.53,
+    `cloud_sky/cloud-demo.tscn:9-10`; Narkowicz fit as the ACES
+    approximation) followed by the sRGB OETF. No per-scene exposure — the
+    scene's Environment has none."""
+    return srgb_encode(tonemap_aces(img, white=white))
 
 
 def write_png(path: str, img: np.ndarray) -> None:

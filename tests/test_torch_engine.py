@@ -367,12 +367,16 @@ def test_unstaged_engine_matches_jax(packs, kernel):
 
 
 def test_unported_modes_raise():
-    """A multi-device mesh is the one engine option still to be ported
-    (ROADMAP A15); kernel="hier" is served since A13
-    (tests/test_torch_hier.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CloudSkyEngine(perf=PerfConfig(32, 16, march_steps=4, light_steps=2),
-                       cone_res=(4, 16, 16), device="cpu", mesh=object())
+    """Every engine option of the JAX package is ported: the mesh since A15
+    (tests/test_torch_sharding.py), kernel="hier" since A13
+    (tests/test_torch_hier.py). What is neither raises: a mesh that is not
+    a `parallel.sharding.Mesh` (TypeError) and an unknown kernel mode
+    (ValueError)."""
+    perf = PerfConfig(32, 16, march_steps=4, light_steps=2)
+    with pytest.raises(TypeError, match="make_mesh"):
+        CloudSkyEngine(perf=perf, cone_res=(4, 16, 16), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="unknown kernel"):
+        CloudSkyEngine(perf=perf, cone_res=(4, 16, 16), device="cpu", kernel="fast4")
 
 
 def test_device_is_required():
