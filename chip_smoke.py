@@ -65,6 +65,19 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    `quality_db_vs_exact_high_coverage` at 0.7), the dense march against it
    at ≥ EXACT_DENSE_DB, and its compaction (67,108,864 samples →
    13,434,880 slots) held bitwise against K2's plain version;
+   8b. the baked density field (`models/field.py`, `run_field`) on the
+   headline scene at coverage 0.35: `build_density_field` at (32, 768,
+   768), cone (16, 192, 192), chunk 65536 (its ms; the table finite);
+   `march_baked` at its defaults (median of 3), finite and inside the
+   documented band, 15 < dB < 40, against phase 8's referee output (the
+   negative result of tests/test_field.py); the sweep (16, 256²), (24,
+   384²), (32, 512²), (32, 768²), (32, 1536²) reported (build ms, dB); its
+   two K2 calls
+   (524,288 → 524,288 rays, 67,108,864 → 33,554,432 samples) recorded and
+   held bitwise against the plain version, and two launches counted;
+   `occupied_ray_fraction` in (0, 1], and exactly 0 on an empty scene with
+   margin 0; tests/test_torch_field.py's scene on the card and on the CPU
+   ≥ 60 dB apart with bitwise-equal ray indices;
 9. bench/sweep.py config 4, fully procedural: `procedural_noise_pack(0)`
    generated by K4–K6 (its ms), 512×256 hemisphere rays × 64 steps, sun
    (0.3, 0.4, −0.85), coverage 0.35, cone (32, 512, 512); the v2 render
@@ -166,9 +179,10 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    phase-7 re-render and of one phase-11b v3 tile, recorded as they ran
    (and held bitwise against the plain version there), and at the
    compactions of phase 8's referee (coverage 0.35) and phase 11c's
-   whole map and tile, and of one band of each config-5 row (phase 9b),
-   which serve the referee, the unstaged fast kernel and config 5, not the
-   default engine, and so enter no pass;
+   whole map and tile, of one band of each config-5 row (phase 9b) and of
+   `march_baked` (phase 8b), which serve the referee, the unstaged fast
+   kernel, config 5 and the baked field, not the default engine, and so
+   enter no pass;
    K3 1-D and [3, n] (one launch each) at the engine's and the headline's
    hot-list capacities and on the v3 tile's and config 5's recorded
    inputs;
@@ -1016,9 +1030,151 @@ def run_headline(dev):
                          ms=statistics.median(ms), all_ms=ms, db=db,
                          db_exact=db_exact, exact_dense_db=exact_dense_db,
                          exact_ms=exact_ms, exact_compactions=compactions,
+                         exact=exact if cov == 0.35 else None,
                          active=int(mask.sum()),
                          cloud_frac=float((out[..., 3] > 0.1).float().mean())))
     return rows
+
+
+# The baked density field (`models/field.py`): JAX's defaults, the
+# documented band of `march_baked` against the referee (tests/test_field.py),
+# and the resolution sweep of docs/PERF_NOTES.md's round-2 negatives plus
+# the default grid and one of 4x its cells (does the ceiling of the band
+# move on the card's 80 GB?), each at the default cone grid.
+FIELD_RES = (32, 768, 768)
+FIELD_CONE_RES = (16, 192, 192)
+FIELD_BAND_DB = (15.0, 40.0)
+FIELD_SWEEP = ((16, 256, 256), (24, 384, 384), (32, 512, 512), FIELD_RES,
+               (32, 1536, 1536))
+# Card against CPU on tests/test_torch_field.py's scene.
+FIELD_TINY_DB = 60.0
+
+
+def timed_call(fn):
+    """(fn()'s result, its ms by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_field(dev, exact):
+    """Phase 8b: the baked density field on the headline scene (coverage
+    0.35): `build_density_field` at JAX's defaults (timed; the first call
+    warms the allocator), `march_baked` at its defaults (median of 3
+    after the first call), inside FIELD_BAND_DB of phase 8's referee output
+    `exact`; the resolution sweep (build ms and dB each, reported); the
+    two K2 calls of one `march_baked` recorded and held bitwise against the
+    plain version; `occupied_ray_fraction` in (0, 1], and exactly 0 on an
+    empty scene with margin 0; and tests/test_torch_field.py's scene on the
+    card and on the CPU, ≥ FIELD_TINY_DB apart with bitwise-equal ray
+    indices."""
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+    from cloudscape_tpu_torch.models.density import MarchParams
+    from cloudscape_tpu_torch.models.field import (
+        build_density_field, march_baked, occupied_ray_fraction)
+    from cloudscape_tpu_torch.models.march_fast import BrickPack
+    from cloudscape_tpu_torch.models.packs import make_noise_pack, procedural_noise_pack
+    from cloudscape_tpu_torch.ops import compact, noise_kernel
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    bricks = BrickPack.from_noise(procedural_noise_pack(0, device=dev))
+    sun = np.array([0.3, 0.4, -0.85])
+    sun /= np.linalg.norm(sun)
+    sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
+                             torch.tensor(sun, dtype=torch.float32, device=dev))
+    dirs = torch.from_numpy(hemisphere_dirs(WIDTH, HEIGHT)).to(dev)
+    scene = dict(cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+                 weather_pos=np.array([0.01, 0.02]), time=12.5,
+                 light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]))
+    params = MarchParams.create(cloud_coverage=0.35, device=dev, **scene)
+    exact_np = exact.cpu().numpy()
+
+    def build(res=FIELD_RES):
+        return build_density_field(params, bricks, res=res,
+                                   cone_res=FIELD_CONE_RES, chunk=65536)
+
+    field = build()
+    field, build_ms = timed_call(build)
+    table = field.table.table
+    require(bool(torch.isfinite(table).all()), "the baked field is not finite")
+
+    def render(f=field):
+        return march_baked(dirs, params, bricks, f, sky, steps=STEPS)
+
+    out = render()
+    ms = events_ms(render, 3)
+    require(bool(torch.isfinite(out).all()), "march_baked is not finite")
+    db = psnr(out.cpu().numpy(), exact_np)
+    lo, hi = FIELD_BAND_DB
+    require(lo < db < hi, f"march_baked vs the referee {db:.2f} dB outside ({lo}, {hi})")
+    _, compactions, _ = record_kernels(render)
+    require(len(compactions) == 2, f"march_baked made {len(compactions)} K2 calls")
+    check_recorded("march_baked", compactions)
+    _, counts = counted(render)
+    require(counts["compact"] == 2, f"march_baked launched K2 {counts['compact']} times")
+
+    sweep = []
+    for res in FIELD_SWEEP:
+        f, b_ms = (field, build_ms) if res == FIELD_RES else timed_call(
+            lambda: build(res))
+        o, r_ms = (out, statistics.median(ms)) if res == FIELD_RES else \
+            timed_call(lambda: render(f))
+        sweep.append(dict(res=res, build_ms=b_ms, ms=r_ms,
+                          db=psnr(o.cpu().numpy(), exact_np),
+                          table_mb=f.table.table.numel() * 4 / 1e6))
+        del f, o
+
+    occ = float(occupied_ray_fraction(dirs, params, field))
+    require(0.0 < occ <= 1.0, f"occupied_ray_fraction {occ} not in (0, 1]")
+    empty = MarchParams.create(cloud_coverage=0.0, light_direction=sun, device=dev)
+    field0 = build_density_field(empty, bricks, res=(8, 64, 64),
+                                 cone_res=(8, 32, 32), chunk=4096)
+    occ0 = float(occupied_ray_fraction(dirs, empty, field0, occupancy_margin=0.0))
+    require(occ0 == 0.0, f"occupied_ray_fraction of an empty scene {occ0} != 0")
+    del field, field0
+
+    # tests/test_torch_field.py's scene: generators at 16/16/64, seeds 1/2/3.
+    tiny = make_noise_pack(noise_kernel.generate_base_noise(16, 1, device=dev),
+                           noise_kernel.generate_detail_noise(16, 2, device=dev),
+                           noise_kernel.generate_weather(64, 3, device=dev))
+    renders, ray_idx = [], []
+    for d in (dev, torch.device("cpu")):
+        pack = type(tiny)(large=tuple(v.to(d) for v in tiny.large),
+                          small=tuple(v.to(d) for v in tiny.small),
+                          weather=tiny.weather.to(d))
+        tb = BrickPack.from_noise(pack)
+        tp = MarchParams.create(cloud_coverage=0.6, light_color=(1.0, 0.98, 0.95),
+                                device=d, **scene)
+        ts = atmosphere.sky_lut(atmosphere.transmittance_lut(device=d),
+                                torch.tensor(sun, dtype=torch.float32, device=d))
+        tf = build_density_field(tp, tb, res=(8, 48, 48), cone_res=(4, 24, 24),
+                                 chunk=4096)
+        o, comps, _ = record_kernels(lambda: march_baked(
+            texel_directions(32, device=d), tp, tb, tf, ts, steps=16, chunk=1024))
+        renders.append(o.cpu().numpy())
+        # The ray compaction's indices, by K2 on the card and by its plain
+        # version on the CPU.
+        mask, cap, _ = comps[0]
+        ray_idx.append(compact.compact(mask, cap, mask.shape[0], with_rank=False)[0])
+    tiny_db = psnr(renders[0], renders[1])
+    require(tiny_db >= FIELD_TINY_DB,
+            f"march_baked card vs CPU {tiny_db:.2f} dB < {FIELD_TINY_DB}")
+    require(torch.equal(ray_idx[0].cpu(), ray_idx[1]),
+            "march_baked's ray indices differ between the card and the CPU")
+    return dict(build_ms=build_ms, ms=statistics.median(ms), all_ms=ms, db=db,
+                compactions=compactions, occ=occ, sweep=sweep, tiny_db=tiny_db,
+                active=int(compactions[1][0].sum()),
+                cloud_frac=float((out[..., 3] > 0.1).float().mean()),
+                tiny_frac=float((renders[1][..., 3] > 0.1).mean()))
 
 
 def run_config4(dev):
@@ -2475,6 +2631,26 @@ def main() -> int:
     k3_launches = segscan.launches
     stamp("8")
 
+    fld = run_field(dev, headline[0].pop("exact"))
+    (_, ray_cap, _), (_, e_cap, _) = fld["compactions"]
+    print(f"baked field {FIELD_RES}, cone {FIELD_CONE_RES}, headline coverage 0.35: "
+          f"build_density_field {fld['build_ms']:.2f} ms (CUDA events, second call); "
+          f"march_baked {WIDTH}x{HEIGHT}x{STEPS} median {fld['ms']:.2f} ms "
+          f"({' '.join(f'{t:.2f}' for t in fld['all_ms'])}), {fld['db']:.2f} dB vs the "
+          f"referee (band {FIELD_BAND_DB}); K2 x2 ({WIDTH * HEIGHT}->{ray_cap}, "
+          f"{fld['compactions'][1][0].numel()}->{e_cap}; {fld['active']} occupied "
+          f"samples), bitwise its plain version; occupied_ray_fraction "
+          f"{fld['occ']:.4f}, 0.0 on an empty scene; cloud fraction "
+          f"{fld['cloud_frac']:.4f} ({card})", flush=True)
+    for row in fld["sweep"]:
+        print(f"baked field sweep {row['res']}: build {row['build_ms']:.2f} ms, table "
+              f"{row['table_mb']:.1f} MB; march_baked {row['ms']:.2f} ms, "
+              f"{row['db']:.2f} dB vs the referee ({card})", flush=True)
+    print(f"march_baked on tests/test_torch_field.py's scene, card vs CPU: "
+          f"{fld['tiny_db']:.2f} dB (gate {FIELD_TINY_DB}), ray indices bitwise equal; "
+          f"cloud fraction {fld['tiny_frac']:.4f}", flush=True)
+    stamp("8b")
+
     api = run_api(dev, eng)
     del eng
     print(f"save_file -> load_file (phase-5 engine): rings bitwise, the next fused "
@@ -2708,6 +2884,9 @@ def main() -> int:
                             for m, cap, wr in comps]
         rows["segscan"] += [dict(time_segscan_on(sv, sh), serves=f"config 5 {name}")
                             for sv, sh in scans]
+    # march_baked's two calls (phase 8b), as they ran: off the serving pass.
+    rows["compact"] += [dict(time_compact(m, cap, wr), serves="march_baked")
+                        for m, cap, wr in fld["compactions"]]
     # Phase 5 without its engine's validation probe.
     p5_k1, p5_k2 = r["k1"] - probe["accumulate"], r["k2"] - probe["compact"]
     # Launches per pass by the shape they ran at: phase 5 and the tile-cull
@@ -2736,7 +2915,8 @@ def main() -> int:
         rows[f"noise_{kname}"] = [row]
     for kname, krows in rows.items():
         for row in krows:
-            print(f"{kname} {row['shape']}: {row['device_us']:.2f} us device "
+            serves = f" ({row['serves']})" if "serves" in row else ""
+            print(f"{kname} {row['shape']}{serves}: {row['device_us']:.2f} us device "
                   f"({row['kernels_per_call']} kernel(s), {row['kernel_sum_us']:.2f} us "
                   f"in kernels, {row['timing']}; {row['device_us_write_flush']:.2f} us "
                   f"after a write flush), bound {row['bound_us']:.2f} us by "

@@ -10,8 +10,10 @@ cell-gated march; the v2, exact brick, scan and hierarchical marches and
 the engine kernels that serve them; the engine's whole API (`can_run`,
 `set_performance`, save and restore to dicts and files, the radiance
 map); multi-device meshes (`parallel/sharding.py`: the engine's tile and
-whole-hemisphere renders sharded by rows, one thread per shard); and the
-tooling (`utils/profiling.py`, the `examples/` demo and screenshots).
+whole-hemisphere renders sharded by rows, one thread per shard); the
+tooling (`utils/profiling.py`, the `examples/` demo and screenshots); and
+the baked density field (`models/field.py`: `build_density_field`,
+`march_baked`, `occupied_ray_fraction`), a documented negative result.
 Six steps run as CUDA kernels on a CUDA device
 (`csrc/accum.cu`, `csrc/compact.cu`, `csrc/segscan.cu`, `csrc/noise.cu`);
 for CPU tensors the same wrappers run their plain PyTorch versions.

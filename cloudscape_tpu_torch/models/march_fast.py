@@ -629,6 +629,16 @@ def _march_chunk(dirs, params: MarchParams, bp: BrickPack, atmos,
     return torch.where(above[:, None], out, 0.0)
 
 
+def _flat_sample_xyz(geom, ip, steps: int):
+    """World positions of the samples at flat indices ip (ray·steps +
+    step) of a [rays, steps] lattice whose per-ray geometry sits in one
+    row of geom (p0 xyz, ndir xyz, ss), gathered once per sample: as
+    `_sample_xyz` places them, p0 + ndir·ss·(step + 1)."""
+    g = geom[torch.clamp(ip // steps, max=geom.shape[0] - 1)]
+    tt = g[:, 6] * ((ip % steps).to(torch.float32) + 1.0)
+    return tuple(g[:, a] + g[:, 3 + a] * tt for a in range(3))
+
+
 def _march_core(above, ndir, ss, p0, phase, ldir, params: MarchParams,
                 bp: BrickPack, atmos, steps: int, light_steps: int,
                 chunk: int, capacity_frac: float, t_cutoff: float,
@@ -670,14 +680,10 @@ def _march_core(above, ndir, ss, p0, phase, ldir, params: MarchParams,
     capacity += (-capacity) % chunk
     idx = _compact_mask(active.reshape(-1), capacity, total)
     idx = idx[:int(torch.count_nonzero(idx < total))].to(torch.int64)
-    # Per-ray geometry in one row (p0 xyz, ndir xyz, ss), gathered once per
-    # compacted sample; positions recomputed as phase 1 placed them.
     geom = torch.cat([p0, ndir, ss[:, None]], dim=1)
 
     def cone_piece(ip):
-        g = geom[torch.clamp(ip // steps, max=n - 1)]
-        tt = g[:, 6] * ((ip % steps).to(torch.float32) + 1.0)
-        ax, ay, az = (g[:, a] + g[:, 3 + a] * tt for a in range(3))
+        ax, ay, az = _flat_sample_xyz(geom, ip, steps)
         if cone_cache is not None:
             qx, qz, qh = _cone_cache_coords_xyz(ax, ay, az, cone_cache.extent)
             return sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
@@ -1477,15 +1483,11 @@ def _hier_windows(flat, params: MarchParams, bp: BrickPack, steps: int,
     (zero-padded, no wrap), the window from the first to the last live
     cell. Returns (above, ndir, phase, ldir, start, shelldist, a, b,
     any_occ), a and b as fractions of the segment."""
-    dev = flat.device
     above, ndir, ss, _, phase, ldir = _ray_setup(flat, params, steps)
     shelldist = ss * steps
     # _ray_setup's p0 carries the jitter; the window starts at the entry.
-    cam = torch.tensor([0.0, GROUND_RADIUS, 0.0], dtype=torch.float32, device=dev)
-    start = cam + ndir * m.intersect_sphere_far(cam.expand(ndir.shape), ndir,
-                                                SKY_B_RADIUS)[..., None]
-    k_c = (torch.arange(coarse_steps, dtype=torch.float32, device=dev) + 0.5) \
-        / coarse_steps
+    start = _shell_entry(ndir)
+    k_c = _probe_fractions(coarse_steps, flat.device)
 
     def coarse_chunk(startc, ndirc, sdc):
         px, py, pz = _sample_xyz(startc, ndirc, sdc[:, None] * k_c[None, :])
@@ -1493,17 +1495,40 @@ def _hier_windows(flat, params: MarchParams, bp: BrickPack, steps: int,
         return _density_pre_xyz(px, py, pz, w, 2.0, params, bp)[0]
 
     pre_c = _map_rows(coarse_chunk, chunk, start, ndir, shelldist)
+    any_occ, a, b = _occupied_windows(pre_c, above, occupancy_margin)
+    return above, ndir, phase, ldir, start, shelldist, a, b, any_occ
+
+
+def _shell_entry(ndir):
+    """Each ray's entry point into the cloud shell from the camera."""
+    cam = torch.tensor([0.0, GROUND_RADIUS, 0.0], dtype=torch.float32,
+                       device=ndir.device)
+    return cam + ndir * m.intersect_sphere_far(cam.expand(ndir.shape), ndir,
+                                               SKY_B_RADIUS)[..., None]
+
+
+def _probe_fractions(coarse_steps: int, device):
+    """The coarse probes' centres as fractions of the shell segment."""
+    return (torch.arange(coarse_steps, dtype=torch.float32, device=device)
+            + 0.5) / coarse_steps
+
+
+def _occupied_windows(pre_c, above, occupancy_margin: float):
+    """(any_occ, a, b) of coarse probes pre_c [n, coarse_steps]: a probe is
+    live where `pre > -occupancy_margin`, dilated one probe along the ray
+    (zero-padded, no wrap); the window runs from the first to the last live
+    probe, at least one probe long."""
+    coarse_steps = pre_c.shape[1]
     occ = pre_c > -occupancy_margin
     pad = torch.zeros_like(occ[:, :1])
     occ = occ | torch.cat([pad, occ[:, :-1]], dim=1) | torch.cat([occ[:, 1:], pad], dim=1)
     any_occ = torch.any(occ, dim=1) & above
-    idx_c = torch.arange(coarse_steps, device=dev)[None, :]
+    idx_c = torch.arange(coarse_steps, device=pre_c.device)[None, :]
     first = torch.min(torch.where(occ, idx_c, coarse_steps + 1), dim=1).values
     last = torch.max(torch.where(occ, idx_c, -1), dim=1).values
     a = torch.clamp(first.to(torch.float32) / coarse_steps, 0.0, 1.0)
     b = torch.clamp((last.to(torch.float32) + 1.0) / coarse_steps, 0.0, 1.0)
-    b = torch.maximum(b, a + 1.0 / coarse_steps)
-    return above, ndir, phase, ldir, start, shelldist, a, b, any_occ
+    return any_occ, a, torch.maximum(b, a + 1.0 / coarse_steps)
 
 
 def _window_origin(start, ndir, shelldist, a, b, steps: int):
