@@ -65,6 +65,25 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    `quality_db_vs_exact_high_coverage` at 0.7), the dense march against it
    at ≥ EXACT_DENSE_DB, and its compaction (67,108,864 samples →
    13,434,880 slots) held bitwise against K2's plain version;
+   8c. the v3 march stage by stage (`run_v3_stages`, `stage_trace`):
+   phase 8's render at both coverages, called again with exactly its
+   arguments and `debug_stage` k = 1…9 and 0 (2 only with the ray cull):
+   per stage the launches of one call (the counts zeroed just before it),
+   a finite probe (stage 1's −inf where a ray is below the horizon), the
+   median of STAGE_REPS rounds of CUDA-event timings over all the stages
+   in turn, its device ms and launches by torch.profiler, and each one's
+   increment over the stage before; the stage-0 call bitwise phase 8's
+   render with phase 8's launches, its idle share 1 − device / event ms.
+   Phase 11b adds its first v3 tile, called as the
+   engine's v3 arm calls it (no ray cull), against that arm's call; after
+   phase 11b the three tables go out as one `v3_stages` JSON line;
+   8d. phase 8's v3 render at coverage 0.35 and its referee on a CROP²
+   window of the grid, every CROP_STEP-th texel (16,384 rays; the window
+   where the referee has the most cloud), against `oracle/reference.py`
+   in float64 on the host (ORACLE_WORKERS processes; the pack's level-0
+   volumes with the oracle's own pyramids and LUTs): both ≥ ORACLE_DB,
+   and v3 against the referee on those texels reported; the host
+   seconds of the phase;
    8b. the baked density field (`models/field.py`, `run_field`) on the
    headline scene at coverage 0.35: `build_density_field` at (32, 768,
    768), cone (16, 192, 192), chunk 65536 (its ms; the table finite);
@@ -205,7 +224,9 @@ call: zeroed just before the call, read just after); and
 `launches_mesh` by phase 11g's mesh path (zeroed at its start, every
 sharded call and the mesh engine read around the call, the single-card
 references left out) and `launches_mesh_ticks` by its 70 mesh ticks.
-`launches_per_pass` counts one pass: phase 5, phase 7's first
+Phase 8c counts each stage's call on its own (zeroed just before it),
+after phase 8's counts are read. `launches_per_pass` counts one pass:
+phase 5, phase 7's first
 render_full_hemisphere and phase 11b's timed window, without the one
 launch of K1–K3 of phase 5's validation probe (a tiny input, not a pass's
 shape). Every engine the script builds must pass its validation
@@ -969,7 +990,8 @@ def run_headline(dev):
     from cloudscape_tpu_torch.models.packs import procedural_noise_pack
     from cloudscape_tpu_torch.utils.image import psnr
 
-    bricks = BrickPack.from_noise(procedural_noise_pack(0, device=dev))
+    pack = procedural_noise_pack(0, device=dev)
+    bricks = BrickPack.from_noise(pack)
     sun = np.array([0.3, 0.4, -0.85])
     sun /= np.linalg.norm(sun)
     sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
@@ -997,7 +1019,12 @@ def run_headline(dev):
                                    hot_keep_frac=hk, cone_cache=cone,
                                    ray_keep_frac=rk, ray_stride=2)
 
+        # The first call's launches, by difference (the K3 count of phases
+        # 7-8 runs on): phase 8c holds its stage-0 call to them.
+        before = read_counts()
         out = render()
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in read_counts().items()}
         ms = events_ms(render, 5 if cov == 0.35 else 1)
         require(bool(torch.isfinite(out).all()), f"headline v3 not finite (cov {cov})")
         dense = march_tile_dense(dirs, params, bricks, sky, steps=STEPS,
@@ -1032,8 +1059,199 @@ def run_headline(dev):
                          exact_ms=exact_ms, exact_compactions=compactions,
                          exact=exact if cov == 0.35 else None,
                          active=int(mask.sum()),
-                         cloud_frac=float((out[..., 3] > 0.1).float().mean())))
+                         cloud_frac=float((out[..., 3] > 0.1).float().mean()),
+                         # For phases 8c and 8d: the render, its inputs and
+                         # its launches.
+                         out=out, params=params, cone=cone, launches=launches,
+                         scene=dict(pack=pack, bricks=bricks, sky=sky, dirs=dirs,
+                                    sun=sun)))
     return rows
+
+
+# Phase 8c: the v3 march's stages in the order they run; debug_stage 0 is
+# the whole call. Each is timed in STAGE_REPS rounds (the median).
+V3_STAGES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 0)
+STAGE_REPS = 5
+# What each debug_stage adds to the one before it (`_march_core3`).
+STAGE_NAMES = {
+    1: "ray setup + cull prepass", 2: "top-ray select",
+    3: "live-cell compaction (K2) + lane positions", 4: "weather pass",
+    5: "pre pass (weather + pre, less the weather pass)",
+    6: "hot-cell compaction (K2) + hot positions", 7: "erosion pass",
+    8: "cone lookup (erosion + cone, less the erosion pass)",
+    9: "accumulation (K3 x2, segment ends K2)", 0: "scatter back to the rays",
+}
+
+
+def stage_trace(march, full, full_launches, cull: bool, all_above: bool) -> dict:
+    """Phase 8c on one scene: `march(k)` is the scene's v3 call with
+    debug_stage=k; stages V3_STAGES (2 only with the ray cull). Per stage:
+    the launches of one call (the counts zeroed just before it) and its
+    probe: finite, but for stage 1's where a ray is below the horizon (its
+    priority is −inf, in JAX too); the stage-0 call bitwise `full` (the
+    render the scene's phase made) with the launches it made. Then each
+    stage timed by CUDA events, STAGE_REPS rounds over all the stages in
+    turn (host jitter lands on every stage alike), the median; and its
+    device time and device launches a call from torch.profiler; each with
+    its increment over the stage before it. The idle share is the whole
+    call's: 1 − device ms / event ms."""
+    import torch
+
+    stages = [k for k in V3_STAGES if k != 2 or cull]
+    rows = []
+    for k in stages:
+        out, n = counted(lambda: march(k))
+        probe, rest = out.reshape(-1)[0], out.reshape(-1)[1:]
+        if k == 1 and not all_above:
+            require(bool(torch.isfinite(rest).all()) and float(probe) == -math.inf,
+                    f"v3 debug_stage 1 probe {float(probe)}, not -inf with rays "
+                    f"below the horizon")
+        else:
+            require(bool(torch.isfinite(out).all()), f"v3 debug_stage {k} is not finite")
+        if k == 0:
+            require(torch.equal(out, full), "debug_stage 0 differs from the render")
+            require(all(n[kn] == full_launches[kn] for kn in n),
+                    f"debug_stage 0 launched {n}, the render {full_launches}")
+        else:
+            require(not bool(rest.any()), f"debug_stage {k}: probe entries past [0, 0]")
+        rows.append(dict(stage=k, what=STAGE_NAMES[k], k1=n["accumulate"], k2=n["compact"],
+                         k3=n["segscan"], probe=float(probe) if k else None))
+    times = {k: [] for k in stages}
+    for _ in range(STAGE_REPS):
+        for k in stages:
+            times[k] += events_ms(lambda: march(k), 1)
+    prev_ms = prev_dev = 0.0
+    for r in rows:
+        k = r["stage"]
+        dev_ms, dev_launches = trace_calls(lambda: march(k), reps=2, pad=1)
+        r.update(ms=statistics.median(times[k]), all_ms=times[k], device_ms=dev_ms,
+                 device_launches=dev_launches)
+        r["increment_ms"], prev_ms = r["ms"] - prev_ms, r["ms"]
+        if dev_ms is not None:
+            r["device_increment_ms"], prev_dev = dev_ms - prev_dev, dev_ms
+    total, dev_total = rows[-1]["ms"], rows[-1]["device_ms"]
+    for r in rows:
+        r["share"] = r["increment_ms"] / total
+        if dev_total is not None:
+            r["device_share"] = r["device_increment_ms"] / dev_total
+    return dict(stages=rows, total_ms=total, device_ms=dev_total,
+                device_launches=rows[-1]["device_launches"],
+                idle_share=None if dev_total is None else 1.0 - dev_total / total)
+
+
+def print_stages(t: dict, card: str) -> None:
+    """Phase 8c's table of one scene."""
+    dev = ("not measured (no device activity in the trace)" if t["device_ms"] is None
+           else f"{t['device_ms']:.2f} ms on the device in {t['device_launches']:g} "
+                f"launches, idle share {t['idle_share']:.3f}")
+    print(f"v3 stages, {t['scene']}: policy {t['policy']}; the whole call "
+          f"{t['total_ms']:.2f} ms (CUDA events, median of {STAGE_REPS} rounds); "
+          f"torch.profiler: {dev} ({card})", flush=True)
+    for r in t["stages"]:
+        dev = "" if r["device_ms"] is None else (
+            f"; device {r['device_ms']:.3f} ms, +{r['device_increment_ms']:.3f} ms "
+            f"({r['device_share']:.1%}) in {r['device_launches']:g} launches")
+        print(f"  debug_stage {r['stage']} ({r['what']}): {r['ms']:.3f} ms, "
+              f"+{r['increment_ms']:.3f} ms ({r['share']:.1%}){dev}; launches up to "
+              f"it: K1 x{r['k1']}, K2 x{r['k2']}, K3 x{r['k3']}", flush=True)
+
+
+def run_v3_stages(headline) -> list:
+    """Phase 8c: the headline v3 render of phase 8 at both coverages, stage
+    by stage (`stage_trace`), with exactly phase 8's arguments."""
+    from cloudscape_tpu_torch.models.march_fast import march_bricks_v3
+
+    out = []
+    for h in headline:
+        sc, (rk, ck, hk) = h["scene"], h["policy"]
+
+        def march(k, h=h, sc=sc, rk=rk, ck=ck, hk=hk):
+            return march_bricks_v3(sc["dirs"], h["params"], sc["bricks"], sc["sky"],
+                                   steps=STEPS, chunk=32768, cell_keep_frac=ck,
+                                   hot_keep_frac=hk, cone_cache=h["cone"],
+                                   ray_keep_frac=rk, ray_stride=2, debug_stage=k)
+
+        t = stage_trace(march, h["out"], h["launches"], rk is not None and rk < 1.0,
+                        bool((sc["dirs"][..., 1] > 0.0).all()))
+        out.append(dict(t, scene=f"headline {WIDTH}x{HEIGHT}x{STEPS} coverage {h['cov']}",
+                        policy=h["policy"], caps=h["caps"]))
+    return out
+
+
+# Phase 8d: a crop of the headline grid against the f64 oracle. CROP texels
+# square, every CROP_STEP-th in each axis (128 x 128 = 16,384 rays); of the
+# windows on a CROP/2 lattice, the one where phase 8's referee has the most
+# cloud (alpha > 0.1). The oracle runs on the host in ORACLE_WORKERS
+# processes (it measured 2.93 s per 1,024 rays x 128 steps on one core of a
+# CPU host, ~47 s for the crop on one).
+CROP, CROP_STEP = 256, 2
+ORACLE_DB = 40.0
+ORACLE_WORKERS = 8
+
+
+def _oracle_init(large, small, weather, sky, params):
+    """Worker initializer of phase 8d: the oracle's inputs, once a worker."""
+    global _ORACLE_INPUTS
+    _ORACLE_INPUTS = (large, small, weather, sky, params)
+
+
+def _oracle_rays(dirs):
+    """One worker's slice of phase 8d's rays through `cloud_march_ref`."""
+    from oracle import reference as ref
+
+    large, small, weather, sky, params = _ORACLE_INPUTS
+    return ref.cloud_march_ref(dirs, params, large, small, weather, sky, steps=STEPS)
+
+
+def run_oracle_crop(h) -> dict:
+    """Phase 8d: phase 8's v3 render at coverage 0.35 and its referee (the
+    exact march) on the crop against `oracle/reference.py` in float64 on the
+    host: the pack's level-0 volumes as f64 with the oracle's own pyramids,
+    its own transmittance and sky LUTs, the render's params. v3 and the
+    exact march must each be ≥ ORACLE_DB from the oracle; v3 against the
+    exact march on the same texels is reported beside them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from cloudscape_tpu_torch.utils.image import psnr
+    from oracle import reference as ref
+
+    t0 = time.perf_counter()
+    sc = h["scene"]
+    exact = h["exact"].cpu().numpy()
+    alpha = exact[..., 3] > 0.1
+    windows = [(r, c) for r in range(0, HEIGHT - CROP + 1, CROP // 2)
+               for c in range(0, WIDTH - CROP + 1, CROP // 2)]
+    r0, c0 = max(windows, key=lambda w: alpha[w[0]:w[0] + CROP, w[1]:w[1] + CROP].sum())
+    crop = (slice(r0, r0 + CROP, CROP_STEP), slice(c0, c0 + CROP, CROP_STEP))
+    dirs = sc["dirs"].cpu().numpy()[crop].astype(np.float64)
+    params = {k: getattr(h["params"], k).cpu().numpy().astype(np.float64)
+              for k in ("cloud_pos", "detailed_pos", "weather_pos", "time", "density",
+                        "cloud_coverage", "light_direction", "light_energy",
+                        "light_color", "ground_color")}
+    pack = sc["pack"]
+    large = ref.build_pyramid3d_np(pack.large[0].cpu().numpy().astype(np.float64))
+    small = ref.build_pyramid3d_np(pack.small[0].cpu().numpy().astype(np.float64))
+    weather = pack.weather.cpu().numpy().astype(np.float64)
+    sky = ref.sky_lut_ref(ref.transmittance_lut_ref(), sc["sun"])
+    flat = dirs.reshape(-1, 3)
+    parts = np.array_split(flat, ORACLE_WORKERS * 4)
+    t1 = time.perf_counter()
+    with ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_oracle_init,
+                             initargs=(large, small, weather, sky, params)) as pool:
+        want = np.concatenate(list(pool.map(_oracle_rays, parts))).reshape(dirs.shape[:-1] + (4,))
+    march_s = time.perf_counter() - t1
+    v3 = h["out"].cpu().numpy()[crop]
+    ex = exact[crop]
+    require(np.isfinite(want).all(), "the oracle's crop is not finite")
+    db_v3, db_exact, db_v3_exact = psnr(v3, want), psnr(ex, want), psnr(v3, ex)
+    require(db_v3 >= ORACLE_DB, f"headline v3 vs the f64 oracle {db_v3:.2f} dB < {ORACLE_DB}")
+    require(db_exact >= ORACLE_DB,
+            f"the headline referee vs the f64 oracle {db_exact:.2f} dB < {ORACLE_DB}")
+    return dict(window=(r0, c0), rays=flat.shape[0], db_v3=db_v3, db_exact=db_exact,
+                db_v3_exact=db_v3_exact, cloud_frac=float((want[..., 3] > 0.1).mean()),
+                host_s=time.perf_counter() - t0, oracle_s=march_s)
 
 
 # The baked density field (`models/field.py`): JAX's defaults, the
@@ -1653,8 +1871,8 @@ def run_tile_cull(dev):
     import torch
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
-    from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile
-    from cloudscape_tpu_torch.models.march_fast import march_tile_dense
+    from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile, _prepass_steps
+    from cloudscape_tpu_torch.models.march_fast import march_bricks_v3, march_tile_dense
     from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
     from cloudscape_tpu_torch.ops.octmap import texel_directions
     from cloudscape_tpu_torch.utils.image import psnr
@@ -1769,6 +1987,34 @@ def run_tile_cull(dev):
             f"tile {k} (bucket {b}) marched again differs from the tick's")
         culled[y0:y0 + region, x0:x0 + region] = tile
     k3_err = check_recorded("a phase-11b v3 tile", compactions, scans)
+
+    # Phase 8c's serving tile: the first v3 tile of the cycle stage by stage,
+    # called with the arguments the engine's v3 arm passes (`_march_tile`,
+    # kernel "fast3" with a bucket: no ray cull, so no stage 2), against
+    # that arm's own call and its launches.
+    k0 = v3_tiles[0]
+    b0, ty, tx = eng._tile_buckets[k0], (k0 // tpr) * region, (k0 % tpr) * region
+    tile_dirs = texel_directions(size, x0=tx, y0=ty, width=region, height=region,
+                                 device=dev)
+    steps = eng.perf.march_steps
+    arm_tile, arm_launches = counted(lambda: _march_tile(
+        tile_dirs, eng._march_params, eng._noise_arg, sky, region=region, steps=steps,
+        light_steps=eng.perf.light_steps, kernel="fast3", ray_keep_frac=b0))
+    require(torch.equal(arm_tile, culled[ty:ty + region, tx:tx + region]),
+            "the v3 tile marched again differs")
+
+    def tile_march(k):
+        return march_bricks_v3(
+            tile_dirs, eng._march_params, eng._bricks, sky, steps=steps,
+            light_steps=eng.perf.light_steps, chunk=min(region * region, 16384),
+            cell_keep_frac=float(b0), hot_keep_frac=0.5, cone_cache=eng._cone_cache,
+            ray_keep_frac=None, prepass_steps=_prepass_steps(steps), ray_stride=2,
+            cell_margin=0.1, debug_stage=k)
+
+    tile_stages = dict(stage_trace(tile_march, arm_tile, arm_launches, False,
+                                   bool((tile_dirs[..., 1] > 0.0).all())),
+                       scene=f"serving-point v3 tile {k0} ({region}x{region}x{steps}, "
+                             f"bucket {b0})", policy=(None, b0, 0.5))
     dense = march_tile_dense(
         texel_directions(size, device=dev), eng._march_params, eng._bricks, sky,
         steps=eng.perf.march_steps, light_steps=eng.perf.light_steps, chunk=16384,
@@ -1789,7 +2035,7 @@ def run_tile_cull(dev):
         k1=k1, k2=k2, k3=k3, phase=phase, v3_tiles=len(arms["v3"]),
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
-        frame_mean=float(frame.mean()))
+        frame_mean=float(frame.mean()), tile_stages=tile_stages)
 
 
 # bench/sweep.py's config 5 (`bench/sweep.py:183-259`): hemisphere rays,
@@ -2631,6 +2877,24 @@ def main() -> int:
     k3_launches = segscan.launches
     stamp("8")
 
+    v3_stages = run_v3_stages(headline)
+    for t in v3_stages:
+        print_stages(t, card)
+    stamp("8c")
+    oc = run_oracle_crop(headline[0])
+    print(f"headline coverage 0.35 vs the f64 oracle on a {CROP}x{CROP} crop (rows "
+          f"{oc['window'][0]}.., columns {oc['window'][1]}.., every {CROP_STEP}nd texel: "
+          f"{oc['rays']} rays x {STEPS} steps; cloud fraction {oc['cloud_frac']:.4f}): "
+          f"v3 {oc['db_v3']:.2f} dB, the exact march (phase 8's referee) "
+          f"{oc['db_exact']:.2f} dB (gates {ORACLE_DB}); v3 vs the exact march there "
+          f"{oc['db_v3_exact']:.2f} dB; the phase took {oc['host_s']:.1f} s on the host, "
+          f"the oracle's march {oc['oracle_s']:.1f} s in {ORACLE_WORKERS} processes "
+          f"({card})", flush=True)
+    for h in headline:  # phases 8c-8d's inputs
+        for key in ("out", "params", "cone", "scene", "launches"):
+            h.pop(key)
+    stamp("8d")
+
     fld = run_field(dev, headline[0].pop("exact"))
     (_, ray_cap, _), (_, e_cap, _) = fld["compactions"]
     print(f"baked field {FIELD_RES}, cone {FIELD_CONE_RES}, headline coverage 0.35: "
@@ -2748,6 +3012,9 @@ def main() -> int:
           flush=True)
     print("tile-cull tick ms: " + " ".join(f"{t:.1f}" for t in ev), flush=True)
     del ceng
+    print_stages(c["tile_stages"], card)
+    v3_stages.append(c["tile_stages"])
+    print(json.dumps({"v3_stages": v3_stages, "card": card}), flush=True)
     stamp("11b")
 
     fe = run_fast_engine(dev)

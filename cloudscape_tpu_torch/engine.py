@@ -659,9 +659,11 @@ class CloudSkyEngine:
                                            device=self.device)
                 i0 = min(pend.occ_done * self._occ_slice,
                          max(n - self._occ_slice, 0))
-                # In place: writes occ[i0 : i0 + slice].
+                # In place: writes occ[i0 : i0 + slice], in one piece (each
+                # piece is a round of launches; the slice is sized to a tick).
                 cone_occupancy_slice(pend.occ, i0, params, self._bricks,
-                                     count=self._occ_slice, res=self.cone_res)
+                                     count=self._occ_slice, res=self.cone_res,
+                                     chunk=self._occ_slice)
                 pend.occ_done += 1
             elif pend.idx is None:
                 pend.idx = cone_occupancy_finalize(pend.occ, res=self.cone_res,
@@ -670,11 +672,12 @@ class CloudSkyEngine:
             elif pend.slices_done < self._n_cone_slices:
                 i0 = min(pend.slices_done * self._cone_slice,
                          max(self._cone_capacity - self._cone_slice, 0))
-                # In place: writes the slice's cells into pend.vol.
+                # In place: writes the slice's cells into pend.vol, in one
+                # piece.
                 bake_cone_cells(pend.vol, pend.idx, i0, params, self._bricks,
                                 count=self._cone_slice,
                                 light_steps=self.perf.light_steps,
-                                res=self.cone_res)
+                                res=self.cone_res, chunk=self._cone_slice)
                 pend.slices_done += 1
             elif pend.asm_done < self._n_asm:
                 if pend.table is None:

@@ -26,7 +26,7 @@ from cloudscape_tpu_torch.ops.sampling import sample2d
 # Megameter-unit geometry of the composite shader (`clouds.gdshader:72-75`).
 GROUND_RADIUS_MM = 6.360
 ATMOSPHERE_RADIUS_MM = 6.460
-_VIEW_POS_MM = (0.0, GROUND_RADIUS_MM + 0.0002, 0.0)
+VIEW_POS_MM = (0.0, GROUND_RADIUS_MM + 0.0002, 0.0)
 
 _PI = math.pi  # Godot's shader PI built-in (full precision)
 
@@ -105,7 +105,7 @@ def get_atmo(eyedir, sky_from, sky_to, tlut, blend_amount, sun_dir,
     col = sky_lut_blend(sky_from, sky_to, eyedir, blend_amount)
     sun_lum = m.smoothstep(0.002, 1.0, sun_with_bloom(eyedir, sun_dir,
                                                       sun_disk_scale))
-    view_pos = torch.tensor(_VIEW_POS_MM, dtype=torch.float32,
+    view_pos = torch.tensor(VIEW_POS_MM, dtype=torch.float32,
                             device=eyedir.device)
     hits_ground = m.ray_sphere_first(view_pos.expand(eyedir.shape), eyedir,
                                      GROUND_RADIUS_MM) >= 0.0

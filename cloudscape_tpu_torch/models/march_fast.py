@@ -39,8 +39,10 @@ The port of `cloudscape_tpu.models.march_fast`:
 Some of this surface exists for parity with the JAX API, and no engine
 kernel reaches it (the tests hold it against JAX): `BrickPack.from_noise`'s
 `dtype`, `march_bricks`' `approx_light`, `cone_cache_res` and dense
-`compact=False` arm, and the `[..., 3]` wrappers `_weather_rb`,
-`_density_pre`, `_density_bricks` and `_cone_density`.
+`compact=False` arm, the `[..., 3]` wrappers `_weather_rb`,
+`_density_pre`, `_density_bricks` and `_cone_density`, the sliced bake's
+`chunk`, and `march_bricks_v3`'s `debug_stage` probes, which time its
+stages one by one on the card (chip_smoke.py phase 8c).
 
 Every compaction goes through kernel K2 (`compact`).
 Sample positions use the closed form p_i = p0 + dir·ss·i; the
@@ -450,14 +452,18 @@ def build_cone_cache(params: MarchParams, bp: BrickPack,
 
 def cone_occupancy_slice(occ, i0: int, params: MarchParams, bp: BrickPack,
                          count: int, res=(16, 256, 256),
-                         extent: float = 220e3):
+                         extent: float = 220e3, chunk: int = 16384):
     """Stage 0 of the sliced cone bake: the `pre > 0` predicate for the flat
     cells [i0, i0 + count), written IN PLACE into the bool buffer `occ`
     ([nd*nh*nw]). All slices then `cone_occupancy_finalize` give the same
-    cells as `build_cone_cache`'s occupancy pass (elementwise per cell)."""
-    cells = i0 + torch.arange(count, device=occ.device)
-    cx, cy, cz = _cell_centers(cells, res, extent)
-    occ[i0:i0 + count] = _pre_positive(cx, cy, cz, params, bp)
+    cells as `build_cone_cache`'s occupancy pass (elementwise per cell).
+    The cells are evaluated in pieces of at most `chunk`, which bounds the
+    temporaries; the result does not depend on it."""
+    for c0 in range(i0, i0 + count, chunk):
+        k = min(chunk, i0 + count - c0)
+        cx, cy, cz = _cell_centers(c0 + torch.arange(k, device=occ.device),
+                                   res, extent)
+        occ[c0:c0 + k] = _pre_positive(cx, cy, cz, params, bp)
     return occ
 
 
@@ -472,12 +478,16 @@ def cone_occupancy_finalize(occ, res=(16, 256, 256), chunk: int = 16384,
 
 def bake_cone_cells(vol, idx, i0: int, params: MarchParams, bp: BrickPack,
                     count: int, light_steps: int = 6, res=(16, 256, 256),
-                    extent: float = 220e3):
+                    extent: float = 220e3, chunk: int = 16384):
     """Stage 2 of the sliced cone bake: cone-march the compacted cells
     `idx[i0 : i0 + count]` and write them IN PLACE into the flat volume
-    `vol` ([nd*nh*nw + 1]; the spare last slot absorbs fill entries)."""
-    sl = idx[i0:i0 + count]
-    vol[sl.to(torch.int64)] = _cone_cells(sl, params, bp, light_steps, res, extent)
+    `vol` ([nd*nh*nw + 1]; the spare last slot absorbs fill entries), in
+    pieces of at most `chunk` cells (the result does not depend on it)."""
+    end = min(i0 + count, idx.shape[0])
+    for c0 in range(i0, end, chunk):
+        sl = idx[c0:min(c0 + chunk, end)]
+        vol[sl.to(torch.int64)] = _cone_cells(sl, params, bp, light_steps, res,
+                                              extent)
     return vol
 
 
@@ -1130,8 +1140,8 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
                  ray_keep_frac: float | None = None,
                  prepass_steps: int = 32, cull_shape: tuple | None = None,
                  ray_stride: int = 1, cell_margin: float = 0.1,
-                 hot_keep_frac: float = 0.5, accum: str = "segmented",
-                 axis_name: str | None = None):
+                 hot_keep_frac: float = 0.5, debug_stage: int = 0,
+                 axis_name: str | None = None, accum: str = "segmented"):
     """Cell-gated march core (v3).
 
     1. `_cull_prepass` scores rays and marks live coarse cells (each covers
@@ -1150,9 +1160,21 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
        recomputed densely, phase 3 through K1.
 
     Overflow of either capacity drops the highest-index cells (size them
-    with `v3_auto_policy`). Fine sample placement is the dense march's. The
-    JAX package's `debug_stage` probes, which serve only its TPU timing
-    scripts, are left out."""
+    with `v3_auto_policy`). Fine sample placement is the dense march's.
+
+    debug_stage k in 1..9 returns after stage k a zero [n_out, 4] probe
+    whose [0, 0] is the sum of that stage's tensors (as float32), the JAX
+    package's probes; only stages 1..k run, so timing stage k against
+    stage k − 1 gives that stage's cost. 1: the prepass (prio, occ_cells);
+    2: the top-ray select (ridx, occ_cells; only with ray_keep_frac < 1,
+    else the full render); 3: the live-cell compaction and the lane
+    positions (sx, sy, sz); 4: the weather pass alone (w_r, w_b); 5: the
+    weather and pre pass (pre_s, hf_s); 6: the hot-cell compaction (pre_h,
+    hf_h, hx); 7: the erosion pass alone (t_h); 8: the erosion and cone
+    pass (t_h, cd_h); 9: the accumulation before the scatter back, its
+    [n, 4] output (segmented) or the t, cd and hf planes (planes). Other
+    values render. Stages 4 and 7 run a pass that the render fuses with
+    the next one; with debug_stage 0 the passes stay fused."""
     n = ndir.shape[0]
     n_out = n
     dev = ndir.device
@@ -1161,9 +1183,17 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         raise ValueError(f"prepass_steps {P} must divide steps {steps}")
     spc = steps // P
 
+    def _dbg(*xs):
+        probe = sum(torch.sum(x.to(torch.float32)) for x in xs)
+        out = torch.zeros((n_out, 4), dtype=torch.float32, device=dev)
+        out[0, 0] = probe
+        return out
+
     prio, occ_cells, meta = _cull_prepass(
         above, ndir, ss, p0, params, bp, steps, P, chunk, cull_shape,
         ray_stride, cell_margin, axis_name)
+    if debug_stage == 1:
+        return _dbg(prio, occ_cells)
 
     n_kept, cap_c, cap_h = v3_capacities(n, steps, chunk, cell_keep_frac,
                                          ray_keep_frac, P, hot_keep_frac)
@@ -1172,6 +1202,8 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         ray_cap = n_kept
         chunk = min(chunk, ray_cap)
         ridx = _select_top_rays(prio, ray_cap, n)
+        if debug_stage == 2:
+            return _dbg(ridx, occ_cells)
         valid_r = ridx < n
         safe_r = torch.clamp(ridx, max=n - 1).to(torch.int64)
         g_r = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)[safe_r]
@@ -1222,14 +1254,25 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
                 for axis in range(3)]
 
     sx, sy, sz = lane_positions(g, cell_k)
+    if debug_stage == 3:
+        return _dbg(sx, sy, sz)
     pass_len = chunk * P  # samples per pass chunk (a prepass chunk's count)
+
+    def weather_chunk(bx, bz):
+        w = _weather_rb_xy(bp, bx, bz, params.weather_pos)
+        return w[..., 0], w[..., 1]
+
+    if debug_stage == 4:
+        return _dbg(*_map_rows(weather_chunk, pass_len, sx, sz))
 
     def pre_chunk(bx, by_, bz):
         w = _weather_rb_xy(bp, bx, bz, params.weather_pos)
         return _density_pre_xyz(bx, by_, bz, w, 0.0, params, bp)
 
-    pre_s, _ = _map_rows(pre_chunk, pass_len, sx, sy, sz)
+    pre_s, hf_s = _map_rows(pre_chunk, pass_len, sx, sy, sz)
     pre_s = pre_s.reshape(spc, cap_c)
+    if debug_stage == 5:
+        return _dbg(pre_s, hf_s)
 
     # ---- Hot-cell compaction (K2): `pre > 0` is exact occupancy, so
     # erosion and the cone lookup run only on cells with an occupied sample.
@@ -1245,19 +1288,31 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
     pre_h = pre_s[:, hsafe].reshape(-1)
     hf_h = m.height_fraction(torch.sqrt(hx * hx + hy * hy + hz * hz),
                              SKY_B_RADIUS, SKY_T_RADIUS)
+    if debug_stage == 6:
+        return _dbg(pre_h, hf_h, hx)
+
+    def erosion_chunk(bpre, bhf, bx, by_, bz):
+        return torch.where(bpre > 0.0, _density_finish_xyz(
+            bpre, bhf, bx, by_, bz, 0.0, params, bp), 0.0)
+
+    if debug_stage == 7:
+        return _dbg(_map_rows(erosion_chunk, pass_len, pre_h, hf_h, hx, hy, hz))
 
     def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
-        t_c = torch.where(bpre > 0.0, _density_finish_xyz(
-            bpre, bhf, bx, by_, bz, 0.0, params, bp), 0.0)
+        t_c = erosion_chunk(bpre, bhf, bx, by_, bz)
         qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
         cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
 
     t_h, cd_h = _map_rows(erosion_cone_chunk, pass_len, pre_h, hf_h, hx, hy, hz)
+    if debug_stage == 8:
+        return _dbg(t_h, cd_h)
 
     if accum == "segmented":
         out = _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n,
                                     spc, params, atmos, LSS)
+        if debug_stage == 9:
+            return _dbg(out)
     elif accum == "planes":
         # Per-lane scatters of the hot list into flat [n·steps] planes; dead
         # samples stay 0 (radiance ∝ t and 1 − dt = 0). Fill rows point at
@@ -1284,6 +1339,8 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
                                      SKY_B_RADIUS, SKY_T_RADIUS)
 
         hf = _map_rows(hf_chunk, chunk, p0, ndir, ss)
+        if debug_stage == 9:
+            return _dbg(t, cd, hf)
         out = _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
     else:
         raise ValueError(f"unknown accum {accum!r}")
@@ -1304,12 +1361,17 @@ def march_bricks_v3(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
                     ray_keep_frac: float | None = None,
                     prepass_steps: int = 32, ray_stride: int = 1,
                     cell_margin: float = 0.1, hot_keep_frac: float = 0.5,
-                    accum: str = "segmented", axis_name: str | None = None):
+                    debug_stage: int = 0, axis_name: str | None = None,
+                    accum: str = "segmented"):
     """Cell-gated march (`_march_core3`) over world directions [..., 3] →
     [..., 4] (L rgb, alpha): the full-hemisphere re-render. Fine sample
     placement is the dense march's; a [H, W] direction grid enables the
     prepass dilations and ray_stride. Size the buckets with
     `v3_auto_policy`. Builds a cone cache when none is given.
+
+    debug_stage k in 1..9 returns `_march_core3`'s probe after stage k
+    (reshaped to shape + (4,)): only stages 1..k run, so it times each
+    stage on the card. Under a mesh the probe is the shard's.
 
     axis_name (inside `shard_map` only): dirs' rows are sharded over that
     mesh axis, and the prepass dilations exchange one boundary row with
@@ -1331,7 +1393,7 @@ def march_bricks_v3(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
                        min(chunk, max(n, 1)), cell_keep_frac, cone_cache,
                        ray_keep_frac, prepass_steps,
                        shape if len(shape) == 2 else None, ray_stride,
-                       cell_margin, hot_keep_frac, accum, axis_name)
+                       cell_margin, hot_keep_frac, debug_stage, axis_name, accum)
     return out.reshape(shape + (4,))
 
 
@@ -1649,7 +1711,7 @@ def march_hierarchical_v3(dirs, params: MarchParams, bp: BrickPack,
                        steps, min(chunk, max(n, 1)), cell_keep_frac, cone_cache,
                        ray_keep_frac, prepass_steps,
                        shape if len(shape) == 2 else None, ray_stride,
-                       cell_margin, hot_keep_frac, accum)
+                       cell_margin, hot_keep_frac, accum=accum)
     return out.reshape(shape + (4,))
 
 

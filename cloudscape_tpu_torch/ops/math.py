@@ -11,6 +11,7 @@ The same functions as `cloudscape_tpu.ops.math`, on torch tensors:
 - density_height_gradient   `cloud_sky/clouds.glsl:92-95`
 - intersect_sphere_far      `cloud_sky/clouds.glsl:97-105`
 - ray_sphere_first          `cloud_sky/sky-lut.glsl:100-109`
+- srgb_to_linear            Godot Color.srgb_to_linear (`cloud_sky/cloud_sky.gd:79`)
 
 Vectors live in a trailing axis of size 3. Three-term dot products are
 written out left to right ((x + y) + z), the order the JAX package's
@@ -25,8 +26,10 @@ import torch
 # k = 1/(4*pi) as spelled in the reference (`clouds.glsl:73`).
 _HG_K = 0.0795774715459
 
-# The cloud kernel's truncated PI (`clouds.glsl:47`).
+# The cloud kernel's truncated PI (`clouds.glsl:47`); the sky-LUT kernel
+# spells it in full (`sky-lut.glsl:44`).
 PI_CLOUDS = 3.141592
+PI = 3.14159265358979323846
 
 
 def dot3(a, b):
@@ -126,6 +129,21 @@ def ray_sphere_first(ro, rd, radius):
     return torch.where(miss, torch.full_like(hit, -1.0), hit)
 
 
-def normalize(v):
-    """GLSL normalize over the trailing size-3 axis."""
-    return v / norm3(v)[..., None]
+def srgb_to_linear(c):
+    """Godot's Color.srgb_to_linear, per channel (`cloud_sky.gd:79`). c: a
+    tensor or anything `torch.as_tensor` takes; computed in its float dtype,
+    or in float32 for an integer or bool input."""
+    c = torch.as_tensor(c)
+    if not c.is_floating_point():
+        c = c.to(torch.float32)
+    return torch.where(c <= 0.04045, c / 12.92, torch.pow((c + 0.055) / 1.055, 2.4))
+
+
+def normalize(v, axis: int = -1):
+    """GLSL normalize along `axis`, its squares summed left to right (over
+    the trailing size-3 axis, exactly `v / norm3(v)`)."""
+    parts = v.unbind(axis)
+    sq = parts[0] * parts[0]
+    for p in parts[1:]:
+        sq = sq + p * p
+    return v / torch.sqrt(sq).unsqueeze(axis)

@@ -16,17 +16,11 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from cloudscape_tpu_torch.config import CloudConfig, SunState
 from cloudscape_tpu_torch.models.density import MarchParams
-
-
-def _srgb_to_linear_np(c):
-    """Godot's Color.srgb_to_linear in float32 (`cloud_sky.gd:79`)."""
-    c = np.asarray(c, np.float32)
-    return np.where(c <= np.float32(0.04045), c / np.float32(12.92),
-                    np.power((c + np.float32(0.055)) / np.float32(1.055),
-                             np.float32(2.4))).astype(np.float32)
+from cloudscape_tpu_torch.ops.math import srgb_to_linear
 
 
 @dataclasses.dataclass
@@ -72,7 +66,8 @@ class FrameData:
         self.light_energy = float(sun.energy)
         color = np.asarray(sun.color, dtype=np.float64)
         if srgb_color:
-            color = _srgb_to_linear_np(color).astype(np.float64)
+            color = srgb_to_linear(
+                torch.as_tensor(color, dtype=torch.float32)).numpy().astype(np.float64)
         self.light_color = color
 
     def integrate_wind(self, now: float) -> None:
