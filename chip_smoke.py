@@ -22,7 +22,7 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    (noise) against their plain versions at the shipped sizes
    (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
    not powers of two (48³, 20³, 100², seed 7), atol 2e-5; and the
-   engines' validation probe, which must launch K1–K3 once each;
+   engines' validation probe, which must launch K1–K3 and K7–K9 once each;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
    steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
    generate) on the card:
@@ -32,7 +32,16 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    cycle boundary that picks up a prebaked cone cache; the launch counts of
    K1, K2 and K4–K6 must show the path ran through those kernels; frames
    must be finite, nonnegative and not black, and the cloud ring must hold
-   clouds;
+   clouds; K7–K9 (the brick samplers) launched at least once each;
+   5b. K7–K9 (`csrc/sample.cu`) against their plain versions (the
+   lane-weight form) on every table the phase-5 engine samples: each mip of
+   its pack (the tiny ones through K9), the same pack in bfloat16, its
+   weather table, its cone cache and the display pair tables of its fused
+   tick, at [587, 511] planes (299,957 samples, no multiple of a block) with
+   texel centres and edges: |kernel − plain| ≤ SAMPLE_TOL · max(1, |plain|),
+   three runs bitwise equal, and a strided and a transposed view of the
+   planes giving the same bits; then the v3 march of a V3_SMALL²
+   octahedral map on the card ≥ V3_SMALL_DB from the same call on the CPU;
 6. K3 (segscan) against its plain version, atol 2e-4, 1-D and batched
    ([k, n]: k rows over one row of heads): at the phase-5 engine's v3
    hot-list capacity (random heads, one segment over every block, every
@@ -64,7 +73,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    ≥ V3_EXACT_DB (`quality_db_vs_exact` at 0.35,
    `quality_db_vs_exact_high_coverage` at 0.7), the dense march against it
    at ≥ EXACT_DENSE_DB, and its compaction (67,108,864 samples →
-   13,434,880 slots) held bitwise against K2's plain version;
+   13,434,880 slots) held bitwise against K2's plain version; K7–K9
+   launched by each scene (its cone build, render and referee);
    8c. the v3 march stage by stage (`run_v3_stages`, `stage_trace`):
    phase 8's render at both coverages, called again with exactly its
    arguments and `debug_stage` k = 1…9 and 0 (2 only with the ray cull):
@@ -93,7 +103,9 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    384²), (32, 512²), (32, 768²), (32, 1536²) reported (build ms, dB); its
    two K2 calls
    (524,288 → 524,288 rays, 67,108,864 → 33,554,432 samples) recorded and
-   held bitwise against the plain version, and two launches counted;
+   held bitwise against the plain version, and two launches counted; K7's
+   first call on the field's table (2-ch 4×4×4 clamp) recorded, for phase
+   13 to check and time;
    `occupied_ray_fraction` in (0, 1], and exactly 0 on an empty scene with
    margin 0; tests/test_torch_field.py's scene on the card and on the CPU
    ≥ 60 dB apart with bitwise-equal ray indices;
@@ -134,13 +146,14 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    median tick per arm (skip / v3 bucket / dense 1.0) beside phase 5's
    median. The kernel counts are zeroed before its construction: K4–K6
    once each, K1 in the phase, K2 and K3 within the timed ticks, and at
-   least one timed tick in a v3 bucket; frames finite, nonnegative and not
-   black, every skip tile in the ring exactly 0. Then every tile of the
-   cycle is marched again by its arm (those the ticks wrote must equal the
-   ring's) and the culled map is held at ≥ TILE_CULL_DB against the dense
-   march over the same texel grid; the first v3 tile's K2 and K3 calls are
-   recorded, held against their plain versions (K2 bitwise, K3 atol 2e-4,
-   three runs bitwise equal) and timed in phase 13;
+   least one timed tick in a v3 bucket, K7–K9 in the phase; frames
+   finite, nonnegative and not black, every skip tile in the ring exactly
+   0. Then every tile of the cycle is marched again by its arm (those the
+   ticks wrote must equal the ring's) and the culled map is held at ≥
+   TILE_CULL_DB against the dense march over the same texel grid; the first
+   v3 tile's K2 and K3 calls are recorded, held against their plain
+   versions (K2 bitwise, K3 atol 2e-4, three runs bitwise equal) and timed
+   in phase 13;
    11c. a `kernel="fast"` engine (every tile through the exact brick
    march) at PerfConfig() on the phase-5 scene: warm start, 10
    render_frame ticks of the phase-5 camera that launch K2, frames finite,
@@ -205,32 +218,41 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    K3 1-D and [3, n] (one launch each) at the engine's and the headline's
    hot-list capacities and on the v3 tile's and config 5's recorded
    inputs;
-   K4–K6 at the shipped sizes; K2's library yardstick,
+   K4–K6 at the shipped sizes; K7–K9 on the calls recorded as they ran,
+   one per table (the headline render's, its cone build's tiny volumes,
+   the fused composite's display pair and march_baked's field), each first
+   held against its plain version as phase 5b holds its tables, bound by
+   the coordinates read, the output written and the distinct table texels
+   the samples weigh, with the plain version's and the wrapper's
+   CUDA-event ms and, for the clamp tables,
+   `torch.nn.functional.grid_sample`'s ms on the texels the table was
+   built from (within LIBRARY_TOL of the kernel); K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
    pass × (device time − bound), each launch at the time of the shape it
-   ran at (K3: one 1-D and one [3, n] launch per v3 march), a JSON line
+   ran at (K3: one 1-D and one [3, n] launch per v3 march; K7–K9, timed
+   only at the recorded calls' sizes, are left out: their launches and
+   samples per pass are printed beside it), a JSON line
    with the kernels (each with `redesigned_in`, the change that
    redesigned it for the card, or null), and as the last line
    {"ok": true, "device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
-phase 5's engine construction and config 4's pack; `launches_tile_cull`
-around phase 11b; `launches_config5` by each call of config 5's path in
-phase 9b (the pack, the cone cache, the two policies, each row's warm
-call: zeroed just before the call, read just after); and
+phase 5's engine construction and config 4's pack, K7–K9 around phase 5;
+`launches_tile_cull` around phase 11b; `launches_config5` by each call of
+config 5's path in phase 9b (the pack, the cone cache, the two policies,
+each row's warm call: zeroed just before the call, read just after); and
 `launches_hier_engine` around phase 11e (the counts zeroed before each);
 `launches_mesh` by phase 11g's mesh path (zeroed at its start, every
 sharded call and the mesh engine read around the call, the single-card
-references left out) and `launches_mesh_ticks` by its 70 mesh ticks.
-Phase 8c counts each stage's call on its own (zeroed just before it),
-after phase 8's counts are read. `launches_per_pass` counts one pass:
-phase 5, phase 7's first
-render_full_hemisphere and phase 11b's timed window, without the one
-launch of K1–K3 of phase 5's validation probe (a tiny input, not a pass's
-shape). Every engine the script builds must pass its validation
-(`can_run`).
+references left out) and `launches_mesh_ticks` by its 70 mesh ticks. Phase
+8c counts each stage's call on its own (zeroed just before it), after phase
+8's counts are read. `launches_per_pass` counts one pass: phase 5, phase
+7's first render_full_hemisphere and phase 11b's timed window, without the
+one launch of K1–K3 and K7–K9 of phase 5's validation probe (a tiny input,
+not a pass's shape). Every engine the script builds must pass its
+validation (`can_run`).
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -312,6 +334,9 @@ KERNEL_NAMES = {
     "noise_base": ("base_kernel",),
     "noise_detail": ("detail_kernel",),
     "noise_weather": ("weather_kernel",),
+    "sample_brick3": ("brick3_kernel",),
+    "sample_brick2": ("brick2_kernel",),
+    "sample_tiny3": ("tiny3_kernel",),
 }
 
 
@@ -877,12 +902,15 @@ def run_v3_engine(eng):
     perf = eng.perf
     torch.cuda.synchronize()
     k1_0, k2_0, k3_0 = accum.launches, compact.launches, segscan.launches
+    s_0, n_0 = read_counts(), read_samples()
     t0 = time.perf_counter()
     out = eng.render_full_hemisphere()
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     k1 = accum.launches - k1_0
     k2, k3 = compact.launches - k2_0, segscan.launches - k3_0
+    samples = {k: v - s_0[k] for k, v in read_counts().items() if k in SAMPLERS}
+    sizes = {k: v - n_0[k] for k, v in read_samples().items()}
     # One 1-D log-transmittance scan and one [3, n] radiance scan a march.
     require(k3 >= 2, f"render_full_hemisphere launched K3 {k3} < 2 times")
     require(k2 >= 3, f"render_full_hemisphere launched K2 {k2} < 3 times")
@@ -917,7 +945,7 @@ def run_v3_engine(eng):
     require(off_db >= 100.0, f"gates-off v3 vs dense march {off_db:.2f} dB < 100")
     return dict(policy=policy, caps=caps, first_ms=first_ms,
                 ms=statistics.median(ms), db=db, off_db=off_db, k1=k1, k2=k2, k3=k3,
-                compactions=compactions,
+                samples=samples, sample_sizes=sizes, compactions=compactions,
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
@@ -947,19 +975,30 @@ def record_kernels(fn):
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.ops import accum, brick, compact, noise_kernel, segscan
 
     accum.launches = compact.launches = segscan.launches = 0
     noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    brick.launches = dict.fromkeys(brick.launches, 0)
+    brick.samples = dict.fromkeys(brick.samples, 0)
 
 
 def read_counts() -> dict:
     """Every kernel's launch count, by its name in the kernels line."""
-    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.ops import accum, brick, compact, noise_kernel, segscan
 
     return dict(accumulate=accum.launches, compact=compact.launches,
                 segscan=segscan.launches,
-                **{f"noise_{k}": v for k, v in noise_kernel.launches.items()})
+                **{f"noise_{k}": v for k, v in noise_kernel.launches.items()},
+                **{f"sample_{k}": v for k, v in brick.launches.items()})
+
+
+def read_samples() -> dict:
+    """The samples K7–K9's launches were given (counted where they launch,
+    beside their launches), by kernel name."""
+    from cloudscape_tpu_torch.ops import brick
+
+    return {f"sample_{k}": v for k, v in brick.samples.items()}
 
 
 def counted(fn):
@@ -971,6 +1010,345 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, read_counts()
+
+
+# K7–K9 (csrc/sample.cu) against their plain versions. The kernel computes
+# the plain version's coordinates, hat weights and corner products, and
+# sums a channel's 8 corners (4 in 2-D) in lane order where the plain
+# version's torch.sum reduces all 128 lanes in another tree: the two agree
+# within a few ulps of the sample, not bitwise. So |kernel − plain| ≤
+# SAMPLE_TOL · max(1, |plain|): 1e-6 absolute on the [0, 1] noise and
+# weather tables, as tests/test_torch_brick_atmo.py holds the plain
+# samplers to JAX's, and relative on the cone densities and the display
+# pairs' HDR radiance. (The plain version multiplies every lane, so a
+# non-finite texel anywhere in a row would turn its sample NaN where the
+# kernel, which reads only the corners, would not; the tables are finite.)
+SAMPLE_TOL = 1e-6
+# The library yardstick (grid_sample, phase 13) against the kernel, scaled
+# as SAMPLE_TOL is: grid_sample takes the coordinate through 2q − 1 and
+# back, ((g + 1)·n − 1) / 2, which moves f by a few ulps of q·n (up to
+# ~5e-5 at n = 768), so it is not held to SAMPLE_TOL; the gate shows that
+# it computes the same function (a swapped axis or a half-texel shift is
+# off by 1e-2 or more).
+LIBRARY_TOL = 1e-3
+# The checks' planes: [SAMPLE_ROWS, SAMPLE_COLS] samples (a [rays, steps]
+# plane, 299,957 samples, no multiple of the kernels' 256-thread blocks).
+SAMPLE_ROWS, SAMPLE_COLS = 587, 511
+# The samplers' names in the kernels line, in kernel order (K7, K8, K9).
+SAMPLERS = ("sample_brick3", "sample_brick2", "sample_tiny3")
+# Card against CPU on a small octahedral map: V3_SMALL² texels × STEPS
+# steps of the v3 march, a procedural pack (16, 16, 64, seed 1), coverage
+# 0.6 and a (8, 64, 64) cone cache; every input made on the card and
+# copied to the CPU, one policy for both.
+V3_SMALL = 192
+V3_SMALL_DB = 60.0
+
+
+def sampler_fns(kname: str):
+    """(wrapper, plain version, coordinate planes) of a sampler kernel."""
+    from cloudscape_tpu_torch.ops import brick
+
+    return {"sample_brick3": (brick.sample_brick3_xyz,
+                              brick.sample_brick3_xyz_reference, 3),
+            "sample_brick2": (brick.sample_brick2_xy,
+                              brick.sample_brick2_xy_reference, 2),
+            "sample_tiny3": (brick.sample_tiny3_xyz,
+                             brick.sample_tiny3_xyz_reference, 3)}[kname]
+
+
+def sampler_of(tab) -> str:
+    """The kernel that samples a table."""
+    from cloudscape_tpu_torch.ops.brick import BrickTable2D, BrickTable3D
+
+    if isinstance(tab, BrickTable3D):
+        return "sample_brick3"
+    return "sample_brick2" if isinstance(tab, BrickTable2D) else "sample_tiny3"
+
+
+def table_kind(tab) -> str:
+    """A table's kind: channels, dims, brick and stride, wrap and type."""
+    dtype = str((tab.row if sampler_of(tab) == "sample_tiny3" else tab.table).dtype)
+    dtype = dtype.replace("torch.", "")
+    dims = "x".join(map(str, tab.dims))
+    if sampler_of(tab) == "sample_tiny3":
+        return f"{tab.channels}-ch tiny {dims} {dtype}"
+    return (f"{tab.channels}-ch {dims} in {'x'.join(map(str, tab.brick))} bricks, "
+            f"stride {'x'.join(map(str, tab.stride))}, {tab.wrap}, {dtype}")
+
+
+def sample_planes(dev, k: int, lo: float, hi: float, seed: int):
+    """k coordinate planes [SAMPLE_ROWS, SAMPLE_COLS], uniform in [lo, hi],
+    with texel-centre and edge values in their first row."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        q = rng.uniform(lo, hi, (SAMPLE_ROWS, SAMPLE_COLS)).astype(np.float32)
+        q[0, :64] = (np.arange(64, dtype=np.float32) + 0.5) / 64.0
+        q[0, 64:72] = (0.0, 1.0, -1e-9, 1.0 + 1e-7, -0.25, 1.25, 0.5 / 64, 1 - 0.5 / 64)
+        out.append(torch.from_numpy(q).to(dev))
+    return out
+
+
+def check_sampler(what: str, tab, qs) -> tuple:
+    """One sampler kernel against its plain version on `tab` at the planes
+    `qs`: within SAMPLE_TOL (scaled as SAMPLE_TOL says), three runs bitwise
+    equal, and the same bits from views of the planes (x a strided
+    component of a stacked tensor, y a transposed view the wrapper copies).
+    Returns (the largest |kernel − plain| / max(1, |plain|), the largest
+    |kernel − plain|)."""
+    import torch
+
+    fn, ref, _ = sampler_fns(sampler_of(tab))
+    runs = [fn(tab, *qs) for _ in range(3)]
+    want = ref(tab, *qs)
+    views = [torch.stack([qs[0], -qs[0]], dim=-1)[..., 0],
+             qs[1].transpose(0, -1).contiguous().transpose(0, -1)] + list(qs[2:])
+    view_out = fn(tab, *views)
+    torch.cuda.synchronize()
+    c = tab.channels
+    require(runs[0].shape == qs[0].shape + (c,) and runs[0].dtype == torch.float32,
+            f"{what}: output {tuple(runs[0].shape)} {runs[0].dtype}")
+    require(bool(torch.isfinite(runs[0]).all()), f"{what}: not finite")
+    require(all(bitwise_equal(r, runs[0]) for r in runs[1:]),
+            f"{what}: three runs differ")
+    require(bitwise_equal(view_out, runs[0]), f"{what}: views differ from the planes")
+    diff = (runs[0] - want).abs()
+    err = float((diff / want.abs().clamp(min=1.0)).max())
+    require(err <= SAMPLE_TOL, f"{what}: |kernel - plain| {err:.3g} > {SAMPLE_TOL}")
+    return err, float(diff.max())
+
+
+def run_sampler_checks(dev, eng) -> list:
+    """Phase 5b: K7–K9 against their plain versions (`check_sampler`) on
+    every table the phase-5 engine samples: each mip of its pack's brick
+    tables (tiny mips through K9), the same in bfloat16, the weather table,
+    its cone cache and the display pair tables of its fused tick."""
+    import torch
+
+    from cloudscape_tpu_torch.models.march_fast import BrickPack
+
+    bricks = eng._bricks
+    bf16 = BrickPack.from_noise(eng.noise, dtype=torch.bfloat16)
+    cp, sp = eng._display_pair_tables()
+    tables = [(f"{name} mip {i}{suffix}", t)
+              for pack, suffix in ((bricks, ""), (bf16, " bfloat16"))
+              for name in ("large", "small")
+              for i, t in enumerate(getattr(pack, name))]
+    tables += [("weather", bricks.weather), ("cone cache", eng._cone_cache.table),
+               ("display pair clouds", cp), ("display pair sky", sp)]
+    rows = []
+    for seed, (name, tab) in enumerate(tables):
+        clamp = getattr(tab, "wrap", "repeat") == "clamp"
+        k = sampler_fns(sampler_of(tab))[2]
+        qs = sample_planes(dev, k, *((-0.25, 1.25) if clamp else (-1.5, 2.5)), seed)
+        err, abs_err = check_sampler(name, tab, qs)
+        rows.append(dict(table=name, kind=table_kind(tab), kernel=sampler_of(tab),
+                         err=err, abs_err=abs_err))
+    return rows
+
+
+def run_v3_small(dev) -> dict:
+    """Phase 5b: the v3 march of a V3_SMALL² octahedral texel grid on the
+    card against the same call on the CPU, ≥ V3_SMALL_DB; the card's call
+    must launch K7–K9's wrappers (K9 in its cone cache's build)."""
+    import dataclasses
+
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+    from cloudscape_tpu_torch.models.density import MarchParams
+    from cloudscape_tpu_torch.models.march_fast import (
+        BrickPack, ConeCache, build_cone_cache, march_bricks_v3, v3_auto_policy)
+    from cloudscape_tpu_torch.models.packs import procedural_noise_pack
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
+    from cloudscape_tpu_torch.utils.image import psnr
+
+    cpu = torch.device("cpu")
+    noise = procedural_noise_pack(1, 16, 16, 64, device=dev)
+    sun = np.array([0.3, 0.4, -0.85])
+    sun /= np.linalg.norm(sun)
+    scene = dict(cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+                 weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.6,
+                 light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]))
+    params = MarchParams.create(device=dev, **scene)
+    bricks = BrickPack.from_noise(noise)
+    sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
+                             torch.tensor(sun, dtype=torch.float32, device=dev))
+    zero_counts()
+    cone = build_cone_cache(params, bricks, 6, res=(8, 64, 64), chunk=4096)
+    torch.cuda.synchronize()
+    cone_counts = read_counts()
+    noise_cpu = type(noise)(large=tuple(v.cpu() for v in noise.large),
+                            small=tuple(v.cpu() for v in noise.small),
+                            weather=noise.weather.cpu())
+    cone_cpu = ConeCache(table=dataclasses.replace(cone.table,
+                                                   table=cone.table.table.cpu()),
+                         extent=cone.extent)
+    inputs = {dev: (params, bricks, sky, cone),
+              cpu: (MarchParams.create(device=cpu, **scene),
+                    BrickPack.from_noise(noise_cpu), sky.cpu(), cone_cpu)}
+    dirs_cpu = texel_directions(V3_SMALL, device=cpu)
+    rk, ck, hk, _, _ = v3_auto_policy(dirs_cpu, inputs[cpu][0], inputs[cpu][1],
+                                      steps=STEPS)
+    n = V3_SMALL * V3_SMALL
+
+    def march(d):
+        p, b, s, c = inputs[d]
+        return march_bricks_v3(texel_directions(V3_SMALL, device=d), p, b, s,
+                               steps=STEPS, chunk=min(n, 32768), cell_keep_frac=ck,
+                               hot_keep_frac=hk, cone_cache=c, ray_keep_frac=rk,
+                               ray_stride=2)
+
+    card, counts = counted(lambda: march(dev))
+    card, host = card.cpu().numpy(), march(cpu).numpy()
+    require(np.isfinite(card).all(), "the small v3 map on the card is not finite")
+    frac = float((host[..., 3] > 0.1).mean())
+    require(frac > 0.0, "the small v3 map has no clouds")
+    db = psnr(card, host)
+    require(db >= V3_SMALL_DB, f"the small v3 map, card vs CPU {db:.2f} dB < "
+            f"{V3_SMALL_DB}")
+    samples = {k: counts[k] + cone_counts[k] for k in SAMPLERS}
+    require(all(v > 0 for v in samples.values()),
+            f"the small v3 map (and its cone cache) launched K7–K9 {samples}")
+    return dict(db=db, policy=(rk, ck, hk), cloud_frac=frac, launches=samples)
+
+
+def record_samples(fn):
+    """Run fn() with the first sampler call on each table kind recorded as
+    (kernel, kind, table, its planes copied): the sampler names the
+    marches, the baked field and the composite call through are replaced
+    for the call. Returns (fn's result, the calls)."""
+    from cloudscape_tpu_torch.models import field, march_fast
+    from cloudscape_tpu_torch.ops import brick
+
+    calls, seen = [], set()
+
+    def wrap(kname, real):
+        def rec(tab, *qs):
+            kind = table_kind(tab)
+            if (kname, kind) not in seen:
+                seen.add((kname, kind))
+                calls.append((kname, kind, tab, [q.clone() for q in qs]))
+            return real(tab, *qs)
+        return rec
+
+    names = (("sample_brick3", "sample_brick3_xyz", (march_fast, field)),
+             ("sample_brick2", "sample_brick2_xy", (march_fast, brick)),
+             ("sample_tiny3", "sample_tiny3_xyz", (march_fast,)))
+    saved = [(mod, attr, getattr(mod, attr)) for _, attr, mods in names for mod in mods]
+    for kname, attr, mods in names:
+        for mod in mods:
+            setattr(mod, attr, wrap(kname, getattr(mod, attr)))
+    try:
+        return fn(), calls
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
+def sample_bytes(tab, qs) -> int:
+    """The least bytes a sampler call moves: its coordinate planes read
+    once, its [n, C] f32 output written once, and the distinct texels its
+    samples weigh (8 corners, 4 in 2-D, in each channel) read once; the
+    whole row of a tiny volume."""
+    import itertools
+
+    import torch
+
+    from cloudscape_tpu_torch.ops import brick
+
+    n = qs[0].numel()
+    c = tab.channels
+    if sampler_of(tab) == "sample_tiny3":
+        texels = tab.row.numel()
+        size = tab.row.element_size()
+    else:
+        fb = torch.zeros(n, dtype=torch.int64, device=qs[0].device)
+        local = []
+        # The planes are x first; the table's dims, strides and grid z first.
+        for q, dim, s, g in zip(reversed(qs), tab.dims, tab.stride, tab.grid):
+            i0, _ = brick._axis_coords(q.reshape(-1), dim, tab.wrap)
+            fb = fb * g + i0 // s
+            local.append(i0 % s)
+        row = tab.table.shape[1]
+        corners = []
+        for d in itertools.product((0, 1), repeat=len(local)):
+            lane = torch.zeros_like(fb)
+            for l0, dk, b in zip(local, d, tab.brick):
+                lane = lane * b + l0 + dk
+            corners.append(fb * row + lane)
+        texels = int(torch.unique(torch.cat(corners)).numel()) * c
+        size = tab.table.element_size()
+    return 4 * len(qs) * n + 4 * c * n + texels * size
+
+
+def brick_image(tab):
+    """The [(D,) H, W, C] texels a brick table was built from (each texel
+    from the brick whose lower corner holds it), for the library yardstick."""
+    import torch
+
+    dims = tab.dims
+    idx = [torch.arange(d, device=tab.table.device) for d in dims]
+    grids = torch.meshgrid(*idx, indexing="ij")
+    fb = torch.zeros_like(grids[0])
+    lane = torch.zeros_like(grids[0])
+    for g, s, n_b, b in zip(grids, tab.stride, tab.grid, tab.brick):
+        fb = fb * n_b + g // s
+        lane = lane * b + g % s
+    lanes = math.prod(tab.brick)
+    cols = lane[..., None] + lanes * torch.arange(tab.channels, device=lane.device)
+    return tab.table[fb[..., None], cols]
+
+
+def grid_sample_fn(tab, qs):
+    """The one PyTorch call that computes a clamp-wrap sample:
+    `torch.nn.functional.grid_sample` (bilinear, align_corners=False,
+    padding_mode="border") on the texels the table was built from, the
+    coordinates as one [1, (1,) 1, n, k] grid of 2q − 1."""
+    import torch
+
+    img = brick_image(tab)
+    src = img.permute(-1, *range(img.dim() - 1))[None].contiguous()  # [1, C, ...]
+    grid = torch.stack([2.0 * q.reshape(-1) - 1.0 for q in qs], dim=-1)
+    grid = grid.reshape((1,) * (src.dim() - 2) + (-1, len(qs)))
+
+    def call():
+        return torch.nn.functional.grid_sample(src, grid, mode="bilinear",
+                                               padding_mode="border",
+                                               align_corners=False)
+    return call, img
+
+
+def time_sampler(kname: str, kind: str, tab, qs, serves: str):
+    """A sampler kernel's device µs (cold L2) on a recorded call against
+    its byte bound, the wrapper's and the plain version's CUDA-event ms,
+    and for a clamp table the library yardstick (grid_sample), which must
+    agree with the kernel within LIBRARY_TOL (relative, as SAMPLE_TOL
+    scales)."""
+    import torch
+
+    fn, ref, _ = sampler_fns(kname)
+    n = qs[0].numel()
+    row = timed_row(f"{kind}, {n} samples", lambda: fn(tab, *qs), KERNEL_NAMES[kname],
+                    sample_bytes(tab, qs), serves=serves, samples=n)
+    row["event_ms"] = cuda_time_ms(lambda: fn(tab, *qs))
+    row["plain_ms"] = cuda_time_ms(lambda: ref(tab, *qs), reps=3)
+    row["library_ms"] = None
+    row["library"] = "none: no repeat wrap in PyTorch"
+    if getattr(tab, "wrap", "repeat") == "clamp":
+        call, _ = grid_sample_fn(tab, qs)
+        got = call().reshape(tab.channels, n).t()
+        want = fn(tab, *qs).reshape(n, tab.channels)
+        err = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        require(err <= LIBRARY_TOL, f"grid_sample differs from {kname} on {kind} "
+                f"by {err:.3g} > {LIBRARY_TOL}")
+        row["library_ms"] = cuda_time_ms(call)
+        row["library"] = (f"torch.nn.functional.grid_sample (bilinear, border, "
+                          f"align_corners=False) on the source texels; max rel "
+                          f"diff {err:.3g}")
+    return row
 
 
 def run_headline(dev):
@@ -1010,7 +1388,9 @@ def run_headline(dev):
         def build():
             return build_cone_cache(params, bricks, 6, res=CONE_RES, chunk=65536)
 
-        cone = build()
+        # The scene's sampler launches: its cone build, render and referee.
+        s_0 = read_counts()
+        cone, build_calls = record_samples(build)
         cone_ms = events_ms(build, 1)[0]
 
         def render():
@@ -1022,7 +1402,7 @@ def run_headline(dev):
         # The first call's launches, by difference (the K3 count of phases
         # 7-8 runs on): phase 8c holds its stage-0 call to them.
         before = read_counts()
-        out = render()
+        out, render_calls = record_samples(render)
         torch.cuda.synchronize()
         launches = {k: v - before[k] for k, v in read_counts().items()}
         ms = events_ms(render, 5 if cov == 0.35 else 1)
@@ -1043,6 +1423,10 @@ def run_headline(dev):
                 * HEIGHT * STEPS, f"the referee made {len(compactions)} K2 calls")
         check_recorded(f"the referee at coverage {cov}", compactions)
         require(bool(torch.isfinite(exact).all()), f"referee not finite (cov {cov})")
+        torch.cuda.synchronize()
+        samples = {k: v - s_0[k] for k, v in read_counts().items() if k in SAMPLERS}
+        require(all(v > 0 for v in samples.values()),
+                f"the headline at coverage {cov} launched K7–K9 {samples}")
         exact_np = exact.cpu().numpy()
         db_exact = psnr(out.cpu().numpy(), exact_np)
         exact_dense_db = psnr(dense.cpu().numpy(), exact_np)
@@ -1057,6 +1441,14 @@ def run_headline(dev):
                          ms=statistics.median(ms), all_ms=ms, db=db,
                          db_exact=db_exact, exact_dense_db=exact_dense_db,
                          exact_ms=exact_ms, exact_compactions=compactions,
+                         samples=samples,
+                         # Phase 13's sampler rows: the render's first call
+                         # on each table, and the cone build's on the tiny
+                         # volumes (the render samples none).
+                         sample_calls=[c + ("the headline v3 render",)
+                                       for c in render_calls]
+                         + [c + ("the headline's cone build",) for c in build_calls
+                            if c[0] == "sample_tiny3"] if cov == 0.35 else None,
                          exact=exact if cov == 0.35 else None,
                          active=int(mask.sum()),
                          cloud_frac=float((out[..., 3] > 0.1).float().mean()),
@@ -1115,7 +1507,8 @@ def stage_trace(march, full, full_launches, cull: bool, all_above: bool) -> dict
         else:
             require(not bool(rest.any()), f"debug_stage {k}: probe entries past [0, 0]")
         rows.append(dict(stage=k, what=STAGE_NAMES[k], k1=n["accumulate"], k2=n["compact"],
-                         k3=n["segscan"], probe=float(probe) if k else None))
+                         k3=n["segscan"], k7=n["sample_brick3"], k8=n["sample_brick2"],
+                         k9=n["sample_tiny3"], probe=float(probe) if k else None))
     times = {k: [] for k in stages}
     for _ in range(STAGE_REPS):
         for k in stages:
@@ -1153,7 +1546,8 @@ def print_stages(t: dict, card: str) -> None:
             f"({r['device_share']:.1%}) in {r['device_launches']:g} launches")
         print(f"  debug_stage {r['stage']} ({r['what']}): {r['ms']:.3f} ms, "
               f"+{r['increment_ms']:.3f} ms ({r['share']:.1%}){dev}; launches up to "
-              f"it: K1 x{r['k1']}, K2 x{r['k2']}, K3 x{r['k3']}", flush=True)
+              f"it: K1 x{r['k1']}, K2 x{r['k2']}, K3 x{r['k3']}, K7 x{r['k7']}, "
+              f"K8 x{r['k8']}, K9 x{r['k9']}", flush=True)
 
 
 def run_v3_stages(headline) -> list:
@@ -1339,6 +1733,12 @@ def run_field(dev, exact):
     check_recorded("march_baked", compactions)
     _, counts = counted(render)
     require(counts["compact"] == 2, f"march_baked launched K2 {counts['compact']} times")
+    # The field's own table kind (2-ch 4x4x4 clamp): march_baked's first
+    # call on it, recorded for phase 13, which holds it against the plain
+    # version and times it.
+    _, calls = record_samples(render)
+    field_calls = [c + ("march_baked",) for c in calls if c[2] is field.table]
+    require(len(field_calls) == 1, "march_baked made no call on the field's table")
 
     sweep = []
     for res in FIELD_SWEEP:
@@ -1390,6 +1790,7 @@ def run_field(dev, exact):
             "march_baked's ray indices differ between the card and the CPU")
     return dict(build_ms=build_ms, ms=statistics.median(ms), all_ms=ms, db=db,
                 compactions=compactions, occ=occ, sweep=sweep, tiny_db=tiny_db,
+                sample_calls=field_calls,
                 active=int(compactions[1][0].sum()),
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()),
                 tiny_frac=float((renders[1][..., 3] > 0.1).mean()))
@@ -1519,15 +1920,14 @@ def run_engine(dev, ticks: int):
 
     perf = PerfConfig()  # 768², 64 frames, 128 steps, 6 light steps
     eyedirs = camera_dirs(1280, 720, dev)
-    accum.launches = 0
-    compact.launches = 0
-    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = CloudSkyEngine(perf=perf, config=CloudConfig(cloud_coverage=0.45),
                          sun=SunState(direction=(0.3, 0.25, -0.9)),
                          device=dev)
     require(eng.can_run, "the default engine failed its validation")
+    built = read_counts()  # the validation probe's launches
     noise_launches = dict(noise_kernel.launches)
     require(all(v == 1 for v in noise_launches.values()),
             f"the engine's pack did not launch K4–K6 once each: {noise_launches}")
@@ -1555,8 +1955,12 @@ def run_engine(dev, ticks: int):
                     "boundary did not pick up the prebake")
             pickups += 1
     k1_launches, k2_launches = accum.launches, compact.launches
+    samples = {k: v for k, v in read_counts().items() if k in SAMPLERS}
+    sample_sizes = read_samples()
 
     require(pickups >= 1, "no cycle boundary picked up a prebaked cone cache")
+    require(all(v > built[k] for k, v in samples.items()),
+            f"the engine phase launched K7–K9 {samples}, its validation {built}")
     require(k1_launches >= ticks, f"K1 launched {k1_launches} < {ticks} ticks")
     # The prebake finalize launches K2 during the ticks.
     require(k2_launches > k2_after_warm, "prebake finalize did not launch K2")
@@ -1570,6 +1974,7 @@ def run_engine(dev, ticks: int):
     require(cloud_frac > 0.0, "no clouds in the cloud ring")
     return eng, dict(warm_s=warm_s, tick_ms=tick_ms, pickups=pickups,
                      k1=k1_launches, k2=k2_launches, noise=noise_launches,
+                     samples=samples, sample_sizes=sample_sizes,
                      cloud_frac=cloud_frac, frame_mean=float(frame.mean()))
 
 
@@ -1878,8 +2283,7 @@ def run_tile_cull(dev):
     from cloudscape_tpu_torch.utils.image import psnr
 
     eye = camera_dirs(1280, 720, dev)
-    accum.launches = compact.launches = segscan.launches = 0
-    noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = CloudSkyEngine(
@@ -1889,6 +2293,7 @@ def run_tile_cull(dev):
         sun=SunState(direction=(0.3, 0.4, -0.85)), kernel="fast3",
         cone_res=CONE_RES, tile_cull=True, device=dev)
     require(eng.can_run, "the tile-cull engine failed its validation")
+    built = read_counts()  # the validation probe's launches
     eng.render_frame(eye, now=0.0)  # the warm start
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -1897,33 +2302,49 @@ def run_tile_cull(dev):
     torch.cuda.synchronize()
     n_frames = eng.perf.frames_to_update
     k_warm = (accum.launches, compact.launches, segscan.launches)
+    s_warm = read_counts()
     ticks, pickups, done_buckets, frame = [], 0, None, None
-    for i in range(1 + CULL_WARM_TICKS, 1 + CULL_WARM_TICKS + CULL_TIMED_TICKS):
-        boundary = eng.ring.frame >= n_frames
-        pend = eng._pending
-        if boundary:
-            done_buckets = eng._tile_buckets  # the cycle this boundary completes
-            require(pend is not None and pend.buckets is not None,
-                    "the tile-cull prebake was not ready at the boundary")
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        w0 = time.perf_counter()
-        start.record()
-        frame = eng.render_frame(eye, now=i / 60.0)
-        end.record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - w0) * 1e3
-        if boundary:
-            require(eng._tile_buckets is pend.buckets,
-                    "the boundary did not pick up the prebaked buckets")
-            pickups += 1
-        # The tick rendered tile frame - 1 of the row-major sweep.
-        ticks.append((tile_arm(eng._tile_buckets[eng.ring.frame - 1]),
-                      start.elapsed_time(end), wall_ms))
+
+    def window():
+        nonlocal pickups, done_buckets, frame
+        for i in range(1 + CULL_WARM_TICKS, 1 + CULL_WARM_TICKS + CULL_TIMED_TICKS):
+            boundary = eng.ring.frame >= n_frames
+            pend = eng._pending
+            if boundary:
+                done_buckets = eng._tile_buckets  # the cycle this boundary completes
+                require(pend is not None and pend.buckets is not None,
+                        "the tile-cull prebake was not ready at the boundary")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
+            start.record()
+            frame = eng.render_frame(eye, now=i / 60.0)
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - w0) * 1e3
+            if boundary:
+                require(eng._tile_buckets is pend.buckets,
+                        "the boundary did not pick up the prebaked buckets")
+                pickups += 1
+            # The tick rendered tile frame - 1 of the row-major sweep.
+            ticks.append((tile_arm(eng._tile_buckets[eng.ring.frame - 1]),
+                          start.elapsed_time(end), wall_ms))
+
+    # The samples the window's sampler launches were given (phase 13's
+    # samples per pass).
+    n_warm = read_samples()
+    window()
+    window_samples = {k: v - n_warm[k] for k, v in read_samples().items()}
     k1, k2, k3 = (accum.launches - k_warm[0], compact.launches - k_warm[1],
                   segscan.launches - k_warm[2])
+    counts = read_counts()
     phase = dict(k1=accum.launches, k2=compact.launches, k3=segscan.launches,
-                 noise=dict(noise_kernel.launches))
+                 noise=dict(noise_kernel.launches),
+                 samples={k: counts[k] for k in SAMPLERS})
+    samples = {k: counts[k] - s_warm[k] for k in SAMPLERS}
+    require(all(v > built[k] for k, v in phase["samples"].items()),
+            f"the tile-cull phase launched K7–K9 {phase['samples']}, its "
+            f"validation {built}")
     require(pickups == 1, f"{pickups} boundaries in the timed window, not 1")
     require(any(a == "v3" for a, _, _ in ticks), "no timed tick took a v3 bucket")
     require(k2 > 0 and k3 > 0, f"the timed ticks launched K2 {k2}, K3 {k3} times")
@@ -2032,7 +2453,8 @@ def run_tile_cull(dev):
         arm_median={a: statistics.median(v) if v else None for a, v in arms.items()},
         arm_ticks={a: len(v) for a, v in arms.items()},
         histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
-        k1=k1, k2=k2, k3=k3, phase=phase, v3_tiles=len(arms["v3"]),
+        k1=k1, k2=k2, k3=k3, samples=samples, window_samples=window_samples,
+        phase=phase, v3_tiles=len(arms["v3"]),
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
         frame_mean=float(frame.mean()), tile_stages=tile_stages)
@@ -2743,7 +3165,7 @@ def run_composite(eng, eyedirs):
         return _build_display_pair(eng.cloud_ring, eng.ring.texture_to_blend_from,
                                    eng.ring.texture_to_blend_to, eng.sky_ring, b0, b1)
 
-    a, b = split(), display()
+    a, (b, calls) = split(), record_samples(display)
     torch.cuda.synchronize()
     require(torch.allclose(b, a, atol=2e-5, rtol=1e-5),
             f"composite_display differs from composite by {float((b - a).abs().max())}")
@@ -2754,6 +3176,8 @@ def run_composite(eng, eyedirs):
         out[name] = dict(event_ms=cuda_time_ms(fn), device_ms=dev_ms,
                          launches=launches)
     out["max_abs_diff"] = float((b - a).abs().max())
+    # Phase 13's display-pair row: the fused composite's first K8 call.
+    out["sample_calls"] = [c + ("composite_display",) for c in calls]
     return out
 
 
@@ -2806,9 +3230,10 @@ def main() -> int:
     from cloudscape_tpu_torch.engine import _probe_kernels
 
     _, probe = counted(lambda: _probe_kernels(dev))
-    probe = {k: probe[k] for k in ("accumulate", "compact", "segscan")}
+    probe_samples = read_samples()
+    probe = {k: probe[k] for k in ("accumulate", "compact", "segscan") + SAMPLERS}
     require(all(v == 1 for v in probe.values()),
-            f"the validation probe did not launch K1–K3 once each: {probe}")
+            f"the validation probe did not launch K1–K3 and K7–K9 once each: {probe}")
     print(f"validation probe (every engine construction): launches {probe}", flush=True)
     stamp("1-4")
 
@@ -2822,7 +3247,21 @@ def main() -> int:
           f"{r['cloud_frac']:.4f}, frame mean {r['frame_mean']:.4f}; pack "
           f"launches {r['noise']} ({card})", flush=True)
     print("tick ms: " + " ".join(f"{v:.1f}" for v in ms), flush=True)
+    print(f"engine phase K7–K9 launches {r['samples']}", flush=True)
     stamp("5")
+
+    sample_rows = run_sampler_checks(dev, eng)
+    for row in sample_rows:
+        print(f"{row['kernel']} {row['table']} ({row['kind']}): |kernel - plain| / "
+              f"max(1, |plain|) {row['err']:.3g} (gate {SAMPLE_TOL}), three runs and "
+              f"views bitwise", flush=True)
+    vs = run_v3_small(dev)
+    print(f"v3 march {V3_SMALL}x{V3_SMALL}x{STEPS} (octahedral, procedural pack "
+          f"16/16/64, coverage 0.6), card vs CPU: {vs['db']:.2f} dB (gate "
+          f"{V3_SMALL_DB}); policy {vs['policy']}, cloud fraction "
+          f"{vs['cloud_frac']:.4f}; K7–K9 launches (cone build + march) "
+          f"{vs['launches']}", flush=True)
+    stamp("5b")
 
     from cloudscape_tpu_torch.models.march_fast import v3_capacities
 
@@ -2844,8 +3283,8 @@ def main() -> int:
           f"{v['caps'][1]}, cap_h {v['caps'][2]}; first call {v['first_ms']:.2f} ms, "
           f"then median {v['ms']:.2f} ms of 3; "
           f"{v['db']:.2f} dB vs dense ({v['off_db']:.2f} dB with every gate off); "
-          f"K1 x{v['k1']}, K2 x{v['k2']}, K3 x{v['k3']} per call; "
-          f"cloud fraction {v['cloud_frac']:.4f} ({card})", flush=True)
+          f"K1 x{v['k1']}, K2 x{v['k2']}, K3 x{v['k3']}, K7–K9 {v['samples']} per "
+          f"call; cloud fraction {v['cloud_frac']:.4f} ({card})", flush=True)
     comp = run_composite(eng, camera_dirs(1280, 720, dev))
     for cname in ("composite", "composite_display", "build_display_pair"):
         cr = comp[cname]
@@ -2874,6 +3313,8 @@ def main() -> int:
               f"{WIDTH * HEIGHT * STEPS} (K2 bitwise its plain version); {key} "
               f"{h['db_exact']:.2f} dB (gate {V3_EXACT_DB}); the dense march vs the "
               f"referee {h['exact_dense_db']:.2f} dB ({card})", flush=True)
+        print(f"headline coverage {h['cov']} K7–K9 launches (cone build, render, "
+              f"referee) {h['samples']}", flush=True)
     k3_launches = segscan.launches
     stamp("8")
 
@@ -3010,6 +3451,8 @@ def main() -> int:
           f"{c['cull_db']:.2f} dB vs the dense march; cloud fraction "
           f"{c['cloud_frac']:.4f}, frame mean {c['frame_mean']:.4f} ({card})",
           flush=True)
+    print(f"tile-cull K7–K9 launches: timed window {c['samples']}, the phase "
+          f"{c['phase']['samples']}", flush=True)
     print("tile-cull tick ms: " + " ".join(f"{t:.1f}" for t in ev), flush=True)
     del ceng
     print_stages(c["tile_stages"], card)
@@ -3154,6 +3597,26 @@ def main() -> int:
     # march_baked's two calls (phase 8b), as they ran: off the serving pass.
     rows["compact"] += [dict(time_compact(m, cap, wr), serves="march_baked")
                         for m, cap, wr in fld["compactions"]]
+    # K7–K9 on their recorded calls, one per table: the headline render's
+    # (phase 8, coverage 0.35; its cone build's for the tiny volumes), the
+    # fused composite's display pair (phase 7b) and march_baked's field
+    # (phase 8b), each held against its plain version (`check_sampler`)
+    # before it is timed. Each kernel's main-path row, first, is its
+    # largest call in the headline.
+    sample_errs = {}
+    for kname in SAMPLERS:
+        calls = [x for x in headline[0]["sample_calls"] + comp["sample_calls"]
+                 + fld["sample_calls"] if x[0] == kname]
+        calls.sort(key=lambda x: (x[4] not in ("the headline v3 render",
+                                               "the headline's cone build"),
+                                  -x[3][0].numel()))
+        for _, tkind, tab, qs, serves in calls:
+            err, abs_err = check_sampler(f"{kname} on {tkind} ({serves})", tab, qs)
+            sample_errs.setdefault(kname, []).append(abs_err)
+            print(f"{kname} {tkind}, {qs[0].numel()} samples ({serves}, recorded): "
+                  f"|kernel - plain| / max(1, |plain|) {err:.3g} (gate "
+                  f"{SAMPLE_TOL}), three runs and views bitwise", flush=True)
+        rows[kname] = [time_sampler(*x) for x in calls]
     # Phase 5 without its engine's validation probe.
     p5_k1, p5_k2 = r["k1"] - probe["accumulate"], r["k2"] - probe["compact"]
     # Launches per pass by the shape they ran at: phase 5 and the tile-cull
@@ -3171,6 +3634,17 @@ def main() -> int:
         + [(c["v3_tiles"], row)
            for row in rows["segscan"][2 + 2 * len(headline):n_k3_pass]],
     }
+    # K7–K9's launches and samples per pass, counted where they launch.
+    # Their calls in a pass run from a few thousand samples (a v3 tile's
+    # light steps) to millions (the cone build), and they were timed only
+    # at the recorded calls' sizes, so they are not priced: they stay out
+    # of the ranking (loss_per_pass_us null).
+    sample_pass = {}
+    for k in SAMPLERS:
+        sample_pass[k] = (
+            r["samples"][k] - probe[k] + v["samples"][k] + c["samples"][k],
+            r["sample_sizes"][k] - probe_samples[k] + v["sample_sizes"][k]
+            + c["window_samples"][k])
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
           f"{K2_N}-cell mask {nonzero_ms:.4f} ms (CUDA events, its host "
@@ -3183,11 +3657,16 @@ def main() -> int:
     for kname, krows in rows.items():
         for row in krows:
             serves = f" ({row['serves']})" if "serves" in row else ""
+            extra = "" if kname not in SAMPLERS else (
+                f"; events {row['event_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library " + ("none: no repeat wrap in PyTorch"
+                               if row["library_ms"] is None else
+                               f"{row['library_ms']:.4f} ms ({row['library']})"))
             print(f"{kname} {row['shape']}{serves}: {row['device_us']:.2f} us device "
                   f"({row['kernels_per_call']} kernel(s), {row['kernel_sum_us']:.2f} us "
                   f"in kernels, {row['timing']}; {row['device_us_write_flush']:.2f} us "
                   f"after a write flush), bound {row['bound_us']:.2f} us by "
-                  f"{row['bound_by']}, share {row['bound_share']:.3f} ({card})",
+                  f"{row['bound_by']}, share {row['bound_share']:.3f}{extra} ({card})",
                   flush=True)
 
     # launches: the counts read around each kernel's path (K1, K2: the
@@ -3211,6 +3690,15 @@ def main() -> int:
                      r["noise"][kname], c["phase"]["noise"][kname],
                      noise_rows[kname]["err"]))
         groups[f"noise_{kname}"] = [(r["noise"][kname], rows[f"noise_{kname}"][0])]
+    # K7–K9: JAX's XLA gather and lane-weight reduce, no pallas_call. The
+    # launches: phase 5's; max_abs_err: phase 5b's checks and phase 8b's
+    # field call.
+    for kname, line in zip(SAMPLERS, (282, 323, 351)):
+        errs = [x["abs_err"] for x in sample_rows if x["kernel"] == kname]
+        errs += sample_errs[kname]
+        meta.append((kname, "sample.cu", f"brick.py:{line} (no pallas_call: XLA's "
+                     f"gather and lane-weight reduce)", r["samples"][kname],
+                     sample_pass[kname][0], c["phase"]["samples"][kname], max(errs)))
     kernels = []
     for kname, src, tpu, launches, per_pass, cull_launches, err in meta:
         main_row = rows[kname][0]
@@ -3236,16 +3724,23 @@ def main() -> int:
             "event_ms": main_row["event_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_us"] / 1e3, "bound_us": main_row["bound_us"],
             "bound_by": main_row["bound_by"], "bound_share": main_row["bound_share"],
-            "loss_per_pass_us": loss_per_pass_us(groups[kname]),
+            "loss_per_pass_us": loss_per_pass_us(groups[kname])
+            if kname in groups else None,
+            "samples_per_pass": sample_pass[kname][1] if kname in SAMPLERS else None,
             "redesigned_in": REDESIGNED_IN.get(kname),
-            # Only K2's function has a single PyTorch call (with the caveat
-            # in `time_nonzero`).
-            "library_ms": nonzero_ms if kname == "compact" else None,
+            # K2's function has a single PyTorch call (with the caveat in
+            # `time_nonzero`), and so has a clamp-wrap sample (grid_sample,
+            # on a row that is not the main one: `library_row`).
+            "library_ms": nonzero_ms if kname == "compact" else next(
+                (x["library_ms"] for x in rows[kname] if x.get("library_ms")), None),
+            "library_row": next((x["shape"] for x in rows[kname]
+                                 if x.get("library_ms")), None),
             "shapes": rows[kname]})
     # The redesign rule: launches per pass x (device time - bound); a kernel
     # at or above half of its bound is left alone, and one already
     # redesigned is marked so.
-    ranked = sorted(kernels, key=lambda k: -k["loss_per_pass_us"])
+    ranked = sorted((k for k in kernels if k["loss_per_pass_us"] is not None),
+                    key=lambda k: -k["loss_per_pass_us"])
     print("ranking, launches per pass x (device us - bound us): " + "; ".join(
         f"{k['name']} {k['loss_per_pass_us'] / 1e3:.4f} ms (share "
         f"{k['bound_share']:.3f}"
@@ -3256,6 +3751,11 @@ def main() -> int:
         print(f"{kname} launches per pass by shape: " + "; ".join(
             f"{n:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
             f"{row['bound_us']:.2f} us)" for n, row in groups[kname]), flush=True)
+    for kname in SAMPLERS:
+        n, n_samples = sample_pass[kname]
+        print(f"{kname} per pass: {n} launches, {n_samples} samples "
+              f"({n_samples / max(n, 1):.0f} a launch); not ranked: timed only at "
+              f"the recorded calls' sizes", flush=True)
     stamp("13")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

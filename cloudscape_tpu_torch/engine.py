@@ -67,7 +67,7 @@ from cloudscape_tpu_torch.models.march_fast import (
     wrap_cone_table,
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
-from cloudscape_tpu_torch.ops import _cuda, accum, compact, segscan
+from cloudscape_tpu_torch.ops import _cuda, accum, brick, compact, segscan
 from cloudscape_tpu_torch.ops.brick import brick3_grid, build_brick2_device
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
@@ -88,10 +88,10 @@ _KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
 
 def _probe_kernels(device) -> None:
     """Build the kernel library and launch each of its marching kernels (K1
-    accumulate, K2 compact, K3 segscan) once on a tiny input on `device`;
-    raises on a failed build or launch, or an output of the wrong shape or
-    not finite. The comparisons with the plain versions are the tests' and
-    chip_smoke's."""
+    accumulate, K2 compact, K3 segscan, the samplers K7–K9) once on a tiny
+    input on `device`; raises on a failed build or launch, or an output of
+    the wrong shape or not finite. The comparisons with the plain versions
+    are the tests' and chip_smoke's."""
     _cuda.lib()
     f32 = dict(dtype=torch.float32, device=device)
     n, steps = 2, 8
@@ -103,11 +103,18 @@ def _probe_kernels(device) -> None:
     mask = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0], dtype=torch.bool, device=device)
     idx = compact.compact(mask, 3, 8, with_rank=True)[0]
     scan = segscan.segscan(torch.arange(8, **f32), mask)
+    q = torch.linspace(-0.5, 1.5, 8, **f32)
+    vol = torch.linspace(0.0, 1.0, 4 * 4 * 4 * 2, **f32).reshape(4, 4, 4, 2)
+    samples = (brick.sample_brick3_xyz(brick.build_brick3(vol), q, q, q),
+               brick.sample_brick2_xy(brick.build_brick2(vol[0]), q, q),
+               brick.sample_tiny3_xyz(brick.build_tiny3(vol), q, q, q))
     if tuple(acc.shape) != (n, 4) or tuple(idx.shape) != (3,) \
-            or tuple(scan.shape) != (8,):
+            or tuple(scan.shape) != (8,) or any(tuple(s.shape) != (8, 2)
+                                                for s in samples):
         raise RuntimeError(f"probe shapes {tuple(acc.shape)}, {tuple(idx.shape)}, "
-                           f"{tuple(scan.shape)}")
-    if not bool(torch.isfinite(acc).all() & torch.isfinite(scan).all()):
+                           f"{tuple(scan.shape)}, "
+                           f"{[tuple(s.shape) for s in samples]}")
+    if not all(bool(torch.isfinite(t).all()) for t in (acc, scan) + samples):
         raise RuntimeError("a probe's output is not finite")
 
 

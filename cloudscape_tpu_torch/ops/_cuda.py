@@ -120,6 +120,12 @@ def lib() -> ctypes.CDLL:
                        handle.cs_noise_weather):
                 fn.argtypes = [p, i, ctypes.c_uint, p]
                 fn.restype = i
+            geom = ctypes.POINTER(i)
+            for fn in (handle.cs_sample_brick3, handle.cs_sample_tiny3):
+                fn.argtypes = [p, i, geom, p, p, p, p, ll, p]
+                fn.restype = i
+            handle.cs_sample_brick2.argtypes = [p, i, geom, p, p, p, ll, p]
+            handle.cs_sample_brick2.restype = i
             _LIB = handle
     return _LIB
 

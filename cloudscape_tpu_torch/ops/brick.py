@@ -9,25 +9,52 @@ Each noise texture is reshaped into a table of 128-lane bricks:
   display pair tables of the fused serving tick, clamp wrap)
 
 Brick stride ≤ brick_dim - 1 keeps any trilinear/bilinear footprint inside
-one brick, so a filtered sample is one gathered row reduced against lane
-weights. The layout is the JAX package's, kept as it is so that the port's
-samples match it; a native trilinear sampler can replace it behind the same
-tests. Volumes that fit one row (≤ 128 values) skip the gather
-(`TinyVolume3D`).
+one brick, so a filtered sample reads one brick row. Volumes that fit one
+row (≤ 128 values) are kept whole (`TinyVolume3D`). The layout is the JAX
+package's, kept as it is so that the port's tables match it.
 
-A 96² tile at 128 steps is 1.18 M samples, so an unchunked gather pass
-would materialise ~600 MB of rows and as much again of weights; the
-samplers run in chunks of `SAMPLE_CHUNK` samples to bound peak memory.
+The samplers dispatch on the coordinates' device:
+
+- a CUDA tensor launches a hand-written kernel of `csrc/sample.cu` on the
+  whole plane — K7 `sample_brick3_xyz`, K8 `sample_brick2_xy`, K9
+  `sample_tiny3_xyz` — which reads only the 8 (4 in 2-D) texels that
+  carry weight, or raises (also for a channel count or table type that
+  no main-path table has: `KERNEL_KINDS`); `launches` counts the launches
+  per kernel and `samples` the samples they were given;
+- a CPU tensor takes the plain version, the JAX package's lane-weight form:
+  it gathers each sample's whole row, weighs every lane with hat weights
+  and sums them. A 96² tile at 128 steps is 1.18 M samples, so it runs in
+  chunks of `SAMPLE_CHUNK` samples to bound the rows and weights it
+  materialises.
 """
-
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 
+from cloudscape_tpu_torch.ops import _cuda
+
 SAMPLE_CHUNK = 1 << 18
+
+# Each kernel's launches, and the samples those launches were given.
+launches = {"brick3": 0, "brick2": 0, "tiny3": 0}
+samples = {"brick3": 0, "brick2": 0, "tiny3": 0}
+
+# The (channels, table dtype) pairs csrc/sample.cu compiles: those of the
+# tables the marches, the baked field and the composite sample (the noise
+# mips, optionally bfloat16, the cone cache and the field through K7 and K9;
+# weather and the display pairs through K8). A CUDA call on another pair
+# raises.
+_F32, _BF16 = torch.float32, torch.bfloat16
+KERNEL_KINDS = {
+    "brick3": frozenset({(1, _F32), (2, _F32), (1, _BF16), (2, _BF16)}),
+    "brick2": frozenset({(2, _F32), (8, _F32)}),
+    "tiny3": frozenset({(1, _F32), (2, _F32), (1, _BF16), (2, _BF16)}),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,8 +214,8 @@ def _chunked(fn, *planes):
     return out.reshape(shape + out.shape[-1:])
 
 
-def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):
-    """Trilinear fetch on component planes (x, y, z uv) → [..., C]."""
+def sample_brick3_xyz_reference(bt: BrickTable3D, qx, qy, qz):
+    """Plain version of K7: the lane-weight form, in chunks."""
     d, h, w = bt.dims
     bz, by, bx = bt.brick
     sz, sy, sx = bt.stride
@@ -210,15 +237,8 @@ def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):
     return _chunked(chunk, qx, qy, qz)
 
 
-def sample_brick3(bt: BrickTable3D, q):
-    """Trilinear fetch at q [..., 3] (x, y, z uv) → [..., C] (the table's
-    wrap). For parity with the JAX API; the marches call
-    `sample_brick3_xyz`."""
-    return sample_brick3_xyz(bt, q[..., 0], q[..., 1], q[..., 2])
-
-
-def sample_brick2_xy(bt: BrickTable2D, qu, qv):
-    """Bilinear fetch on component planes (u, v) → [..., C]."""
+def sample_brick2_xy_reference(bt: BrickTable2D, qu, qv):
+    """Plain version of K8: the lane-weight form, in chunks."""
     h, w = bt.dims
     by, bx = bt.brick
     sy, sx = bt.stride
@@ -237,13 +257,8 @@ def sample_brick2_xy(bt: BrickTable2D, qu, qv):
     return _chunked(chunk, qu, qv)
 
 
-def sample_brick2(bt: BrickTable2D, uv):
-    """Bilinear fetch at uv [..., 2] → [..., C] (the table's wrap)."""
-    return sample_brick2_xy(bt, uv[..., 0], uv[..., 1])
-
-
-def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):
-    """Gather-free trilinear fetch from a ≤1-row volume, modular wrap."""
+def sample_tiny3_xyz_reference(tv: TinyVolume3D, qx, qy, qz):
+    """Plain version of K9: weights over the whole row, in chunks."""
     d, h, w = tv.dims
     L = d * h * w
     row = tv.row.reshape(tv.channels, L)
@@ -265,6 +280,110 @@ def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):
         return torch.sum(row[None] * wgt.reshape(-1, 1, L), dim=-1)
 
     return _chunked(chunk, qx, qy, qz)
+
+
+def kernel_args(name: str, table, values: int, geom, channels: int, planes):
+    """(output, arguments, planes) of one sampler kernel call: the output
+    [..., C] float32, allocated; the C entry's arguments but the stream
+    (table, bfloat16 flag, geometry, each plane's address, output,
+    samples); and the contiguous planes they point into, to be held until
+    the launch (a copied view lives only there). Checks the inputs against
+    `KERNEL_KINDS[name]`; `values`: the table's element count that `geom`
+    implies."""
+    what = f"sample_{name}"
+    dev = planes[0].device
+    if table.device != dev:
+        raise ValueError(f"{what}: table on {table.device}, coordinates on {dev}")
+    if not table.is_contiguous() or table.numel() != values:
+        raise ValueError(f"{what}: table must be contiguous with {values} values, "
+                         f"got {table.numel()}")
+    if (channels, table.dtype) not in KERNEL_KINDS[name]:
+        raise ValueError(f"{what}: no kernel for {channels} channels of "
+                         f"{table.dtype}; it has {sorted(map(str, KERNEL_KINDS[name]))}")
+    n = planes[0].numel()
+    for p in planes:
+        if p.device != dev:
+            raise ValueError(f"{what}: coordinates on {p.device} and {dev}")
+        if p.dtype != torch.float32:
+            raise ValueError(f"{what}: coordinates must be float32, got {p.dtype}")
+        if p.numel() != n:
+            raise ValueError(f"{what}: coordinate planes of {n} and {p.numel()} samples")
+    planes = [p.contiguous() for p in planes]
+    out = torch.empty(tuple(planes[0].shape) + (channels,), dtype=torch.float32,
+                      device=dev)
+    args = (table.data_ptr(), int(table.dtype == torch.bfloat16),
+            (ctypes.c_int * len(geom))(*geom), *(p.data_ptr() for p in planes),
+            out.data_ptr(), n)
+    return out, args, planes
+
+
+def _launch(name: str, table, values: int, geom, channels: int, planes):
+    """Launch one sampler kernel on the planes' samples → [..., C] float32."""
+    out, args, held = kernel_args(name, table, values, geom, channels, planes)
+    if out.numel() == 0:
+        return out
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = getattr(_cuda.lib(), f"cs_sample_{name}")(*args, _cuda.stream_handle(dev))
+    del held
+    _cuda.check(rc, f"sample_{name}")
+    with _cuda.COUNT_LOCK:
+        launches[name] += 1
+        samples[name] += args[-1]
+    return out
+
+
+def _on_card(what: str, q) -> bool:
+    """Whether the coordinates take a kernel (CUDA) or the plain version
+    (CPU); any other device raises."""
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {q.device}")
+
+
+def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):
+    """Trilinear fetch on component planes (x, y, z uv) → [..., C] (kernel
+    K7 on the card)."""
+    if not _on_card("sample_brick3_xyz", qx):
+        return sample_brick3_xyz_reference(bt, qx, qy, qz)
+    geom = (*bt.dims, *bt.brick, *bt.stride, bt.grid[1], bt.grid[2], bt.channels,
+            int(bt.wrap == "clamp"))
+    values = math.prod(bt.grid) * bt.channels * math.prod(bt.brick)
+    return _launch("brick3", bt.table, values, geom, bt.channels, (qx, qy, qz))
+
+
+def sample_brick3(bt: BrickTable3D, q):
+    """Trilinear fetch at q [..., 3] (x, y, z uv) → [..., C] (the table's
+    wrap). For parity with the JAX API; the marches call
+    `sample_brick3_xyz`."""
+    return sample_brick3_xyz(bt, q[..., 0], q[..., 1], q[..., 2])
+
+
+def sample_brick2_xy(bt: BrickTable2D, qu, qv):
+    """Bilinear fetch on component planes (u, v) → [..., C] (kernel K8 on
+    the card)."""
+    if not _on_card("sample_brick2_xy", qu):
+        return sample_brick2_xy_reference(bt, qu, qv)
+    geom = (*bt.dims, *bt.brick, *bt.stride, bt.grid[1], bt.channels,
+            int(bt.wrap == "clamp"))
+    values = math.prod(bt.grid) * bt.channels * math.prod(bt.brick)
+    return _launch("brick2", bt.table, values, geom, bt.channels, (qu, qv))
+
+
+def sample_brick2(bt: BrickTable2D, uv):
+    """Bilinear fetch at uv [..., 2] → [..., C] (the table's wrap)."""
+    return sample_brick2_xy(bt, uv[..., 0], uv[..., 1])
+
+
+def sample_tiny3_xyz(tv: TinyVolume3D, qx, qy, qz):
+    """Gather-free trilinear fetch from a ≤1-row volume, modular wrap
+    (kernel K9 on the card)."""
+    if not _on_card("sample_tiny3_xyz", qx):
+        return sample_tiny3_xyz_reference(tv, qx, qy, qz)
+    return _launch("tiny3", tv.row, tv.channels * math.prod(tv.dims),
+                   (*tv.dims, tv.channels), tv.channels, (qx, qy, qz))
 
 
 def sample_tiny3(tv: TinyVolume3D, q):
