@@ -22,7 +22,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    (noise) against their plain versions at the shipped sizes
    (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
    not powers of two (48³, 20³, 100², seed 7), atol 2e-5; and the
-   engines' validation probe, which must launch K1–K3 and K7–K9 once each;
+   engines' validation probe, which must launch K1–K3 and each sampler
+   kernel (K7 and K8 on a texture and on brick rows, K9) once each;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
    steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
    generate) on the card:
@@ -32,16 +33,21 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    cycle boundary that picks up a prebaked cone cache; the launch counts of
    K1, K2 and K4–K6 must show the path ran through those kernels; frames
    must be finite, nonnegative and not black, and the cloud ring must hold
-   clouds; K7–K9 (the brick samplers) launched at least once each;
-   5b. K7–K9 (`csrc/sample.cu`) against their plain versions (the
-   lane-weight form) on every table the phase-5 engine samples: each mip of
-   its pack (the tiny ones through K9), the same pack in bfloat16, its
-   weather table, its cone cache and the display pair tables of its fused
-   tick, at [587, 511] planes (299,957 samples, no multiple of a block) with
-   texel centres and edges: |kernel − plain| ≤ SAMPLE_TOL · max(1, |plain|),
-   three runs bitwise equal, and a strided and a transposed view of the
-   planes giving the same bits; then the v3 march of a V3_SMALL²
-   octahedral map on the card ≥ V3_SMALL_DB from the same call on the CPU;
+   clouds; K7–K9 (the samplers: K7 and K8 on the engine's channel-last
+   textures, K9 on the tiny mips) launched at least once each;
+   5b. K7–K9 (`csrc/sample.cu`) against their plain versions on every
+   table the phase-5 engine samples: each mip of its pack (textures, the
+   tiny ones through K9), the same pack in bfloat16, its weather texture,
+   its cone cache and the display pair textures of its fused tick, at
+   [587, 511] planes (299,957 samples, no multiple of a block) with texel
+   centres and edges: a texture kernel within TEXTURE_TOL relative of its
+   plain version, K9 and the brick kernels within SAMPLE_TOL · max(1,
+   |plain|); three runs bitwise equal, a strided and a transposed view of
+   the planes giving the same bits;
+   each texture also packed into the JAX package's brick table and
+   sampled by the brick kernel (K7, K8 on brick rows), which must give the
+   texture kernel's bits; then the v3 march of a V3_SMALL² octahedral map
+   on the card ≥ V3_SMALL_DB from the same call on the CPU;
 6. K3 (segscan) against its plain version, atol 2e-4, 1-D and batched
    ([k, n]: k rows over one row of heads): at the phase-5 engine's v3
    hot-list capacity (random heads, one segment over every block, every
@@ -174,7 +180,7 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    finite, nonnegative and not black, clouds in the ring, and its
    4-band `render_full_hemisphere` ≥ V3_ENGINE_DB against the dense march;
    11f. (run after phase 8, on the phase-5 engine) `save_file` →
-   `load_file` into a new engine (rings and the cone table bitwise, the
+   `load_file` into a new engine (rings and the cone texture bitwise, the
    next fused tick's frame and rings bitwise), `render_radiance_map(32)` sharp and
    prefiltered (finite, nonnegative, +Y brighter than −Y, the solid
    angles against 4π), and `set_performance(PerfConfig(384, 16))` on a
@@ -220,21 +226,24 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    inputs;
    K4–K6 at the shipped sizes; K7–K9 on the calls recorded as they ran,
    one per table (the headline render's, its cone build's tiny volumes,
-   the fused composite's display pair and march_baked's field), each first
-   held against its plain version as phase 5b holds its tables, bound by
-   the coordinates read, the output written and the distinct table texels
-   the samples weigh, with the plain version's and the wrapper's
-   CUDA-event ms and, for the clamp tables,
-   `torch.nn.functional.grid_sample`'s ms on the texels the table was
-   built from (within LIBRARY_TOL of the kernel); K2's library yardstick,
+   the fused composite's display pairs and march_baked's field), each first
+   held against its plain version as phase 5b holds its tables (a texture
+   also as brick rows), bound by the coordinates read, the output written
+   and the distinct source texels the samples weigh (one bound, whatever
+   the layout), with the plain version's and the wrapper's CUDA-event ms;
+   a texture's call also, on the brick table of the same texels, with the
+   brick kernel (its row under sample_brick3 / sample_brick2); for the clamp tables `torch.nn.functional.grid_sample`
+   on the texture (within LIBRARY_TOL of the kernel), its CUDA-event ms and
+   device µs; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
    pass × (device time − bound), each launch at the time of the shape it
-   ran at (K3: one 1-D and one [3, n] launch per v3 march; K7–K9, timed
-   only at the recorded calls' sizes, are left out: their launches and
-   samples per pass are printed beside it), a JSON line
-   with the kernels (each with `redesigned_in`, the change that
-   redesigned it for the card, or null), and as the last line
+   ran at (K3: one 1-D and one [3, n] launch per v3 march; K7–K9 by their
+   launches per pass in power-of-two buckets of sample count, each bucket
+   timed at its mean size on the kernel's main-row call cut to that many
+   samples), a JSON line with the kernels (each with `redesigned_in`, the
+   change that redesigned it for the card, or null; the brick kernels,
+   off the engine's path, under their own names), and as the last line
    {"ok": true, "device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
@@ -250,8 +259,8 @@ references left out) and `launches_mesh_ticks` by its 70 mesh ticks. Phase
 8c counts each stage's call on its own (zeroed just before it), after phase
 8's counts are read. `launches_per_pass` counts one pass: phase 5, phase
 7's first render_full_hemisphere and phase 11b's timed window, without the
-one launch of K1–K3 and K7–K9 of phase 5's validation probe (a tiny input,
-not a pass's shape). Every engine the script builds must pass its
+one launch of K1–K3 and of each sampler kernel of phase 5's validation
+probe (a tiny input, not a pass's shape). Every engine the script builds must pass its
 validation (`can_run`).
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
@@ -324,7 +333,8 @@ NOISE_LATTICE = {"base": (56, 324), "detail": (0, 81), "weather": (104, 0)}
 NOISE_OUT = {"base": (16, 3), "detail": (12, 3), "weather": (12, 2)}
 # The change (its number in PERF.md §6's Findings) that redesigned each
 # kernel for the card after its first port; the ranking marks those.
-REDESIGNED_IN = {"accumulate": 4, "compact": 4, "segscan": 5}
+REDESIGNED_IN = {"accumulate": 4, "compact": 4, "segscan": 5, "sample_tex3": 13,
+                 "sample_tex2": 13}
 # Device kernel names of each wrapper, for picking its launches out of a
 # profiler trace.
 KERNEL_NAMES = {
@@ -334,9 +344,12 @@ KERNEL_NAMES = {
     "noise_base": ("base_kernel",),
     "noise_detail": ("detail_kernel",),
     "noise_weather": ("weather_kernel",),
+    "sample_tex3": ("tex3_kernel",),
+    "sample_tex2": ("tex2_kernel",),
+    "sample_tiny3": ("tiny3_kernel",),
     "sample_brick3": ("brick3_kernel",),
     "sample_brick2": ("brick2_kernel",),
-    "sample_tiny3": ("tiny3_kernel",),
+    "grid_sample": ("grid_sampler_2d_kernel", "grid_sampler_3d_kernel"),
 }
 
 
@@ -902,7 +915,7 @@ def run_v3_engine(eng):
     perf = eng.perf
     torch.cuda.synchronize()
     k1_0, k2_0, k3_0 = accum.launches, compact.launches, segscan.launches
-    s_0, n_0 = read_counts(), read_samples()
+    s_0, n_0, z_0 = read_counts(), read_samples(), read_sizes()
     t0 = time.perf_counter()
     out = eng.render_full_hemisphere()
     torch.cuda.synchronize()
@@ -911,6 +924,7 @@ def run_v3_engine(eng):
     k2, k3 = compact.launches - k2_0, segscan.launches - k3_0
     samples = {k: v - s_0[k] for k, v in read_counts().items() if k in SAMPLERS}
     sizes = {k: v - n_0[k] for k, v in read_samples().items()}
+    size_counts = sizes_since(z_0)
     # One 1-D log-transmittance scan and one [3, n] radiance scan a march.
     require(k3 >= 2, f"render_full_hemisphere launched K3 {k3} < 2 times")
     require(k2 >= 3, f"render_full_hemisphere launched K2 {k2} < 3 times")
@@ -945,7 +959,8 @@ def run_v3_engine(eng):
     require(off_db >= 100.0, f"gates-off v3 vs dense march {off_db:.2f} dB < 100")
     return dict(policy=policy, caps=caps, first_ms=first_ms,
                 ms=statistics.median(ms), db=db, off_db=off_db, k1=k1, k2=k2, k3=k3,
-                samples=samples, sample_sizes=sizes, compactions=compactions,
+                samples=samples, sample_sizes=sizes, size_counts=size_counts,
+                compactions=compactions,
                 cloud_frac=float((out[..., 3] > 0.1).float().mean()))
 
 
@@ -975,12 +990,15 @@ def record_kernels(fn):
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    import collections
+
     from cloudscape_tpu_torch.ops import accum, brick, compact, noise_kernel, segscan
 
     accum.launches = compact.launches = segscan.launches = 0
     noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
     brick.launches = dict.fromkeys(brick.launches, 0)
     brick.samples = dict.fromkeys(brick.samples, 0)
+    brick.sizes = {k: collections.Counter() for k in brick.sizes}
 
 
 def read_counts() -> dict:
@@ -1001,6 +1019,21 @@ def read_samples() -> dict:
     return {f"sample_{k}": v for k, v in brick.samples.items()}
 
 
+def read_sizes() -> dict:
+    """Each sampler kernel's launches by their sample count (a Counter of
+    n → launches, counted where they launch), by kernel name."""
+    import collections
+
+    from cloudscape_tpu_torch.ops import brick
+
+    return {f"sample_{k}": collections.Counter(v) for k, v in brick.sizes.items()}
+
+
+def sizes_since(before: dict) -> dict:
+    """The sampler launches by size since `before` (a `read_sizes()`)."""
+    return {k: v - before[k] for k, v in read_sizes().items()}
+
+
 def counted(fn):
     """(fn's result, the kernel launches of that one call): the counts are
     zeroed just before the call and read just after it."""
@@ -1012,18 +1045,24 @@ def counted(fn):
     return out, read_counts()
 
 
-# K7–K9 (csrc/sample.cu) against their plain versions. The kernel computes
-# the plain version's coordinates, hat weights and corner products, and
-# sums a channel's 8 corners (4 in 2-D) in lane order where the plain
-# version's torch.sum reduces all 128 lanes in another tree: the two agree
-# within a few ulps of the sample, not bitwise. So |kernel − plain| ≤
-# SAMPLE_TOL · max(1, |plain|): 1e-6 absolute on the [0, 1] noise and
-# weather tables, as tests/test_torch_brick_atmo.py holds the plain
-# samplers to JAX's, and relative on the cone densities and the display
-# pairs' HDR radiance. (The plain version multiplies every lane, so a
-# non-finite texel anywhere in a row would turn its sample NaN where the
-# kernel, which reads only the corners, would not; the tables are finite.)
+# K7–K9 (csrc/sample.cu) against their plain versions. A texture kernel
+# (K7 tex3_kernel, K8 tex2_kernel) and its plain version take the same
+# steps in the same order and rounding, so they agree bitwise; they are held
+# at TEXTURE_TOL relative, the most the brick kernels have differed from
+# their plain versions on the card. The brick kernels and K9 sum a channel's 8
+# corners (4 in 2-D) in lane order where their plain versions' torch.sum
+# reduces all 128 lanes in another tree: the two agree within a few ulps of
+# the sample, not bitwise. So for them |kernel − plain| ≤ SAMPLE_TOL ·
+# max(1, |plain|): 1e-6 absolute on the [0, 1] noise and weather tables, as
+# tests/test_torch_brick_atmo.py holds the plain samplers to JAX's, and
+# relative on the cone densities and the display pairs' HDR radiance. (The
+# brick plain version multiplies every lane, so a non-finite texel anywhere
+# in a row would turn its sample NaN where the kernel, which reads only the
+# corners, would not; the tables are finite.) A texture kernel also gives
+# the brick kernel's bits on the brick table of the same texels: it rounds
+# its hat weights at the lanes that table gives them.
 SAMPLE_TOL = 1e-6
+TEXTURE_TOL = 2.4e-7
 # The library yardstick (grid_sample, phase 13) against the kernel, scaled
 # as SAMPLE_TOL is: grid_sample takes the coordinate through 2q − 1 and
 # back, ((g + 1)·n − 1) / 2, which moves f by a few ulps of q·n (up to
@@ -1034,8 +1073,13 @@ LIBRARY_TOL = 1e-3
 # The checks' planes: [SAMPLE_ROWS, SAMPLE_COLS] samples (a [rays, steps]
 # plane, 299,957 samples, no multiple of the kernels' 256-thread blocks).
 SAMPLE_ROWS, SAMPLE_COLS = 587, 511
-# The samplers' names in the kernels line, in kernel order (K7, K8, K9).
-SAMPLERS = ("sample_brick3", "sample_brick2", "sample_tiny3")
+# The samplers' names in the kernels line: K7 and K8 on channel-last
+# textures (the engine's tables), K9, then K7 and K8 on the JAX package's
+# brick tables (the public `sample_brick*` API, off the engine's path).
+SAMPLERS = ("sample_tex3", "sample_tex2", "sample_tiny3", "sample_brick3",
+            "sample_brick2")
+# The samplers of the engine's path: each must launch where the path runs.
+MAIN_SAMPLERS = SAMPLERS[:3]
 # Card against CPU on a small octahedral map: V3_SMALL² texels × STEPS
 # steps of the v3 march, a procedural pack (16, 16, 64, seed 1), coverage
 # 0.6 and a (8, 64, 64) cone cache; every input made on the card and
@@ -1048,7 +1092,9 @@ def sampler_fns(kname: str):
     """(wrapper, plain version, coordinate planes) of a sampler kernel."""
     from cloudscape_tpu_torch.ops import brick
 
-    return {"sample_brick3": (brick.sample_brick3_xyz,
+    return {"sample_tex3": (brick.sample_tex3_xyz, brick.sample_tex3_xyz_reference, 3),
+            "sample_tex2": (brick.sample_tex2_xy, brick.sample_tex2_xy_reference, 2),
+            "sample_brick3": (brick.sample_brick3_xyz,
                               brick.sample_brick3_xyz_reference, 3),
             "sample_brick2": (brick.sample_brick2_xy,
                               brick.sample_brick2_xy_reference, 2),
@@ -1058,22 +1104,52 @@ def sampler_fns(kname: str):
 
 def sampler_of(tab) -> str:
     """The kernel that samples a table."""
-    from cloudscape_tpu_torch.ops.brick import BrickTable2D, BrickTable3D
+    from cloudscape_tpu_torch.ops import brick
 
-    if isinstance(tab, BrickTable3D):
-        return "sample_brick3"
-    return "sample_brick2" if isinstance(tab, BrickTable2D) else "sample_tiny3"
+    for cls, kname in ((brick.Texture3D, "sample_tex3"), (brick.Texture2D, "sample_tex2"),
+                       (brick.BrickTable3D, "sample_brick3"),
+                       (brick.BrickTable2D, "sample_brick2")):
+        if isinstance(tab, cls):
+            return kname
+    return "sample_tiny3"
+
+
+def is_texture(tab) -> bool:
+    return sampler_of(tab) in ("sample_tex3", "sample_tex2")
+
+
+def table_values(tab):
+    """The tensor that holds a table's values."""
+    kname = sampler_of(tab)
+    if kname == "sample_tiny3":
+        return tab.row
+    return tab.texels if is_texture(tab) else tab.table
 
 
 def table_kind(tab) -> str:
-    """A table's kind: channels, dims, brick and stride, wrap and type."""
-    dtype = str((tab.row if sampler_of(tab) == "sample_tiny3" else tab.table).dtype)
-    dtype = dtype.replace("torch.", "")
+    """A table's kind: channels, dims, layout (texture, tiny, or brick and
+    stride), wrap and type."""
+    dtype = str(table_values(tab).dtype).replace("torch.", "")
     dims = "x".join(map(str, tab.dims))
     if sampler_of(tab) == "sample_tiny3":
         return f"{tab.channels}-ch tiny {dims} {dtype}"
+    if is_texture(tab):
+        return f"{tab.channels}-ch {dims} texture, {tab.wrap}, {dtype}"
     return (f"{tab.channels}-ch {dims} in {'x'.join(map(str, tab.brick))} bricks, "
             f"stride {'x'.join(map(str, tab.stride))}, {tab.wrap}, {dtype}")
+
+
+def brick_table(tex):
+    """A texture packed into the JAX package's brick table of its (ndim,
+    channels), in its texels' type: phases 5b and 13 hold and time the
+    brick kernels on it, on the same texels and calls. Its stride is the
+    texture's weight stride (`brick.weight_strides`), and its brick one
+    texel wider."""
+    from cloudscape_tpu_torch.ops import brick
+
+    stride = brick.weight_strides(len(tex.dims), tex.channels)
+    build = brick.build_brick3 if len(tex.dims) == 3 else brick.build_brick2
+    return build(tex.texels, tuple(s + 1 for s in stride), stride, wrap=tex.wrap)
 
 
 def sample_planes(dev, k: int, lo: float, hi: float, seed: int):
@@ -1093,11 +1169,11 @@ def sample_planes(dev, k: int, lo: float, hi: float, seed: int):
 
 def check_sampler(what: str, tab, qs) -> tuple:
     """One sampler kernel against its plain version on `tab` at the planes
-    `qs`: within SAMPLE_TOL (scaled as SAMPLE_TOL says), three runs bitwise
-    equal, and the same bits from views of the planes (x a strided
-    component of a stacked tensor, y a transposed view the wrapper copies).
-    Returns (the largest |kernel − plain| / max(1, |plain|), the largest
-    |kernel − plain|)."""
+    `qs`: within TEXTURE_TOL (a texture) or SAMPLE_TOL (scaled as
+    SAMPLE_TOL says), three runs bitwise equal, and the same bits from
+    views of the planes (x a strided component of a stacked tensor, y a
+    transposed view the wrapper copies). Returns (the largest |kernel − plain| / max(1, |plain|), the
+    largest |kernel − plain|, the kernel's output)."""
     import torch
 
     fn, ref, _ = sampler_fns(sampler_of(tab))
@@ -1116,15 +1192,30 @@ def check_sampler(what: str, tab, qs) -> tuple:
     require(bitwise_equal(view_out, runs[0]), f"{what}: views differ from the planes")
     diff = (runs[0] - want).abs()
     err = float((diff / want.abs().clamp(min=1.0)).max())
-    require(err <= SAMPLE_TOL, f"{what}: |kernel - plain| {err:.3g} > {SAMPLE_TOL}")
-    return err, float(diff.max())
+    tol = TEXTURE_TOL if is_texture(tab) else SAMPLE_TOL
+    require(err <= tol, f"{what}: |kernel - plain| {err:.3g} > {tol}")
+    return err, float(diff.max()), runs[0]
+
+
+def check_texture(what: str, tex, qs) -> list:
+    """`check_sampler` on a texture and on its brick table (`brick_table`),
+    whose kernel must give the texture kernel's bits. Returns both rows."""
+    t_err, t_abs, t_out = check_sampler(what, tex, qs)
+    bt = brick_table(tex)
+    b_err, b_abs, b_out = check_sampler(f"{what} as brick rows", bt, qs)
+    require(bitwise_equal(b_out, t_out),
+            f"{what}: the brick kernel differs from the texture kernel")
+    return [(sampler_of(tex), table_kind(tex), t_err, t_abs),
+            (sampler_of(bt), table_kind(bt), b_err, b_abs)]
 
 
 def run_sampler_checks(dev, eng) -> list:
-    """Phase 5b: K7–K9 against their plain versions (`check_sampler`) on
-    every table the phase-5 engine samples: each mip of its pack's brick
-    tables (tiny mips through K9), the same in bfloat16, the weather table,
-    its cone cache and the display pair tables of its fused tick."""
+    """Phase 5b: K7–K9 against their plain versions on every table the
+    phase-5 engine samples: each mip of its pack's textures (tiny mips
+    through K9), the same in bfloat16, the weather texture, its cone cache
+    and the display pair textures of its fused tick; each texture also as
+    the JAX package's brick table, through the brick kernels
+    (`check_texture`)."""
     import torch
 
     from cloudscape_tpu_torch.models.march_fast import BrickPack
@@ -1143,16 +1234,21 @@ def run_sampler_checks(dev, eng) -> list:
         clamp = getattr(tab, "wrap", "repeat") == "clamp"
         k = sampler_fns(sampler_of(tab))[2]
         qs = sample_planes(dev, k, *((-0.25, 1.25) if clamp else (-1.5, 2.5)), seed)
-        err, abs_err = check_sampler(name, tab, qs)
-        rows.append(dict(table=name, kind=table_kind(tab), kernel=sampler_of(tab),
-                         err=err, abs_err=abs_err))
+        if is_texture(tab):
+            checked = check_texture(name, tab, qs)
+        else:
+            err, abs_err, _ = check_sampler(name, tab, qs)
+            checked = [(sampler_of(tab), table_kind(tab), err, abs_err)]
+        rows += [dict(table=name, kind=kind, kernel=kname, err=err, abs_err=abs_err)
+                 for kname, kind, err, abs_err in checked]
     return rows
 
 
 def run_v3_small(dev) -> dict:
     """Phase 5b: the v3 march of a V3_SMALL² octahedral texel grid on the
     card against the same call on the CPU, ≥ V3_SMALL_DB; the card's call
-    must launch K7–K9's wrappers (K9 in its cone cache's build)."""
+    must launch K7–K9's texture and tiny wrappers (K9 in its cone cache's
+    build)."""
     import dataclasses
 
     import torch
@@ -1184,7 +1280,7 @@ def run_v3_small(dev) -> dict:
                             small=tuple(v.cpu() for v in noise.small),
                             weather=noise.weather.cpu())
     cone_cpu = ConeCache(table=dataclasses.replace(cone.table,
-                                                   table=cone.table.table.cpu()),
+                                                   texels=cone.table.texels.cpu()),
                          extent=cone.extent)
     inputs = {dev: (params, bricks, sky, cone),
               cpu: (MarchParams.create(device=cpu, **scene),
@@ -1209,7 +1305,7 @@ def run_v3_small(dev) -> dict:
     db = psnr(card, host)
     require(db >= V3_SMALL_DB, f"the small v3 map, card vs CPU {db:.2f} dB < "
             f"{V3_SMALL_DB}")
-    samples = {k: counts[k] + cone_counts[k] for k in SAMPLERS}
+    samples = {k: counts[k] + cone_counts[k] for k in MAIN_SAMPLERS}
     require(all(v > 0 for v in samples.values()),
             f"the small v3 map (and its cone cache) launched K7–K9 {samples}")
     return dict(db=db, policy=(rk, ck, hk), cloud_frac=frac, launches=samples)
@@ -1234,8 +1330,8 @@ def record_samples(fn):
             return real(tab, *qs)
         return rec
 
-    names = (("sample_brick3", "sample_brick3_xyz", (march_fast, field)),
-             ("sample_brick2", "sample_brick2_xy", (march_fast, brick)),
+    names = (("sample_tex3", "sample_tex3_xyz", (march_fast, field)),
+             ("sample_tex2", "sample_tex2_xy", (march_fast, brick)),
              ("sample_tiny3", "sample_tiny3_xyz", (march_fast,)))
     saved = [(mod, attr, getattr(mod, attr)) for _, attr, mods in names for mod in mods]
     for kname, attr, mods in names:
@@ -1249,10 +1345,12 @@ def record_samples(fn):
 
 
 def sample_bytes(tab, qs) -> int:
-    """The least bytes a sampler call moves: its coordinate planes read
-    once, its [n, C] f32 output written once, and the distinct texels its
-    samples weigh (8 corners, 4 in 2-D, in each channel) read once; the
-    whole row of a tiny volume."""
+    """The least bytes a sampler call moves, whatever the table's layout:
+    its coordinate planes read once, its [n, C] f32 output written once, and
+    the distinct source texels its samples weigh (each sample's 8 corners,
+    4 in 2-D, in the texture's own dims, all C channels) read once; the
+    whole row of a tiny volume. The texture kernel, the brick kernel on the
+    same texels and grid_sample are held to this one bound."""
     import itertools
 
     import torch
@@ -1262,54 +1360,31 @@ def sample_bytes(tab, qs) -> int:
     n = qs[0].numel()
     c = tab.channels
     if sampler_of(tab) == "sample_tiny3":
-        texels = tab.row.numel()
-        size = tab.row.element_size()
-    else:
-        fb = torch.zeros(n, dtype=torch.int64, device=qs[0].device)
-        local = []
-        # The planes are x first; the table's dims, strides and grid z first.
-        for q, dim, s, g in zip(reversed(qs), tab.dims, tab.stride, tab.grid):
-            i0, _ = brick._axis_coords(q.reshape(-1), dim, tab.wrap)
-            fb = fb * g + i0 // s
-            local.append(i0 % s)
-        row = tab.table.shape[1]
-        corners = []
-        for d in itertools.product((0, 1), repeat=len(local)):
-            lane = torch.zeros_like(fb)
-            for l0, dk, b in zip(local, d, tab.brick):
-                lane = lane * b + l0 + dk
-            corners.append(fb * row + lane)
-        texels = int(torch.unique(torch.cat(corners)).numel()) * c
-        size = tab.table.element_size()
-    return 4 * len(qs) * n + 4 * c * n + texels * size
+        return 4 * len(qs) * n + 4 * c * n + tab.row.numel() * tab.row.element_size()
+    axes = []
+    # The planes are x first; the texture's dims z first.
+    for q, dim in zip(reversed(qs), tab.dims):
+        i0, _ = brick._axis_coords(q.reshape(-1), dim, tab.wrap)
+        i1 = torch.where(i0 + 1 < dim, i0 + 1, dim - 1 if tab.wrap == "clamp" else 0)
+        axes.append((i0, i1, dim))
+    corners = []
+    for d in itertools.product((0, 1), repeat=len(axes)):
+        idx = torch.zeros(n, dtype=torch.int64, device=qs[0].device)
+        for (i0, i1, dim), dk in zip(axes, d):
+            idx = idx * dim + (i1 if dk else i0)
+        corners.append(idx)
+    texels = int(torch.unique(torch.cat(corners)).numel()) * c
+    return 4 * len(qs) * n + 4 * c * n + texels * tab.texels.element_size()
 
 
-def brick_image(tab):
-    """The [(D,) H, W, C] texels a brick table was built from (each texel
-    from the brick whose lower corner holds it), for the library yardstick."""
-    import torch
-
-    dims = tab.dims
-    idx = [torch.arange(d, device=tab.table.device) for d in dims]
-    grids = torch.meshgrid(*idx, indexing="ij")
-    fb = torch.zeros_like(grids[0])
-    lane = torch.zeros_like(grids[0])
-    for g, s, n_b, b in zip(grids, tab.stride, tab.grid, tab.brick):
-        fb = fb * n_b + g // s
-        lane = lane * b + g % s
-    lanes = math.prod(tab.brick)
-    cols = lane[..., None] + lanes * torch.arange(tab.channels, device=lane.device)
-    return tab.table[fb[..., None], cols]
-
-
-def grid_sample_fn(tab, qs):
+def grid_sample_fn(tex, qs):
     """The one PyTorch call that computes a clamp-wrap sample:
     `torch.nn.functional.grid_sample` (bilinear, align_corners=False,
-    padding_mode="border") on the texels the table was built from, the
-    coordinates as one [1, (1,) 1, n, k] grid of 2q − 1."""
+    padding_mode="border") on the texture's texels, the coordinates as one
+    [1, (1,) 1, n, k] grid of 2q − 1."""
     import torch
 
-    img = brick_image(tab)
+    img = tex.texels
     src = img.permute(-1, *range(img.dim() - 1))[None].contiguous()  # [1, C, ...]
     grid = torch.stack([2.0 * q.reshape(-1) - 1.0 for q in qs], dim=-1)
     grid = grid.reshape((1,) * (src.dim() - 2) + (-1, len(qs)))
@@ -1318,37 +1393,77 @@ def grid_sample_fn(tab, qs):
         return torch.nn.functional.grid_sample(src, grid, mode="bilinear",
                                                padding_mode="border",
                                                align_corners=False)
-    return call, img
+    return call
+
+
+def sampler_row(kname: str, kind: str, tab, qs, nbytes: int, **extra):
+    """A sampler kernel's device µs (cold L2) on one call against the bound
+    `nbytes`, with the wrapper's and the plain version's CUDA-event ms."""
+    fn, ref, _ = sampler_fns(kname)
+    row = timed_row(f"{kind}, {qs[0].numel()} samples", lambda: fn(tab, *qs),
+                    KERNEL_NAMES[kname], nbytes, samples=qs[0].numel(), **extra)
+    row["event_ms"] = cuda_time_ms(lambda: fn(tab, *qs))
+    row["plain_ms"] = cuda_time_ms(lambda: ref(tab, *qs), reps=3)
+    return row
 
 
 def time_sampler(kname: str, kind: str, tab, qs, serves: str):
-    """A sampler kernel's device µs (cold L2) on a recorded call against
-    its byte bound, the wrapper's and the plain version's CUDA-event ms,
-    and for a clamp table the library yardstick (grid_sample), which must
-    agree with the kernel within LIBRARY_TOL (relative, as SAMPLE_TOL
-    scales)."""
+    """Phase 13 on one recorded call. The kernel's row (`sampler_row`) on
+    the layout-free bound (`sample_bytes`); for a clamp texture the library
+    yardstick, grid_sample, which must agree with the kernel within
+    LIBRARY_TOL (relative, as SAMPLE_TOL scales): its CUDA-event ms and
+    device µs; for a texture the brick kernel's row on the brick table of
+    the same texels (`brick`), on the same bound."""
     import torch
 
-    fn, ref, _ = sampler_fns(kname)
     n = qs[0].numel()
-    row = timed_row(f"{kind}, {n} samples", lambda: fn(tab, *qs), KERNEL_NAMES[kname],
-                    sample_bytes(tab, qs), serves=serves, samples=n)
-    row["event_ms"] = cuda_time_ms(lambda: fn(tab, *qs))
-    row["plain_ms"] = cuda_time_ms(lambda: ref(tab, *qs), reps=3)
-    row["library_ms"] = None
-    row["library"] = "none: no repeat wrap in PyTorch"
+    nbytes = sample_bytes(tab, qs)
+    row = sampler_row(kname, kind, tab, qs, nbytes, serves=serves)
+    row.update(library_ms=None, library_device_us=None,
+               library="none: no repeat wrap in PyTorch")
+    fn = sampler_fns(kname)[0]
     if getattr(tab, "wrap", "repeat") == "clamp":
-        call, _ = grid_sample_fn(tab, qs)
+        call = grid_sample_fn(tab, qs)
         got = call().reshape(tab.channels, n).t()
         want = fn(tab, *qs).reshape(n, tab.channels)
         err = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
         require(err <= LIBRARY_TOL, f"grid_sample differs from {kname} on {kind} "
                 f"by {err:.3g} > {LIBRARY_TOL}")
         row["library_ms"] = cuda_time_ms(call)
+        row["library_device_us"] = device_us(call, KERNEL_NAMES["grid_sample"])["span_us"]
         row["library"] = (f"torch.nn.functional.grid_sample (bilinear, border, "
-                          f"align_corners=False) on the source texels; max rel "
-                          f"diff {err:.3g}")
+                          f"align_corners=False) on the texture; max rel diff "
+                          f"{err:.3g}")
+    if is_texture(tab):
+        bt = brick_table(tab)
+        bname = sampler_of(bt)
+        row["brick"] = sampler_row(bname, table_kind(bt), bt, qs, nbytes, serves=serves)
+        row["brick"].update({k: row[k] for k in ("library_ms", "library_device_us",
+                                                 "library")})
     return row
+
+
+def price_sizes(kname: str, tab, qs, sizes) -> dict:
+    """Phase 13's price of a sampler kernel over a pass: its launches there
+    by sample count (`sizes`, a Counter) in power-of-two buckets, each
+    bucket timed at its mean size on the kernel's main-row call, its planes
+    cut to that many samples (device µs, cold L2, against that cut call's
+    bound). Returns the groups [(launches, row)] for `loss_per_pass_us`."""
+    buckets = {}
+    for m, count in sizes.items():
+        if m > 0 and count > 0:
+            b = buckets.setdefault(max(m - 1, 1).bit_length(), [0, 0])
+            b[0] += count
+            b[1] += count * m
+    fn = sampler_fns(kname)[0]
+    flat = [q.reshape(-1) for q in qs]
+    groups = []
+    for _, (count, total) in sorted(buckets.items()):
+        m = min(max(round(total / count), 1), flat[0].numel())
+        cut = [q[:m] for q in flat]
+        groups.append((count, timed_row(f"{m} samples", lambda: fn(tab, *cut),
+                                        KERNEL_NAMES[kname], sample_bytes(tab, cut))))
+    return groups
 
 
 def run_headline(dev):
@@ -1425,7 +1540,7 @@ def run_headline(dev):
         require(bool(torch.isfinite(exact).all()), f"referee not finite (cov {cov})")
         torch.cuda.synchronize()
         samples = {k: v - s_0[k] for k, v in read_counts().items() if k in SAMPLERS}
-        require(all(v > 0 for v in samples.values()),
+        require(all(samples[k] > 0 for k in MAIN_SAMPLERS),
                 f"the headline at coverage {cov} launched K7–K9 {samples}")
         exact_np = exact.cpu().numpy()
         db_exact = psnr(out.cpu().numpy(), exact_np)
@@ -1507,7 +1622,7 @@ def stage_trace(march, full, full_launches, cull: bool, all_above: bool) -> dict
         else:
             require(not bool(rest.any()), f"debug_stage {k}: probe entries past [0, 0]")
         rows.append(dict(stage=k, what=STAGE_NAMES[k], k1=n["accumulate"], k2=n["compact"],
-                         k3=n["segscan"], k7=n["sample_brick3"], k8=n["sample_brick2"],
+                         k3=n["segscan"], k7=n["sample_tex3"], k8=n["sample_tex2"],
                          k9=n["sample_tiny3"], probe=float(probe) if k else None))
     times = {k: [] for k in stages}
     for _ in range(STAGE_REPS):
@@ -1716,7 +1831,7 @@ def run_field(dev, exact):
 
     field = build()
     field, build_ms = timed_call(build)
-    table = field.table.table
+    table = field.table.texels
     require(bool(torch.isfinite(table).all()), "the baked field is not finite")
 
     def render(f=field):
@@ -1733,7 +1848,7 @@ def run_field(dev, exact):
     check_recorded("march_baked", compactions)
     _, counts = counted(render)
     require(counts["compact"] == 2, f"march_baked launched K2 {counts['compact']} times")
-    # The field's own table kind (2-ch 4x4x4 clamp): march_baked's first
+    # The field's own table kind (a 2-ch clamp texture): march_baked's first
     # call on it, recorded for phase 13, which holds it against the plain
     # version and times it.
     _, calls = record_samples(render)
@@ -1748,7 +1863,7 @@ def run_field(dev, exact):
             timed_call(lambda: render(f))
         sweep.append(dict(res=res, build_ms=b_ms, ms=r_ms,
                           db=psnr(o.cpu().numpy(), exact_np),
-                          table_mb=f.table.table.numel() * 4 / 1e6))
+                          table_mb=f.table.texels.numel() * 4 / 1e6))
         del f, o
 
     occ = float(occupied_ray_fraction(dirs, params, field))
@@ -1956,10 +2071,10 @@ def run_engine(dev, ticks: int):
             pickups += 1
     k1_launches, k2_launches = accum.launches, compact.launches
     samples = {k: v for k, v in read_counts().items() if k in SAMPLERS}
-    sample_sizes = read_samples()
+    sample_sizes, size_counts = read_samples(), read_sizes()
 
     require(pickups >= 1, "no cycle boundary picked up a prebaked cone cache")
-    require(all(v > built[k] for k, v in samples.items()),
+    require(all(samples[k] > built[k] for k in MAIN_SAMPLERS),
             f"the engine phase launched K7–K9 {samples}, its validation {built}")
     require(k1_launches >= ticks, f"K1 launched {k1_launches} < {ticks} ticks")
     # The prebake finalize launches K2 during the ticks.
@@ -1975,6 +2090,7 @@ def run_engine(dev, ticks: int):
     return eng, dict(warm_s=warm_s, tick_ms=tick_ms, pickups=pickups,
                      k1=k1_launches, k2=k2_launches, noise=noise_launches,
                      samples=samples, sample_sizes=sample_sizes,
+                     size_counts=size_counts,
                      cloud_frac=cloud_frac, frame_mean=float(frame.mean()))
 
 
@@ -2332,9 +2448,10 @@ def run_tile_cull(dev):
 
     # The samples the window's sampler launches were given (phase 13's
     # samples per pass).
-    n_warm = read_samples()
+    n_warm, z_warm = read_samples(), read_sizes()
     window()
     window_samples = {k: v - n_warm[k] for k, v in read_samples().items()}
+    window_sizes = sizes_since(z_warm)
     k1, k2, k3 = (accum.launches - k_warm[0], compact.launches - k_warm[1],
                   segscan.launches - k_warm[2])
     counts = read_counts()
@@ -2342,7 +2459,7 @@ def run_tile_cull(dev):
                  noise=dict(noise_kernel.launches),
                  samples={k: counts[k] for k in SAMPLERS})
     samples = {k: counts[k] - s_warm[k] for k in SAMPLERS}
-    require(all(v > built[k] for k, v in phase["samples"].items()),
+    require(all(phase["samples"][k] > built[k] for k in MAIN_SAMPLERS),
             f"the tile-cull phase launched K7–K9 {phase['samples']}, its "
             f"validation {built}")
     require(pickups == 1, f"{pickups} boundaries in the timed window, not 1")
@@ -2454,6 +2571,7 @@ def run_tile_cull(dev):
         arm_ticks={a: len(v) for a, v in arms.items()},
         histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
         k1=k1, k2=k2, k3=k3, samples=samples, window_samples=window_samples,
+        window_sizes=window_sizes,
         phase=phase, v3_tiles=len(arms["v3"]),
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
@@ -3042,10 +3160,12 @@ def run_api(dev, eng):
             and bitwise_equal(twin.sky_ring, eng.sky_ring), "load_file rings differ")
     # The restored engine bakes its cone cache in one pass; the phase-5
     # engine holds the one its prebake sliced: the same cells, the same bits.
-    cone_diff = float((twin._cone_cache.table.table - eng._cone_cache.table.table)
-                      .abs().max())
-    require(bitwise_equal(twin._cone_cache.table.table, eng._cone_cache.table.table),
-            f"the restored cone table differs from the prebaked one by {cone_diff:.3g}")
+    got, want = twin._cone_cache.table, eng._cone_cache.table
+    require((got.dims, got.channels, got.wrap) == (want.dims, want.channels, want.wrap),
+            "the restored cone texture's geometry differs")
+    cone_diff = float((got.texels - want.texels).abs().max())
+    require(bitwise_equal(got.texels, want.texels),
+            f"the restored cone texture differs from the prebaked one by {cone_diff:.3g}")
     eye = camera_dirs(1280, 720, dev)
     now = (TICKS + 1) / 60.0
     x0, y0 = eng.ring.update_position
@@ -3197,7 +3317,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     start = time.perf_counter()
 
     def stamp(phases: str) -> None:
@@ -3230,7 +3350,7 @@ def main() -> int:
     from cloudscape_tpu_torch.engine import _probe_kernels
 
     _, probe = counted(lambda: _probe_kernels(dev))
-    probe_samples = read_samples()
+    probe_samples, probe_sizes = read_samples(), read_sizes()
     probe = {k: probe[k] for k in ("accumulate", "compact", "segscan") + SAMPLERS}
     require(all(v == 1 for v in probe.values()),
             f"the validation probe did not launch K1–K3 and K7–K9 once each: {probe}")
@@ -3252,9 +3372,12 @@ def main() -> int:
 
     sample_rows = run_sampler_checks(dev, eng)
     for row in sample_rows:
+        texture = row["kernel"] in ("sample_tex3", "sample_tex2")
         print(f"{row['kernel']} {row['table']} ({row['kind']}): |kernel - plain| / "
-              f"max(1, |plain|) {row['err']:.3g} (gate {SAMPLE_TOL}), three runs and "
-              f"views bitwise", flush=True)
+              f"max(1, |plain|) {row['err']:.3g} (gate "
+              f"{TEXTURE_TOL if texture else SAMPLE_TOL}), three runs and views "
+              f"bitwise" + ("; the brick kernel on its brick table bitwise"
+                            if texture else ""), flush=True)
     vs = run_v3_small(dev)
     print(f"v3 march {V3_SMALL}x{V3_SMALL}x{STEPS} (octahedral, procedural pack "
           f"16/16/64, coverage 0.6), card vs CPU: {vs['db']:.2f} dB (gate "
@@ -3360,7 +3483,7 @@ def main() -> int:
     del eng
     print(f"save_file -> load_file (phase-5 engine): rings bitwise, the next fused "
           f"tick's frame and rings bitwise (its tile at {api['tile']}, cloud fraction "
-          f"{api['tile_cloud']:.4f}; the prebaked and the restored cone tables "
+          f"{api['tile_cloud']:.4f}; the prebaked and the restored cone textures "
           f"bitwise)", flush=True)
     print(f"render_radiance_map(32): {api['radiance_ms']:.2f} ms, +Y face mean "
           f"{api['up']:.4f} vs -Y {api['down']:.4f}; prefiltered chain 32/16/8/4: "
@@ -3599,24 +3722,39 @@ def main() -> int:
                         for m, cap, wr in fld["compactions"]]
     # K7–K9 on their recorded calls, one per table: the headline render's
     # (phase 8, coverage 0.35; its cone build's for the tiny volumes), the
-    # fused composite's display pair (phase 7b) and march_baked's field
-    # (phase 8b), each held against its plain version (`check_sampler`)
-    # before it is timed. Each kernel's main-path row, first, is its
-    # largest call in the headline.
+    # fused composite's display pairs (phase 7b) and march_baked's field
+    # (phase 8b), each held against its plain version (`check_sampler`;
+    # a texture also as brick rows, `check_texture`) before it is timed.
+    # Each kernel's main-path row, first, is its largest call in the
+    # headline. The brick kernels' rows are the same calls on the brick
+    # tables of the same texels.
     sample_errs = {}
-    for kname in SAMPLERS:
+    sample_calls = {}
+    for kname in MAIN_SAMPLERS:
         calls = [x for x in headline[0]["sample_calls"] + comp["sample_calls"]
                  + fld["sample_calls"] if x[0] == kname]
         calls.sort(key=lambda x: (x[4] not in ("the headline v3 render",
                                                "the headline's cone build"),
                                   -x[3][0].numel()))
         for _, tkind, tab, qs, serves in calls:
-            err, abs_err = check_sampler(f"{kname} on {tkind} ({serves})", tab, qs)
-            sample_errs.setdefault(kname, []).append(abs_err)
-            print(f"{kname} {tkind}, {qs[0].numel()} samples ({serves}, recorded): "
-                  f"|kernel - plain| / max(1, |plain|) {err:.3g} (gate "
-                  f"{SAMPLE_TOL}), three runs and views bitwise", flush=True)
+            what = f"{kname} on {tkind} ({serves})"
+            if is_texture(tab):
+                checked = check_texture(what, tab, qs)
+            else:
+                err, abs_err, _ = check_sampler(what, tab, qs)
+                checked = [(kname, tkind, err, abs_err)]
+            for k, k_kind, err, abs_err in checked:
+                sample_errs.setdefault(k, []).append(abs_err)
+                gate = TEXTURE_TOL if k in ("sample_tex3", "sample_tex2") else SAMPLE_TOL
+                print(f"{k} {k_kind}, {qs[0].numel()} samples ({serves}, recorded): "
+                      f"|kernel - plain| / max(1, |plain|) {err:.3g} (gate {gate}), "
+                      f"three runs and views bitwise", flush=True)
+        sample_calls[kname] = calls
         rows[kname] = [time_sampler(*x) for x in calls]
+    for kname, tname in (("sample_brick3", "sample_tex3"), ("sample_brick2", "sample_tex2")):
+        rows[kname] = [row["brick"] for row in rows[tname]]
+        for row in rows[tname]:
+            row["brick_us"] = row.pop("brick")["device_us"]
     # Phase 5 without its engine's validation probe.
     p5_k1, p5_k2 = r["k1"] - probe["accumulate"], r["k2"] - probe["compact"]
     # Launches per pass by the shape they ran at: phase 5 and the tile-cull
@@ -3634,17 +3772,22 @@ def main() -> int:
         + [(c["v3_tiles"], row)
            for row in rows["segscan"][2 + 2 * len(headline):n_k3_pass]],
     }
-    # K7–K9's launches and samples per pass, counted where they launch.
-    # Their calls in a pass run from a few thousand samples (a v3 tile's
-    # light steps) to millions (the cone build), and they were timed only
-    # at the recorded calls' sizes, so they are not priced: they stay out
-    # of the ranking (loss_per_pass_us null).
-    sample_pass = {}
+    # K7–K9's launches and samples per pass, counted where they launch, and
+    # their launches by sample count: a pass's calls run from a few thousand
+    # samples (a v3 tile's light steps) to millions (the cone build), so each
+    # main-path sampler is priced by size bucket (`price_sizes`) on its
+    # main-row call. The brick kernels are off the pass.
+    sample_pass, pass_sizes = {}, {}
     for k in SAMPLERS:
         sample_pass[k] = (
             r["samples"][k] - probe[k] + v["samples"][k] + c["samples"][k],
             r["sample_sizes"][k] - probe_samples[k] + v["sample_sizes"][k]
             + c["window_samples"][k])
+        pass_sizes[k] = (r["size_counts"][k] - probe_sizes[k] + v["size_counts"][k]
+                         + c["window_sizes"][k])
+    for k in MAIN_SAMPLERS:
+        _, _, tab, qs, _ = sample_calls[k][0]
+        groups[k] = price_sizes(k, tab, qs, pass_sizes[k])
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
           f"{K2_N}-cell mask {nonzero_ms:.4f} ms (CUDA events, its host "
@@ -3661,7 +3804,12 @@ def main() -> int:
                 f"; events {row['event_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"library " + ("none: no repeat wrap in PyTorch"
                                if row["library_ms"] is None else
-                               f"{row['library_ms']:.4f} ms ({row['library']})"))
+                               f"{row['library_ms']:.4f} ms, {row['library_device_us']:.2f} "
+                               f"us device ({row['library']}; the kernel "
+                               f"{row['library_device_us'] / row['device_us']:.2f}x "
+                               f"faster by device time)"))
+            if "brick_us" in row:
+                extra += f"; the brick kernel {row['brick_us']:.2f} us"
             print(f"{kname} {row['shape']}{serves}: {row['device_us']:.2f} us device "
                   f"({row['kernels_per_call']} kernel(s), {row['kernel_sum_us']:.2f} us "
                   f"in kernels, {row['timing']}; {row['device_us_write_flush']:.2f} us "
@@ -3693,7 +3841,7 @@ def main() -> int:
     # K7–K9: JAX's XLA gather and lane-weight reduce, no pallas_call. The
     # launches: phase 5's; max_abs_err: phase 5b's checks and phase 8b's
     # field call.
-    for kname, line in zip(SAMPLERS, (282, 323, 351)):
+    for kname, line in zip(SAMPLERS, (282, 323, 351, 282, 323)):
         errs = [x["abs_err"] for x in sample_rows if x["kernel"] == kname]
         errs += sample_errs[kname]
         meta.append((kname, "sample.cu", f"brick.py:{line} (no pallas_call: XLA's "
@@ -3735,6 +3883,8 @@ def main() -> int:
                 (x["library_ms"] for x in rows[kname] if x.get("library_ms")), None),
             "library_row": next((x["shape"] for x in rows[kname]
                                  if x.get("library_ms")), None),
+            "library_device_us": next((x["library_device_us"] for x in rows[kname]
+                                       if x.get("library_device_us")), None),
             "shapes": rows[kname]})
     # The redesign rule: launches per pass x (device time - bound); a kernel
     # at or above half of its bound is left alone, and one already
@@ -3751,14 +3901,15 @@ def main() -> int:
         print(f"{kname} launches per pass by shape: " + "; ".join(
             f"{n:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
             f"{row['bound_us']:.2f} us)" for n, row in groups[kname]), flush=True)
-    for kname in SAMPLERS:
+    for kname in MAIN_SAMPLERS:
         n, n_samples = sample_pass[kname]
         print(f"{kname} per pass: {n} launches, {n_samples} samples "
-              f"({n_samples / max(n, 1):.0f} a launch); not ranked: timed only at "
-              f"the recorded calls' sizes", flush=True)
+              f"({n_samples / max(n, 1):.0f} a launch); by size bucket: " + "; ".join(
+                  f"{k:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
+                  f"{row['bound_us']:.2f} us)" for k, row in groups[kname]), flush=True)
     stamp("13")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

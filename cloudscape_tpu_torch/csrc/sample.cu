@@ -1,56 +1,66 @@
-// K7–K9: filtered fetches from the brick tables, for Hopper (sm_90a).
+// K7–K9: filtered fetches from the engine's textures and brick tables, for
+// Hopper (sm_90a).
 //
 // Replaces no pallas_call: the JAX package leaves these to XLA's gather and
 // a lane-weight reduce (cloudscape_tpu/ops/brick.py):
 //
-//   K7 sample_brick3_xyz (:282): trilinear fetch from a [n_bricks, C*L]
-//      table of 3-D bricks (L = bz*by*bx = 64 or 128 lanes a channel);
-//   K8 sample_brick2_xy (:323): bilinear fetch from a table of 2-D bricks;
+//   K7 sample_brick3_xyz (:282): trilinear fetch, repeat or clamp wrap;
+//   K8 sample_brick2_xy (:323): bilinear fetch;
 //   K9 sample_tiny3_xyz (:351): trilinear fetch, modular wrap, from a whole
 //      volume of <= 128 values held as one channel-major row.
 //
-// The plain versions (ops/brick.py) keep the TPU's form: per sample they
-// gather a whole 128-lane row (512 B), build three [m, L] hat-weight
-// planes and their product, and multiply and sum all 128 lanes, of which
-// 8 (4 in 2-D) carry weight.
+// K7 and K8 have two forms here. The engine's tables are channel-last
+// textures ([D, H, W, C] or [H, W, C], contiguous), sampled by tex3_kernel
+// (K7) and tex2_kernel (K8). brick3_kernel and brick2_kernel sample the
+// JAX package's brick tables ([n_bricks, C*L], L = 64 or 128 lanes a
+// channel, texels repeated where bricks overlap), which the public
+// sample_brick*_xyz API still takes.
 //
-// Bound: bytes, and here the bytes are gathered sectors. A sample reads
-// 12 B of coordinates (8 B in 2-D) and writes 4*C B; its 8 corner texels
-// of a channel lie in one brick row, the x pair in one 16-B row of the
-// brick, the y pair 16 B (4x4x4) apart, the z pair 64 B apart, so a
-// channel costs 2-4 sectors of 32 B rather than the plain version's 512-B
-// row plus its weight planes.
+// Bound: bytes. A sample reads 12 B of coordinates (8 B in 2-D), writes
+// 4*C B and weighs 8 texels (4 in 2-D) of C channels. On a texture a
+// corner's C channels are C*4 contiguous bytes (a 32-B sector for 8-ch
+// f32), the x pair lies in one or two sectors, and the texels are stored
+// once. In a brick row a corner's channels lie 64 or 256 B apart, so an
+// 8-ch sample costs 32 scattered sectors, and overlapping bricks store a
+// texel up to (16/9)x (2-D) or 2.03x (the (7, 3, 3) cone cache).
 //
-// Design: one thread per sample reads only the texels that carry weight,
-// straight out of the brick row through the read-only path (__ldg), weighs
-// and sums them in registers and writes its C channels: no rows, weights or
-// chunks are materialised. Consecutive samples of a ray fall into the same
-// brick, so neighbouring threads share sectors in L1. The index math is
-// 32-bit (a 64-bit division is a long software routine on the card); the
-// coordinate planes are contiguous; the channel count and table type are
-// template arguments, compiled only for the pairs the tables use (below);
-// a bfloat16 table's texels are widened to f32 (exact) before the product,
-// as torch's type promotion does in the plain version.
+// Design: one thread per sample reads only the texels that carry weight
+// through the read-only path (__ldg), weighs and sums them in registers
+// and writes its C channels: no rows, weights or chunks are materialised.
+// The texture kernels load a corner's channels as one vector (float4 pair
+// for 8 channels, float2 or one 32-bit word of two bfloat16 for 2, a
+// scalar for 1) and store a sample's outputs as one vector (two float4 for
+// 8 channels, a float2 for 2), so a warp's stores cover contiguous bytes;
+// the texture and the output must be 16-B aligned. Neighbouring threads
+// take neighbouring samples (blocks of 256). The index math is 32-bit (a
+// 64-bit division is a long software routine on the card); the channel
+// count and texel type are template arguments, compiled only for the pairs
+// the tables use (below); a bfloat16 texel is widened to f32 (exact)
+// before the product, as torch's type promotion does in the plain version.
 //
-// The arithmetic is the plain version's, step by step, so that the kernel
-// agrees with it to a few ulps:
+// The arithmetic is the plain version's, step by step:
 //   - cx = q*n - 0.5 rounds the product and then the difference: written
 //     with __fmul_rn / __fsub_rn, which nvcc never contracts into an FMA
-//     (a contracted q*n - 0.5 would move f and, at a texel boundary, i0 and
-//     the brick row);
+//     (a contracted q*n - 0.5 would move f and, at a texel boundary, i0);
 //   - the hat weights are max(0, 1 - |a - lane|) with a = float(l0) + f
-//     rounded (so not exactly 1 - f and f), for lanes l0 and l0 + 1;
-//     K9 takes 1 - f at i0 and f at (i0 + 1) % n, summed where the two
-//     coincide (n = 1);
+//     rounded (so not exactly 1 - f and f), for lanes l0 and l0 + 1. In a
+//     brick table l0 is i0's lane in its brick; a texture takes l0 = i0
+//     mod s, s the brick stride of the JAX package's table of the same
+//     channel count, which the caller passes in geom (ops/brick.py's
+//     WEIGHT_STRIDES), so a texture's sample equals the brick table's
+//     bitwise and JAX's within a few ulps. K9 takes 1 - f at i0 and
+//     f at (i0 + 1) % n, summed where the two coincide (n = 1);
 //   - repeat wrap is a floor modulo of i0 (32-bit, and 64-bit as the plain
 //     version's int64 past 2^31); clamp wrap sets f = 0 below the volume
-//     and f = 1 past n - 2 and clamps i0 to [0, n - 2];
+//     and f = 1 past n - 2 and clamps i0 to [0, n - 2]. The second texel is
+//     i0 + 1, or past the edge n - 1 (clamp) or 0 (repeat);
 //   - each corner is ((wx * wy) * wz) * texel, and a channel's 8 corners
-//     are summed in lane order (z, then y, then x). torch.sum reduces the
-//     128 lanes in another tree, so the two agree within a few ulps, not
-//     bitwise. The plain version multiplies every lane, so a non-finite
-//     texel anywhere in the row would make its sample NaN; the tables are
-//     finite, and the kernel reads only the 8 corners.
+//     are summed from 0 in corner order (z, then y, then x). The texture
+//     plain version does the same, so it and the kernel agree bitwise; the
+//     brick tables' plain version sums all 128 lanes with torch.sum in
+//     another tree, within a few ulps. That plain version multiplies every
+//     lane, so a non-finite texel anywhere in the row would make its sample
+//     NaN; the tables are finite, and the kernels read only the corners.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -238,12 +248,153 @@ tiny3_kernel(const T* __restrict__ row, const float* __restrict__ qx,
   weigh<kC, 8>(row, L, off, w, out + i * kC);
 }
 
+// ---- channel-last textures (K7 tex3_kernel, K8 tex2_kernel) -------------
+
+struct Tex {
+  int d, h, w;     // dims (d = 1 in 2-D)
+  int clamp;       // 0: repeat, 1: clamp
+  int sz, sy, sx;  // the strides at which the hat weights are rounded
+};
+
+// One axis of a texture: texels i0 and i0 + 1 (past the edge n - 1 under
+// clamp, 0 under repeat) and their hat weights, rounded at lane i0 mod s.
+__device__ __forceinline__ void tex_axis(float q, int n, int clamp, int s, int idx[2],
+                                         float w[2]) {
+  float f;
+  axis_coords(q, n, clamp, idx[0], f);
+  idx[1] = idx[0] + 1 < n ? idx[0] + 1 : (clamp ? n - 1 : 0);
+  hat((int)((unsigned)idx[0] % (unsigned)s), f, w);
+}
+
+// The kC channels of one texel as f32, in one load: a scalar, a float2, a
+// 32-bit word of two bfloat16 (channel 0 in its low half), or two float4.
+template <int kC, typename T> struct Texel;
+template <> struct Texel<1, float> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    v[0] = __ldg(p);
+  }
+};
+template <> struct Texel<2, float> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = a.x;
+    v[1] = a.y;
+  }
+};
+template <> struct Texel<8, float> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+template <> struct Texel<1, uint16_t> {
+  static __device__ __forceinline__ void load(const uint16_t* p, float* v) {
+    v[0] = texel(p);
+  }
+};
+template <> struct Texel<2, uint16_t> {
+  static __device__ __forceinline__ void load(const uint16_t* p, float* v) {
+    const uint32_t b = __ldg(reinterpret_cast<const unsigned int*>(p));
+    v[0] = __uint_as_float(b << 16);
+    v[1] = __uint_as_float(b & 0xffff0000u);
+  }
+};
+
+// A sample's kC outputs in one store.
+template <int kC>
+__device__ __forceinline__ void store(float* out, const float* v) {
+  if constexpr (kC == 8) {
+    reinterpret_cast<float4*>(out)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(out)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if constexpr (kC == 2) {
+    *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+  } else {
+    out[0] = v[0];
+  }
+}
+
+// Each channel's kK corners, weighted and summed from 0 in corner order.
+template <int kC, int kK, typename T>
+__device__ __forceinline__ void weigh_texels(const T* tex, const int off[kK],
+                                             const float w[kK], float* __restrict__ out) {
+  float v[kK][kC];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) Texel<kC, T>::load(tex + off[k] * kC, v[k]);
+  float acc[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    acc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) acc[c] = __fadd_rn(acc[c], __fmul_rn(w[k], v[k][c]));
+  }
+  store<kC>(out, acc);
+}
+
+// K7 on a texture.
+template <int kC, typename T>
+__global__ void __launch_bounds__(kThreads)
+tex3_kernel(const T* __restrict__ tex, const float* __restrict__ qx,
+            const float* __restrict__ qy, const float* __restrict__ qz,
+            float* __restrict__ out, long long n, Tex g) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  int xi[2], yi[2], zi[2];
+  float wx[2], wy[2], wz[2];
+  tex_axis(__ldg(qx + i), g.w, g.clamp, g.sx, xi, wx);
+  tex_axis(__ldg(qy + i), g.h, g.clamp, g.sy, yi, wy);
+  tex_axis(__ldg(qz + i), g.d, g.clamp, g.sz, zi, wz);
+  int off[8];
+  float w[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {  // corner order: z, then y, then x
+    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+    off[k] = (zi[dz] * g.h + yi[dy]) * g.w + xi[dx];
+    w[k] = __fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]);
+  }
+  weigh_texels<kC, 8>(tex, off, w, out + i * kC);
+}
+
+// K8 on a texture.
+template <int kC, typename T>
+__global__ void __launch_bounds__(kThreads)
+tex2_kernel(const T* __restrict__ tex, const float* __restrict__ qu,
+            const float* __restrict__ qv, float* __restrict__ out, long long n, Tex g) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  int xi[2], yi[2];
+  float wx[2], wy[2];
+  tex_axis(__ldg(qu + i), g.w, g.clamp, g.sx, xi, wx);
+  tex_axis(__ldg(qv + i), g.h, g.clamp, g.sy, yi, wy);
+  int off[4];
+  float w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // corner order: y, then x
+    const int dy = k >> 1, dx = k & 1;
+    off[k] = yi[dy] * g.w + xi[dx];
+    w[k] = __fmul_rn(wx[dx], wy[dy]);
+  }
+  weigh_texels<kC, 4>(tex, off, w, out + i * kC);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 bool positive(const int* v, int k) {
   for (int j = 0; j < k; ++j)
     if (v[j] < 1) return false;
   return true;
+}
+
+// The texture geometry from geom (d, h, w, C, clamp, sz, sy, sx), or false
+// if it is not one: dims and strides >= 1, the texture's values inside
+// 32-bit indices, the texture and output 16-B aligned.
+bool tex_geom(const int* geom, const void* tex, const float* out, Tex& g) {
+  g = Tex{geom[0], geom[1], geom[2], geom[4], geom[5], geom[6], geom[7]};
+  if (!positive(geom, 4) || !positive(geom + 5, 3) || (g.clamp != 0 && g.clamp != 1))
+    return false;
+  if ((long long)g.d * g.h * g.w * geom[3] >= (1LL << 31)) return false;
+  return (reinterpret_cast<uintptr_t>(tex) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
 }
 
 }  // namespace
@@ -329,6 +480,56 @@ extern "C" int cs_sample_tiny3(const void* row, int bf16, const int* geom,
     tiny3_kernel<1, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
   else if (g.channels == 2)
     tiny3_kernel<2, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// tex: [d, h, w, C] f32 (bf16 = 0) or bfloat16 (bf16 = 1), contiguous and
+// 16-B aligned, under 2^31 values; geom: d, h, w, C, clamp (0 repeat, 1
+// clamp), and the weight strides sz, sy, sx; qx, qy, qz: contiguous f32
+// planes of n samples; out: [n, C] f32, 16-B aligned.
+extern "C" int cs_sample_tex3(const void* tex, int bf16, const int* geom,
+                              const float* qx, const float* qy, const float* qz,
+                              float* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  Tex g;
+  if (!tex_geom(geom, tex, out, g)) return (int)cudaErrorInvalidValue;
+  const unsigned b = blocks_for(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint16_t* h = (const uint16_t*)tex;
+  const float* f = (const float*)tex;
+  const int channels = geom[3];
+  if (channels == 1 && bf16)
+    tex3_kernel<1, uint16_t><<<b, kThreads, 0, s>>>(h, qx, qy, qz, out, n, g);
+  else if (channels == 2 && bf16)
+    tex3_kernel<2, uint16_t><<<b, kThreads, 0, s>>>(h, qx, qy, qz, out, n, g);
+  else if (channels == 1)
+    tex3_kernel<1, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
+  else if (channels == 2)
+    tex3_kernel<2, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// tex: [h, w, C] f32 (bf16 must be 0), contiguous and 16-B aligned; geom:
+// h, w, C, clamp, sy, sx (as cs_sample_tex3's); qu, qv: contiguous f32
+// planes; out: [n, C] f32, 16-B aligned.
+extern "C" int cs_sample_tex2(const void* tex, int bf16, const int* geom,
+                              const float* qu, const float* qv, float* out,
+                              long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int g3[8] = {1, geom[0], geom[1], geom[2], geom[3], 1, geom[4], geom[5]};
+  Tex g;
+  if (bf16 || !tex_geom(g3, tex, out, g)) return (int)cudaErrorInvalidValue;
+  const unsigned b = blocks_for(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* f = (const float*)tex;
+  if (geom[2] == 2)
+    tex2_kernel<2, float><<<b, kThreads, 0, s>>>(f, qu, qv, out, n, g);
+  else if (geom[2] == 8)
+    tex2_kernel<8, float><<<b, kThreads, 0, s>>>(f, qu, qv, out, n, g);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

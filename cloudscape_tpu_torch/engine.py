@@ -52,7 +52,6 @@ from cloudscape_tpu_torch.models.march_fast import (
     cone_capacity,
     cone_occupancy_finalize,
     cone_occupancy_slice,
-    cone_table_rows,
     cull_finalize,
     cull_raw_slice,
     hier_v3_auto_policy,
@@ -68,7 +67,7 @@ from cloudscape_tpu_torch.models.march_fast import (
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
 from cloudscape_tpu_torch.ops import _cuda, accum, brick, compact, segscan
-from cloudscape_tpu_torch.ops.brick import brick3_grid, build_brick2_device
+from cloudscape_tpu_torch.ops.brick import brick3_grid, build_texture2
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
                                                     replicate, shard_map)
@@ -88,7 +87,8 @@ _KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
 
 def _probe_kernels(device) -> None:
     """Build the kernel library and launch each of its marching kernels (K1
-    accumulate, K2 compact, K3 segscan, the samplers K7–K9) once on a tiny
+    accumulate, K2 compact, K3 segscan, the samplers K7–K9, K7 and K8 on a
+    texture and on a brick table) once on a tiny
     input on `device`; raises on a failed build or launch, or an output of
     the wrong shape or not finite. The comparisons with the plain versions
     are the tests' and chip_smoke's."""
@@ -105,7 +105,9 @@ def _probe_kernels(device) -> None:
     scan = segscan.segscan(torch.arange(8, **f32), mask)
     q = torch.linspace(-0.5, 1.5, 8, **f32)
     vol = torch.linspace(0.0, 1.0, 4 * 4 * 4 * 2, **f32).reshape(4, 4, 4, 2)
-    samples = (brick.sample_brick3_xyz(brick.build_brick3(vol), q, q, q),
+    samples = (brick.sample_tex3_xyz(brick.build_texture3(vol), q, q, q),
+               brick.sample_tex2_xy(brick.build_texture2(vol[0]), q, q),
+               brick.sample_brick3_xyz(brick.build_brick3(vol), q, q, q),
                brick.sample_brick2_xy(brick.build_brick2(vol[0]), q, q),
                brick.sample_tiny3_xyz(brick.build_tiny3(vol), q, q, q))
     if tuple(acc.shape) != (n, 4) or tuple(idx.shape) != (3,) \
@@ -247,16 +249,16 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
 
 def _build_display_pair(cloud_ring, cfrom: int, cto: int, sky_ring, b0: int,
                         b1: int):
-    """The cycle's display-pair brick tables: the blend pair's textures are
+    """The cycle's display-pair textures: the blend pair's textures are
     frozen between rotations (only `texture_to_update` is written within a
-    cycle), so each is packed once a cycle, each 128-lane row holding from
-    rgba (channels 0-3) ‖ to rgba (4-7) over a (4, 4) brick, clamp wrap.
-    `torch.cat` copies, so the tables never alias the ring, whose tiles
-    are written in place."""
-    cp = build_brick2_device(torch.cat([cloud_ring[cfrom], cloud_ring[cto]],
-                                       dim=-1), (4, 4), (3, 3), wrap="clamp")
-    sp = build_brick2_device(torch.cat([sky_ring[b0], sky_ring[b1]], dim=-1),
-                             (4, 4), (3, 3), wrap="clamp")
+    cycle), so each is packed once a cycle, each texel holding from rgba
+    (channels 0-3) ‖ to rgba (4-7), clamp wrap (the JAX engine packs the
+    same texels into (4, 4) bricks at stride 3). `torch.cat` copies, so
+    the textures never alias the ring, whose tiles are written in place."""
+    cp = build_texture2(torch.cat([cloud_ring[cfrom], cloud_ring[cto]], dim=-1),
+                        wrap="clamp")
+    sp = build_texture2(torch.cat([sky_ring[b0], sky_ring[b1]], dim=-1),
+                        wrap="clamp")
     return cp, sp
 
 
@@ -265,7 +267,8 @@ class _PendingCycle:
     """The NEXT cycle's state, frozen one rotation ahead and baked across the
     current cycle's ticks, one stage step per tick (`_advance_prebake`):
     occupancy slices → occupancy finalize (kernel K2) → cone-march slices →
-    brick-table row slices → wrap → sky-LUT row bands → (tile cull) cull
+    assembly ticks (the JAX engine's brick-row slices; no work here) →
+    wrap → sky-LUT row bands → (tile cull) cull
     prepass slices → cull finalize → the tile fractions' host read. `fresh`
     skips the boundary tick itself."""
 
@@ -276,7 +279,6 @@ class _PendingCycle:
     occ_done: int = 0
     idx: Any = None                   # compacted occupied-cell indices
     slices_done: int = 0
-    table: Any = None                 # [n_bricks, 128] cone table being written
     asm_done: int = 0
     cone: Optional[ConeCache] = None  # assembled cache once complete
     sky_rows: Any = None              # list of prebaked sky-LUT row bands
@@ -547,6 +549,8 @@ class CloudSkyEngine:
         c = self._BAKE_COSTS
         n = int(np.prod(self.cone_res))
         self._cone_capacity = cone_capacity(n, 0.45, _CONE_CHUNK)
+        # The JAX engine's cone brick rows: they size the assembly stage's
+        # ticks, kept so that a cache goes live on the JAX engine's tick.
         self._n_bricks = int(np.prod(brick3_grid(self.cone_res, (7, 3, 3))))
         sky_h = self.SKY_LUT_SHAPE[0]
         self._n_sub = 0
@@ -593,7 +597,7 @@ class CloudSkyEngine:
             total, counts, sizes = plan(budget)
         (self._n_occ, self._n_cone_slices, self._n_asm, self._n_sky,
          self._n_cull) = counts
-        (self._occ_slice, self._cone_slice, self._asm_slice, self._sky_rows,
+        (self._occ_slice, self._cone_slice, _, self._sky_rows,
          self._cull_slice) = sizes
 
     def _build_cone(self, params: MarchParams) -> ConeCache:
@@ -687,19 +691,15 @@ class CloudSkyEngine:
                                 res=self.cone_res, chunk=self._cone_slice)
                 pend.slices_done += 1
             elif pend.asm_done < self._n_asm:
-                if pend.table is None:
-                    pend.table = torch.zeros((self._n_bricks, 128),
-                                             dtype=torch.float32,
-                                             device=self.device)
-                b0 = min(pend.asm_done * self._asm_slice,
-                         max(self._n_bricks - self._asm_slice, 0))
-                # In place: writes table rows [b0, b0 + slice).
-                pend.table[b0:b0 + self._asm_slice] = cone_table_rows(
-                    pend.vol[:n].reshape(self.cone_res), b0, self._asm_slice)
+                # The JAX engine's schedule: _n_asm ticks, sized to its
+                # brick rows, in which it packs them. The texture needs no
+                # packing, so these ticks only keep the tick on which the
+                # cache goes live.
                 pend.asm_done += 1
             else:
-                pend.cone = wrap_cone_table(pend.table, self.cone_res)
-                pend.table = None
+                # A view of pend.vol, which no later bake writes: the next
+                # cycle's bake gets a volume of its own.
+                pend.cone = wrap_cone_table(pend.vol[:n], self.cone_res)
                 pend.vol = None
                 pend.idx = None
         elif pend.sky is None:
@@ -1038,7 +1038,7 @@ class CloudSkyEngine:
             self.config.sun_disk_scale, deband=deband)
 
     def _display_pair_tables(self):
-        """The cycle's 8-channel display-pair brick tables, built on first
+        """The cycle's 8-channel display-pair textures, built on first
         use after a rotation (`_build_display_pair`); every place that
         changes the blend pair — rotation, warm start, restore — drops
         them."""

@@ -8,8 +8,8 @@ explicit inputs in place of Godot's `EYEDIR` / `LIGHT0_DIRECTION`.
 
 Two entry points: `composite` (the split path: two bilinear fetches per
 texture per pixel from the raw ring slots) and `composite_display` (the
-fused serving tick: one brick-row fetch per texture per pixel from the
-cycle's display tables).
+fused serving tick: one fetch per texture per pixel from the cycle's
+8-channel display-pair textures).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import math
 import torch
 
 from cloudscape_tpu_torch.ops import math as m
-from cloudscape_tpu_torch.ops.brick import BrickTable2D, sample_brick2
+from cloudscape_tpu_torch.ops.brick import (BrickTable2D, Texture2D, sample_brick2,
+                                            sample_tex2)
 from cloudscape_tpu_torch.ops.octmap import world_dir_to_uv
 from cloudscape_tpu_torch.ops.sampling import sample2d
 
@@ -32,15 +33,17 @@ _PI = math.pi  # Godot's shader PI built-in (full precision)
 
 
 def _fetch_clamp(tex, uv):
-    """Clamp-wrap bilinear fetch from a raw [H, W, C] image or a
-    BrickTable2D (one brick row per fetch)."""
+    """Clamp-wrap bilinear fetch from a raw [H, W, C] image, a Texture2D
+    (kernel K8 on the card) or a BrickTable2D (one brick row per fetch)."""
+    if isinstance(tex, Texture2D):
+        return sample_tex2(tex, uv)
     if isinstance(tex, BrickTable2D):
         return sample_brick2(tex, uv)
     return sample2d(tex, uv, wrap="clamp")
 
 
 def _is_pair(tex) -> bool:
-    return isinstance(tex, BrickTable2D) and tex.channels == 8
+    return isinstance(tex, (Texture2D, BrickTable2D)) and tex.channels == 8
 
 
 def _uv_equirect(ray_dir):
@@ -84,8 +87,8 @@ def sun_with_bloom(ray_dir, sun_dir, sun_disk_scale):
 
 
 def transmittance_lookup(tlut, pos_mm, sun_dir):
-    """`clouds.gdshader:77-85` in megameter units; tlut is a raw image or a
-    BrickTable2D."""
+    """`clouds.gdshader:77-85` in megameter units; tlut is a raw image, a
+    Texture2D or a BrickTable2D."""
     height = m.norm3(pos_mm)
     up = pos_mm / height[..., None]
     sun_cos_zenith = m.dot3(up, sun_dir)
@@ -165,9 +168,10 @@ def composite_display(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
                       deband: bool = False):
     """Serving-path composite over display-ready textures.
 
-    - PAIR tables (BrickTable2D, 8 channels, the serving default): each row
-      holds the blend pair (from rgba in channels 0-3, to rgba in 4-7), so
-      one row fetch per texture per pixel gives both, and the lerp by
+    - PAIR textures (Texture2D, 8 channels, the serving default; or JAX's
+      8-channel BrickTable2D): each texel holds the blend pair (from rgba
+      in channels 0-3, to rgba in 4-7), so one fetch per texture per pixel
+      gives both, and the lerp by
       `blend_amount` follows the fetch, in the split `composite`'s order.
     - PRE-BLENDED tables or images (4 channels): the blend was applied
       before the fetch; `blend_amount` is ignored. The engine does not

@@ -12,8 +12,8 @@ quality band, and `occupied_ray_fraction` sizes its ray capacity.
 
 `MarchParams` is frozen for a cycle, so everything the march reads from
 the noise tables is a function of position. The field bakes two
-quantities onto a shell-aligned (hf, z̃, x̃) grid, in one 2-channel brick
-row (4×4×4 texels × 2 channels = 128 lanes):
+quantities onto a shell-aligned (hf, z̃, x̃) grid, one 2-channel texel a
+cell (the JAX package packs them into 2-channel 4×4×4 brick rows):
 
 - channel 0: `pre`, the pre-erosion Schneider density
   (`clouds.glsl:109-125`), at every fine cell;
@@ -57,18 +57,18 @@ from cloudscape_tpu_torch.models.march_fast import (
 )
 from cloudscape_tpu_torch.ops import math as m
 from cloudscape_tpu_torch.ops.brick import (
-    BrickTable3D,
-    build_brick3,
-    sample_brick3_xyz,
+    Texture3D,
+    build_texture3,
+    sample_tex3_xyz,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class DensityField:
     """One amortized cycle's baked (pre, cd) field. table: clamp-wrap
-    2-channel BrickTable3D on the (hf, z̃, x̃) grid."""
+    2-channel texture on the (hf, z̃, x̃) grid."""
 
-    table: BrickTable3D
+    table: Texture3D
     extent: float = 220e3
 
 
@@ -114,12 +114,12 @@ def build_density_field(params: MarchParams, bp: BrickPack,
                         chunk: int = 65536) -> DensityField:
     """Bake the (pre, cd) field for one snapshot, on the pack's device.
 
-    `pre` is evaluated at every fine cell (2 gather rows each). `cd` is
+    `pre` is evaluated at every fine cell (2 texture fetches each). `cd` is
     smooth (a cone-integrated quantity), so it is evaluated on the smaller
-    `cone_res` grid (~17 rows each) and upsampled onto the fine grid
-    (1 row each). Every pass runs `chunk` cells at a time; the cells are
+    `cone_res` grid (~17 fetches each) and upsampled onto the fine grid
+    (1 fetch each). Every pass runs `chunk` cells at a time; the cells are
     independent, so the field does not depend on `chunk`."""
-    dev = bp.weather.table.device
+    dev = bp.weather.texels.device
     nd, nh, nw = res
     px, py, pz = _grid_positions(res, extent, dev)
 
@@ -138,23 +138,22 @@ def build_density_field(params: MarchParams, bp: BrickPack,
                                  distant_offset, light_steps)
 
     cd_coarse = _map_rows(cone_chunk, chunk, cx, cy, cz)
-    cone_table = build_brick3(cd_coarse.reshape(tuple(cone_res) + (1,)),
-                              (8, 4, 4), (7, 3, 3), wrap="clamp")
+    cone_table = build_texture3(cd_coarse.reshape(tuple(cone_res) + (1,)),
+                                wrap="clamp")
 
     def upsample_chunk(bx, by_, bz):
         qx, qz, qh = field_coords_xyz(bx, by_, bz, extent)
-        return sample_brick3_xyz(cone_table, qx, qz, qh)[..., 0]
+        return sample_tex3_xyz(cone_table, qx, qz, qh)[..., 0]
 
     cd = _map_rows(upsample_chunk, chunk, px, py, pz)
     vol = torch.stack([pre, cd], dim=-1).reshape(nd, nh, nw, 2)
-    table = build_brick3(vol, (4, 4, 4), (3, 3, 3), wrap="clamp")
-    return DensityField(table=table, extent=extent)
+    return DensityField(table=build_texture3(vol, wrap="clamp"), extent=extent)
 
 
 def sample_field_xyz(field: DensityField, px, py, pz):
-    """(pre, cd) at world position components: ONE gather row."""
+    """(pre, cd) at world position components: ONE texture fetch."""
     qx, qz, qh = field_coords_xyz(px, py, pz, field.extent)
-    return sample_brick3_xyz(field.table, qx, qz, qh)
+    return sample_tex3_xyz(field.table, qx, qz, qh)
 
 
 def occupied_ray_fraction(dirs, params: MarchParams, field: DensityField,
@@ -238,13 +237,13 @@ def march_baked(dirs, params: MarchParams, bp: BrickPack,
     jit_r = m.hash_iq(start_r * 10.0) if jitter else torch.zeros_like(sd_r)
     p0_r = start_r + ndir_r * (a_r * sd_r + jit_r * ss_r)[..., None]
 
-    # ---- 3. Fine dense phase: 1 field row per sample → (pre, cd, hf).
+    # ---- 3. Fine dense phase: 1 field fetch per sample → (pre, cd, hf).
     i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
 
     def dense_chunk(p0c, ndirc, ssc):
         fpx, fpy, fpz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
         qx, qz, hf = field_coords_xyz(fpx, fpy, fpz, field.extent)
-        f = sample_brick3_xyz(field.table, qx, qz, hf)
+        f = sample_tex3_xyz(field.table, qx, qz, hf)
         return f[..., 0], f[..., 1], hf
 
     pre, cd, hf = _map_rows(dense_chunk, chunk, p0_r, ndir_r, ss_r)

@@ -1,10 +1,12 @@
-"""Cloud marches on brick tables and the per-cycle cone cache (torch).
+"""Cloud marches on the noise textures and the per-cycle cone cache (torch).
 
-The port of `cloudscape_tpu.models.march_fast`:
+The port of `cloudscape_tpu.models.march_fast`. The JAX package samples
+brick tables; the port keeps the same values as channel-last textures
+(`ops/brick.py`), sampled by kernels K7 and K8 on the card:
 
-- `BrickPack`: the noise pack as brick tables, channels precombined (3-D
-  tables optionally stored in bfloat16);
-- the Schneider density on brick tables (`clouds.glsl:109-137`), split at
+- `BrickPack`: the noise pack as textures, channels precombined (3-D
+  textures optionally stored in bfloat16);
+- the Schneider density on those textures (`clouds.glsl:109-137`), split at
   the erosion stage (`_density_pre_xyz` / `_density_finish_xyz`);
 - the exact brick march (`march_bricks`): every sample's density, then the
   17-sample secondary (sun) march (`clouds.glsl:184-199`) on every sample
@@ -16,7 +18,8 @@ The port of `cloudscape_tpu.models.march_fast`:
   (`build_cone_cache` = `cone_occupancy_indices` → the cone march of the
   occupied cells → `assemble_cone_cache`) or in slices spread over a
   cycle's ticks (`cone_occupancy_slice` → `cone_occupancy_finalize` →
-  `bake_cone_cells` → `cone_table_rows` → `wrap_cone_table`);
+  `bake_cone_cells` → `cone_table_rows` → `wrap_cone_table`); a 1-channel
+  clamp-wrap texture;
 - the dense tile march (`march_tile_dense`): every (ray, step) sample
   evaluated, then the phase-3 accumulation through kernel K1;
 - the cell-gated v3 march (`march_bricks_v3`) and its capacity policy
@@ -63,23 +66,21 @@ from cloudscape_tpu_torch.ops import math as m
 from cloudscape_tpu_torch.ops.accum import accumulate
 from cloudscape_tpu_torch.ops.brick import (
     SAMPLE_CHUNK,
-    BrickTable2D,
-    BrickTable3D,
+    Texture2D,
+    Texture3D,
     TinyVolume3D,
-    brick3_grid,
-    build_brick2,
-    build_brick3,
-    build_brick3_rows,
+    build_texture2,
+    build_texture3,
     build_tiny3,
-    sample_brick2_xy,
-    sample_brick3_xyz,
+    sample_tex2_xy,
+    sample_tex3_xyz,
     sample_tiny3_xyz,
 )
 from cloudscape_tpu_torch.ops.compact import compact
 from cloudscape_tpu_torch.ops.segscan import segscan
 from cloudscape_tpu_torch.parallel.sharding import axis_size, ppermute
 
-Volume = Union[BrickTable3D, TinyVolume3D]
+Volume = Union[Texture3D, TinyVolume3D]
 
 # Sun-march step length (`clouds.glsl:185`).
 LSS = (SKY_T_RADIUS - SKY_B_RADIUS) / 64.0
@@ -87,26 +88,27 @@ LSS = (SKY_T_RADIUS - SKY_B_RADIUS) / 64.0
 
 @dataclasses.dataclass(frozen=True)
 class BrickPack:
-    """Brick-table mirror of a NoisePack with channels precombined (exact:
+    """Texture mirror of a NoisePack with channels precombined (exact:
     FBM dot products and box-filter mips commute with lerp):
-    large → (R, FBM), small → (hfbm), weather → (cloud_type, coverage)."""
+    large → (R, FBM), small → (hfbm), weather → (cloud_type, coverage).
+    The JAX package's BrickPack holds the same values as brick tables."""
 
     large: Tuple[Volume, ...]
     small: Tuple[Volume, ...]
-    weather: BrickTable2D
+    weather: Texture2D
 
     @staticmethod
     def from_noise(noise: NoisePack, dtype=None) -> "BrickPack":
-        """dtype: storage dtype of the 3-D noise tables, built in float32
+        """dtype: storage dtype of the 3-D noise textures, built in float32
         and cast (None keeps float32; `torch.bfloat16` halves them, opt-in).
-        The samplers multiply their rows by float32 weights, so samples
-        come out float32. The weather table stays float32: its coverage
+        The samplers multiply their texels by float32 weights, so samples
+        come out float32. The weather texture stays float32: its coverage
         channel feeds a hard threshold."""
         def cast(vol):
             if dtype is None:
                 return vol
-            if isinstance(vol, BrickTable3D):
-                return dataclasses.replace(vol, table=vol.table.to(dtype))
+            if isinstance(vol, Texture3D):
+                return dataclasses.replace(vol, texels=vol.texels.to(dtype))
             return dataclasses.replace(vol, row=vol.row.to(dtype))
 
         large = []
@@ -115,22 +117,22 @@ class BrickPack:
                 [a[..., 0], a[..., 1] * 0.625 + a[..., 2] * 0.25 + a[..., 3] * 0.125],
                 dim=-1)
             large.append(cast(build_tiny3(combined) if combined.numel() <= 128
-                              else build_brick3(combined, (4, 4, 4), (3, 3, 3))))
+                              else build_texture3(combined)))
         small = []
         for a in noise.small:
             combined = (a[..., 0] * 0.625 + a[..., 1] * 0.25 + a[..., 2] * 0.125)[..., None]
             small.append(cast(build_tiny3(combined) if combined.numel() <= 128
-                              else build_brick3(combined, (8, 4, 4), (7, 3, 3))))
+                              else build_texture3(combined)))
         w = noise.weather
-        weather = build_brick2(torch.stack([w[..., 0], w[..., 2]], dim=-1),
-                               (8, 8), (7, 7))
+        weather = build_texture2(torch.stack([w[..., 0], w[..., 2]], dim=-1))
         return BrickPack(large=tuple(large), small=tuple(small), weather=weather)
 
 
 def _sample_volume_xyz(vol: Volume, qx, qy, qz):
+    """Trilinear fetch from a texture (K7) or a tiny volume (K9) → [..., C]."""
     if isinstance(vol, TinyVolume3D):
         return sample_tiny3_xyz(vol, qx, qy, qz)
-    return sample_brick3_xyz(vol, qx, qy, qz)
+    return sample_tex3_xyz(vol, qx, qy, qz)
 
 
 def _weather_rb(bp: BrickPack, pxz, weather_pos):
@@ -141,9 +143,9 @@ def _weather_rb(bp: BrickPack, pxz, weather_pos):
 
 def _weather_rb_xy(bp: BrickPack, px, pz, weather_pos):
     """`_weather_rb` on component planes."""
-    return sample_brick2_xy(bp.weather,
-                            px * 0.00006 + 0.5 + weather_pos[0],
-                            pz * 0.00006 + 0.5 + weather_pos[1])
+    return sample_tex2_xy(bp.weather,
+                          px * 0.00006 + 0.5 + weather_pos[0],
+                          pz * 0.00006 + 0.5 + weather_pos[1])
 
 
 def _density_pre_xyz(px, py, pz, weather_rb, mip: float, params: MarchParams,
@@ -268,8 +270,8 @@ def _cone_density_xyz(px, py, pz, params: MarchParams, bp: BrickPack,
     lhf = m.height_fraction(torch.sqrt(lx * lx + ly * ly + lz * lz),
                             SKY_B_RADIUS, SKY_T_RADIUS)
     # Quirk preserved: no + weather_pos on the distant sample (`clouds.glsl:197`).
-    lweather = sample_brick2_xy(bp.weather, lx * 0.00006 + 0.5,
-                                lz * 0.00006 + 0.5)
+    lweather = sample_tex2_xy(bp.weather, lx * 0.00006 + 0.5,
+                              lz * 0.00006 + 0.5)
     ldens, _ = _density_bricks_xyz(lx, ly, lz, lweather, 5.0, params, bp)
     return cd + torch.pow(ldens, (1.0 - lhf) * 0.8 + 0.5)
 
@@ -327,7 +329,7 @@ class ConeCache:
     x = sign(l)·l²·extent with l = 2(x̂ − 0.5), concentrating resolution
     near the viewer."""
 
-    table: BrickTable3D  # clamp-wrap, 1 channel (cd)
+    table: Texture3D  # [n_hf, n_z, n_x, 1], clamp-wrap (cd)
     extent: float = 220e3
 
 
@@ -407,7 +409,7 @@ def cone_occupancy_indices(params: MarchParams, bp: BrickPack,
     gives the same indices."""
     nd, nh, nw = res
     n = nd * nh * nw
-    dev = bp.weather.table.device
+    dev = bp.weather.texels.device
     xs = _unwarp((torch.arange(nw, dtype=torch.float32, device=dev) + 0.5) / nw, extent)
     zs = _unwarp((torch.arange(nh, dtype=torch.float32, device=dev) + 0.5) / nh, extent)
     hfs = (torch.arange(nd, dtype=torch.float32, device=dev) + 0.5) / nd
@@ -426,11 +428,13 @@ def cone_occupancy_indices(params: MarchParams, bp: BrickPack,
 
 
 def assemble_cone_cache(cd_vol, extent: float = 220e3) -> ConeCache:
-    """Pack a fully baked [nd, nh, nw] cone-density volume into the cache's
-    clamp-wrap brick table (in one call; `cone_table_rows` +
-    `wrap_cone_table` is the sliced form)."""
-    return ConeCache(table=build_brick3(cd_vol[..., None], CONE_BRICK, CONE_STRIDE,
-                                        wrap="clamp"), extent=extent)
+    """A fully baked [nd, nh, nw] cone-density volume as the cache's
+    clamp-wrap texture (in one call; `cone_table_rows` + `wrap_cone_table`
+    is the sliced form). The JAX package packs it into a brick table of
+    CONE_BRICK bricks at CONE_STRIDE; the texture holds the same texels
+    once and samples to the same values."""
+    return ConeCache(table=build_texture3(cd_vol[..., None], wrap="clamp"),
+                     extent=extent)
 
 
 def build_cone_cache(params: MarchParams, bp: BrickPack,
@@ -492,19 +496,19 @@ def bake_cone_cells(vol, idx, i0: int, params: MarchParams, bp: BrickPack,
 
 
 def cone_table_rows(cd_vol, b0: int, count: int):
-    """Rows [b0, b0 + count) of the cone cache's brick table; writing every
-    range then `wrap_cone_table` gives `build_cone_cache`'s table."""
-    return build_brick3_rows(cd_vol[..., None], b0, count, CONE_BRICK,
-                             CONE_STRIDE, wrap="clamp")
+    """Rows [b0, b0 + count) of the cone cache's texture seen as [n, 1]
+    (one texel a row, flat (hf, z, x) order): a view of `cd_vol`. Writing
+    every range into an [n, 1] tensor, then `wrap_cone_table`, gives
+    `build_cone_cache`'s texture."""
+    return cd_vol.reshape(-1, 1)[b0:b0 + count]
 
 
 def wrap_cone_table(table, res, extent: float = 220e3) -> ConeCache:
-    """Metadata-only constructor around a fully written cone brick table."""
+    """Metadata-only constructor around a fully written cone volume of n
+    values in flat (hf, z, x) order, e.g. [n] or [n, 1] (it is not copied)."""
     return ConeCache(
-        table=BrickTable3D(table=table, dims=tuple(res), brick=CONE_BRICK,
-                           stride=CONE_STRIDE,
-                           grid=brick3_grid(res, CONE_STRIDE), channels=1,
-                           wrap="clamp"),
+        table=Texture3D(texels=table.reshape(tuple(res) + (1,)), dims=tuple(res),
+                        channels=1, wrap="clamp"),
         extent=extent)
 
 
@@ -544,7 +548,7 @@ def _march_core_dense(above, ndir, ss, p0, phase, params: MarchParams,
         t_c = torch.where(pre > 0.0, _density_finish_xyz(
             pre, hf_c, px, py, pz, 0.0, params, bp), 0.0)
         qx, qz, qh = _cone_cache_coords_xyz(px, py, pz, cone_cache.extent)
-        cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         # In-place writes of this chunk's rows into the [n, steps] planes.
         t[sl] = t_c
         cd[sl] = torch.where(t_c > 0.0, cd_c, 0.0)
@@ -696,7 +700,7 @@ def _march_core(above, ndir, ss, p0, phase, ldir, params: MarchParams,
         ax, ay, az = _flat_sample_xyz(geom, ip, steps)
         if cone_cache is not None:
             qx, qz, qh = _cone_cache_coords_xyz(ax, ay, az, cone_cache.extent)
-            return sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+            return sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         return _cone_density_xyz(ax, ay, az, params, bp, light_offsets,
                                  distant_offset, light_steps,
                                  approx_weather=approx_light)
@@ -1301,7 +1305,7 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
     def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
         t_c = erosion_chunk(bpre, bhf, bx, by_, bz)
         qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
-        cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
 
     t_h, cd_h = _map_rows(erosion_cone_chunk, pass_len, pre_h, hf_h, hx, hy, hz)
@@ -1910,7 +1914,7 @@ def _march_core2(above, ndir, ss, p0, phase, params: MarchParams,
     def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
         t_c = _density_finish_xyz(bpre, bhf, bx, by_, bz, 0.0, params, bp)
         qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
-        cd_c = sample_brick3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+        cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
 
     # Elementwise per sample: chunks of a dense chunk's sample count.

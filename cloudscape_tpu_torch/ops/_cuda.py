@@ -121,11 +121,13 @@ def lib() -> ctypes.CDLL:
                 fn.argtypes = [p, i, ctypes.c_uint, p]
                 fn.restype = i
             geom = ctypes.POINTER(i)
-            for fn in (handle.cs_sample_brick3, handle.cs_sample_tiny3):
+            for fn in (handle.cs_sample_brick3, handle.cs_sample_tiny3,
+                       handle.cs_sample_tex3):
                 fn.argtypes = [p, i, geom, p, p, p, p, ll, p]
                 fn.restype = i
-            handle.cs_sample_brick2.argtypes = [p, i, geom, p, p, p, ll, p]
-            handle.cs_sample_brick2.restype = i
+            for fn in (handle.cs_sample_brick2, handle.cs_sample_tex2):
+                fn.argtypes = [p, i, geom, p, p, p, ll, p]
+                fn.restype = i
             _LIB = handle
     return _LIB
 

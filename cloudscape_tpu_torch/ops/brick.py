@@ -1,6 +1,14 @@
-"""Brick-row texture tables (torch port of `cloudscape_tpu.ops.brick`).
+"""The engine's sampled tables: channel-last textures, and the brick-row
+tables of `cloudscape_tpu.ops.brick` (torch port).
 
-Each noise texture is reshaped into a table of 128-lane bricks:
+The engine's 3-D and 2-D tables are channel-last textures (`Texture3D`
+[D, H, W, C], `Texture2D` [H, W, C], contiguous): the noise mips, weather,
+the cone cache, the baked field and the display pairs. Volumes that fit
+one row (≤ 128 values) are kept whole (`TinyVolume3D`).
+
+The JAX package reshapes each texture into a table of 128-lane bricks,
+which the public `build_brick*` / `sample_brick*` API here still builds
+and samples, as JAX's layout:
 
 - 3D, 2 channels:  4×4×4 texels × 2ch  = 128 lanes, brick stride 3
 - 3D, 1 channel :  8×4×4 texels × 1ch  = 128 lanes, strides (7, 3, 3)
@@ -9,28 +17,33 @@ Each noise texture is reshaped into a table of 128-lane bricks:
   display pair tables of the fused serving tick, clamp wrap)
 
 Brick stride ≤ brick_dim - 1 keeps any trilinear/bilinear footprint inside
-one brick, so a filtered sample reads one brick row. Volumes that fit one
-row (≤ 128 values) are kept whole (`TinyVolume3D`). The layout is the JAX
-package's, kept as it is so that the port's tables match it.
+one brick, so a filtered sample reads one brick row. A texture's sample
+equals the brick table's of the same channel count bitwise: it rounds its
+hat weights at the lane its texel would have in that table
+(`WEIGHT_STRIDES`).
 
 The samplers dispatch on the coordinates' device:
 
 - a CUDA tensor launches a hand-written kernel of `csrc/sample.cu` on the
-  whole plane — K7 `sample_brick3_xyz`, K8 `sample_brick2_xy`, K9
-  `sample_tiny3_xyz` — which reads only the 8 (4 in 2-D) texels that
-  carry weight, or raises (also for a channel count or table type that
-  no main-path table has: `KERNEL_KINDS`); `launches` counts the launches
-  per kernel and `samples` the samples they were given;
-- a CPU tensor takes the plain version, the JAX package's lane-weight form:
-  it gathers each sample's whole row, weighs every lane with hat weights
-  and sums them. A 96² tile at 128 steps is 1.18 M samples, so it runs in
-  chunks of `SAMPLE_CHUNK` samples to bound the rows and weights it
-  materialises.
+  whole plane — K7 `sample_tex3_xyz` (and `sample_brick3_xyz`), K8
+  `sample_tex2_xy` (and `sample_brick2_xy`), K9 `sample_tiny3_xyz` —
+  which reads only the 8 (4 in 2-D) texels that carry weight, or raises
+  (also for a channel count or table type that no main-path table has:
+  `KERNEL_KINDS`); `launches` counts the launches per kernel, `samples`
+  the samples they were given and `sizes` the launches by sample count;
+- a CPU tensor takes the plain version: for a texture the 8-corner (4 in
+  2-D) gather and weighted sum, in the kernel's order; for a brick table
+  the JAX package's lane-weight form, which gathers each sample's whole
+  row, weighs every lane with hat weights and sums them. A 96² tile at
+  128 steps is 1.18 M samples, so both run in chunks of `SAMPLE_CHUNK`
+  samples to bound what they materialise.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import itertools
 import math
 from typing import Tuple
 
@@ -40,9 +53,11 @@ from cloudscape_tpu_torch.ops import _cuda
 
 SAMPLE_CHUNK = 1 << 18
 
-# Each kernel's launches, and the samples those launches were given.
-launches = {"brick3": 0, "brick2": 0, "tiny3": 0}
-samples = {"brick3": 0, "brick2": 0, "tiny3": 0}
+# Each kernel's launches, the samples those launches were given, and the
+# launches by their sample count (n → launches).
+launches = {"tex3": 0, "tex2": 0, "brick3": 0, "brick2": 0, "tiny3": 0}
+samples = {"tex3": 0, "tex2": 0, "brick3": 0, "brick2": 0, "tiny3": 0}
+sizes = {k: collections.Counter() for k in launches}
 
 # The (channels, table dtype) pairs csrc/sample.cu compiles: those of the
 # tables the marches, the baked field and the composite sample (the noise
@@ -51,6 +66,8 @@ samples = {"brick3": 0, "brick2": 0, "tiny3": 0}
 # raises.
 _F32, _BF16 = torch.float32, torch.bfloat16
 KERNEL_KINDS = {
+    "tex3": frozenset({(1, _F32), (2, _F32), (1, _BF16), (2, _BF16)}),
+    "tex2": frozenset({(2, _F32), (8, _F32)}),
     "brick3": frozenset({(1, _F32), (2, _F32), (1, _BF16), (2, _BF16)}),
     "brick2": frozenset({(2, _F32), (8, _F32)}),
     "tiny3": frozenset({(1, _F32), (2, _F32), (1, _BF16), (2, _BF16)}),
@@ -89,6 +106,63 @@ class TinyVolume3D:
     row: torch.Tensor
     dims: Tuple[int, int, int]
     channels: int = 1
+
+
+# The brick strides of the JAX package's table of each (ndim, channels):
+# a texture rounds its hat weights at the lane its texel has there, a =
+# float(i0 mod s) + f, so that its samples equal that table's bitwise (and
+# JAX's within a few ulps). The kernels take them in their geometry.
+WEIGHT_STRIDES = {(3, 1): (7, 3, 3), (3, 2): (3, 3, 3), (2, 2): (7, 7), (2, 8): (3, 3)}
+
+
+def weight_strides(ndim: int, channels: int):
+    """`WEIGHT_STRIDES` of a texture of `ndim` dims and `channels`; raises
+    for a channel count that no table of the JAX package has."""
+    try:
+        return WEIGHT_STRIDES[(ndim, channels)]
+    except KeyError:
+        raise ValueError(f"no kernel for a {ndim}-D texture of {channels} channels; "
+                         f"it has {sorted(WEIGHT_STRIDES)}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class Texture3D:
+    """A contiguous channel-last volume [D, H, W, C]."""
+
+    texels: torch.Tensor
+    dims: Tuple[int, int, int]  # (D, H, W)
+    channels: int = 2
+    wrap: str = "repeat"  # "repeat" | "clamp"
+
+
+@dataclasses.dataclass(frozen=True)
+class Texture2D:
+    """A contiguous channel-last image [H, W, C]."""
+
+    texels: torch.Tensor
+    dims: Tuple[int, int]  # (H, W)
+    channels: int = 2
+    wrap: str = "repeat"
+
+
+def _texels(src):
+    """`src` contiguous and 16-B aligned (the kernels' vector loads): the
+    source itself where it already is, else a copy."""
+    t = src.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def build_texture3(volume, wrap: str = "repeat") -> Texture3D:
+    """volume: [D, H, W, C] tensor → its texture, on the volume's device
+    (no gather: the volume itself where it is contiguous and aligned)."""
+    d, h, w, c = volume.shape
+    return Texture3D(texels=_texels(volume), dims=(d, h, w), channels=c, wrap=wrap)
+
+
+def build_texture2(image, wrap: str = "repeat") -> Texture2D:
+    """image: [H, W, C] tensor → its texture (as `build_texture3`)."""
+    h, w, c = image.shape
+    return Texture2D(texels=_texels(image), dims=(h, w), channels=c, wrap=wrap)
 
 
 def _cdiv(a, b):
@@ -137,8 +211,9 @@ build_brick3_device = build_brick3
 def build_brick3_rows(volume, b0: int, count: int, brick=(4, 4, 4),
                       stride=(3, 3, 3), wrap: str = "repeat"):
     """Rows [b0, b0 + count) of `build_brick3`'s table — the sliceable form
-    the engine uses to spread the cone-table build over ticks. Writing every
-    row range reproduces the whole table. Needs b0 + count ≤ n_bricks."""
+    the JAX engine uses to spread the cone-table build over ticks (the
+    port's cone cache is a texture). Writing every row range reproduces the
+    whole table. Needs b0 + count ≤ n_bricks."""
     d, h, w, c = volume.shape
     bz, by, bx = brick
     sz, sy, sx = stride
@@ -212,6 +287,64 @@ def _chunked(fn, *planes):
             for i in range(0, n, SAMPLE_CHUNK)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
     return out.reshape(shape + out.shape[-1:])
+
+
+def _texel_axis(q, n: int, wrap: str, s: int):
+    """One texture axis: texels (i0, i0 + 1; past the edge n - 1 under
+    clamp, 0 under repeat) and hat weights at lanes i0 mod s and its next,
+    as csrc/sample.cu's `tex_axis`."""
+    i0, f = _axis_coords(q, n, wrap)
+    i1 = torch.where(i0 + 1 < n, i0 + 1, n - 1 if wrap == "clamp" else 0)
+    lf = (i0 % s).to(torch.float32)
+    a = lf + f
+    w0 = torch.clamp(1.0 - torch.abs(a - lf), min=0.0)
+    w1 = torch.clamp(1.0 - torch.abs(a - (lf + 1.0)), min=0.0)
+    return (i0, i1), (w0, w1)
+
+
+def _weigh_texels(texels, channels: int, axes):
+    """Σ over corners (outer axis first) of (Π weights)·texel, summed from 0
+    in corner order, per channel → [m, C] float32. axes: per axis from the
+    outermost, ((i0, i1), (w0, w1), the texel stride of that axis)."""
+    flat = texels.reshape(-1, channels)
+    m = axes[0][0][0].shape[0]
+    acc = torch.zeros((m, channels), dtype=torch.float32, device=flat.device)
+    for corner in itertools.product((0, 1), repeat=len(axes)):
+        # ((wx·wy)·wz): the innermost axis's weight first.
+        wk, off = None, 0
+        for (idx, wts, stride), dk in zip(reversed(axes), reversed(corner)):
+            wk = wts[dk] if wk is None else wk * wts[dk]
+            off = off + idx[dk] * stride
+        acc = acc + wk[:, None] * flat[off].to(torch.float32)
+    return acc
+
+
+def sample_tex3_xyz_reference(tex: Texture3D, qx, qy, qz):
+    """Plain version of K7 on a texture: the 8 corners gathered, weighed
+    and summed in the kernel's order and rounding, in chunks."""
+    d, h, w = tex.dims
+    sz, sy, sx = weight_strides(3, tex.channels)
+
+    def chunk(qx, qy, qz):
+        return _weigh_texels(tex.texels, tex.channels, (
+            (*_texel_axis(qz, d, tex.wrap, sz), h * w),
+            (*_texel_axis(qy, h, tex.wrap, sy), w),
+            (*_texel_axis(qx, w, tex.wrap, sx), 1)))
+
+    return _chunked(chunk, qx, qy, qz)
+
+
+def sample_tex2_xy_reference(tex: Texture2D, qu, qv):
+    """Plain version of K8 on a texture: the 4 corners, as K7's."""
+    h, w = tex.dims
+    sy, sx = weight_strides(2, tex.channels)
+
+    def chunk(qu, qv):
+        return _weigh_texels(tex.texels, tex.channels, (
+            (*_texel_axis(qv, h, tex.wrap, sy), w),
+            (*_texel_axis(qu, w, tex.wrap, sx), 1)))
+
+    return _chunked(chunk, qu, qv)
 
 
 def sample_brick3_xyz_reference(bt: BrickTable3D, qx, qy, qz):
@@ -297,6 +430,8 @@ def kernel_args(name: str, table, values: int, geom, channels: int, planes):
     if not table.is_contiguous() or table.numel() != values:
         raise ValueError(f"{what}: table must be contiguous with {values} values, "
                          f"got {table.numel()}")
+    if name.startswith("tex") and table.data_ptr() % 16:
+        raise ValueError(f"{what}: texels must be 16-byte aligned (vector loads)")
     if (channels, table.dtype) not in KERNEL_KINDS[name]:
         raise ValueError(f"{what}: no kernel for {channels} channels of "
                          f"{table.dtype}; it has {sorted(map(str, KERNEL_KINDS[name]))}")
@@ -330,6 +465,7 @@ def _launch(name: str, table, values: int, geom, channels: int, planes):
     with _cuda.COUNT_LOCK:
         launches[name] += 1
         samples[name] += args[-1]
+        sizes[name][args[-1]] += 1
     return out
 
 
@@ -341,6 +477,35 @@ def _on_card(what: str, q) -> bool:
     if q.device.type == "cpu":
         return False
     raise ValueError(f"{what}: unsupported device {q.device}")
+
+
+def _tex_geom(tex):
+    """The texture kernels' geometry: dims, channels, clamp, weight strides."""
+    return (*tex.dims, tex.channels, int(tex.wrap == "clamp"),
+            *weight_strides(len(tex.dims), tex.channels))
+
+
+def sample_tex3_xyz(tex: Texture3D, qx, qy, qz):
+    """Trilinear fetch from a texture on component planes (x, y, z uv) →
+    [..., C] (kernel K7 on the card)."""
+    if not _on_card("sample_tex3_xyz", qx):
+        return sample_tex3_xyz_reference(tex, qx, qy, qz)
+    return _launch("tex3", tex.texels, tex.channels * math.prod(tex.dims),
+                   _tex_geom(tex), tex.channels, (qx, qy, qz))
+
+
+def sample_tex2_xy(tex: Texture2D, qu, qv):
+    """Bilinear fetch from a texture on component planes (u, v) → [..., C]
+    (kernel K8 on the card)."""
+    if not _on_card("sample_tex2_xy", qu):
+        return sample_tex2_xy_reference(tex, qu, qv)
+    return _launch("tex2", tex.texels, tex.channels * math.prod(tex.dims),
+                   _tex_geom(tex), tex.channels, (qu, qv))
+
+
+def sample_tex2(tex: Texture2D, uv):
+    """Bilinear fetch at uv [..., 2] → [..., C] (the texture's wrap)."""
+    return sample_tex2_xy(tex, uv[..., 0], uv[..., 1])
 
 
 def sample_brick3_xyz(bt: BrickTable3D, qx, qy, qz):

@@ -2,7 +2,7 @@
 
 The port of `cloudscape_tpu.parallel.sharding`. Rays are independent and
 share only read-only inputs, so the hemisphere's row axis is split over the
-mesh (`P("rays")`), the noise, brick tables, cone cache, parameters and LUTs
+mesh (`P("rays")`), the noise, its textures, the cone cache, parameters and LUTs
 are replicated (`P()`), and shards talk only where the JAX package's do: the
 v3 cull prepass exchanges one boundary row for its dilations
 (`models/march_fast.py` `_halo_rows`), and a frame's mean luminance is
@@ -114,7 +114,7 @@ def make_mesh(devices: Optional[Sequence[Any]] = None,
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     """fn over every tensor of a tree of dataclasses (MarchParams, NoisePack,
-    BrickPack, ConeCache and the brick tables), tuples, lists and dicts;
+    BrickPack, ConeCache and their textures), tuples, lists and dicts;
     other leaves are kept as they are."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)

@@ -46,6 +46,7 @@ from cloudscape_tpu_torch.engine import CloudSkyEngine
 from cloudscape_tpu_torch.models import march_fast as tmf
 from cloudscape_tpu_torch.models.density import MarchParams
 from cloudscape_tpu_torch.models.packs import noise_pack_from_numpy
+from cloudscape_tpu_torch.ops import brick as tbrick
 
 # Several test workers share the host's cores: keep torch's intra-op
 # thread pool small so they do not oversubscribe them.
@@ -132,7 +133,10 @@ def test_cone_cache_and_tile_match_jax(packs):
     jb, tb = jmf.BrickPack.from_noise(jn), tmf.BrickPack.from_noise(tn)
     jc = jmf.build_cone_cache(jp, jb, 2, res=RES, chunk=4096)
     tc = tmf.build_cone_cache(tp, tb, 2, res=RES, chunk=4096)
-    ja, ta = np.asarray(jc.table.table), tc.table.table.numpy()
+    # The port's texture packed into JAX's layout (CONE_BRICK at CONE_STRIDE).
+    ta = tbrick.build_brick3(tc.table.texels, tmf.CONE_BRICK, tmf.CONE_STRIDE,
+                             wrap="clamp").table.numpy()
+    ja = np.asarray(jc.table.table)
     assert ta.shape == ja.shape and (ja > 0).any()
     assert psnr(ta, ja) >= 80.0
     sky = jatmo.sky_lut(jatmo.transmittance_lut(), jnp.asarray(jp.light_direction))
@@ -150,7 +154,7 @@ def test_cone_cache_and_tile_match_jax(packs):
 
 def test_sliced_bake_matches_sync_build(packs):
     """The engine's sliced cone bake (occupancy slices → K2 finalize →
-    cone-march slices → table rows) reproduces build_cone_cache."""
+    cone-march slices → texture rows) reproduces build_cone_cache."""
     _, tn = packs
     _, tp = _params()
     tb = tmf.BrickPack.from_noise(tn)
@@ -164,14 +168,12 @@ def test_sliced_bake_matches_sync_build(packs):
     for i0 in range(0, cap, 3_000):
         tmf.bake_cone_cells(vol, idx, min(i0, cap - 3_000), tp, tb, 3_000,
                             light_steps=2, res=RES)
-    nb = tmf.brick3_grid(RES, tmf.CONE_STRIDE)
-    n_bricks = int(np.prod(nb))
-    table = torch.cat([tmf.cone_table_rows(vol[:n].reshape(RES), b0,
-                                           min(500, n_bricks - b0))
-                       for b0 in range(0, n_bricks, 500)])
+    table = torch.cat([tmf.cone_table_rows(vol[:n].reshape(RES), r0,
+                                           min(500, n - r0))
+                       for r0 in range(0, n, 500)])
     sliced = tmf.wrap_cone_table(table, RES)
     sync = tmf.build_cone_cache(tp, tb, 2, res=RES, chunk=4096)
-    np.testing.assert_allclose(sliced.table.table.numpy(), sync.table.table.numpy(),
+    np.testing.assert_allclose(sliced.table.texels.numpy(), sync.table.texels.numpy(),
                                atol=1e-5, rtol=0)
 
 

@@ -378,9 +378,9 @@ def test_march_bricks_bf16_tables(scene, exact):
     meets JAX's bf16 march at ≥ 50 dB (118.14 dB)."""
     s = scene
     bp16 = tmf.BrickPack.from_noise(s["tn"], dtype=torch.bfloat16)
-    assert all((v.table if isinstance(v, tbrick.BrickTable3D) else v.row).dtype
+    assert all((v.texels if isinstance(v, tbrick.Texture3D) else v.row).dtype
                == torch.bfloat16 for v in bp16.large + bp16.small)
-    assert bp16.weather.table.dtype == torch.float32
+    assert bp16.weather.texels.dtype == torch.float32
     q = torch.rand(300, 3, generator=torch.Generator().manual_seed(3))
     for vol in (bp16.large[0], bp16.small[0], bp16.large[-1]):
         assert tmf._sample_volume_xyz(vol, q[:, 0], q[:, 1], q[:, 2]).dtype \
@@ -439,19 +439,26 @@ def _meta(table):
 
 
 def test_assemble_cone_cache_matches():
-    """`assemble_cone_cache` packs a cone volume as JAX's does (table and
-    metadata equal) and as the sliced `cone_table_rows` → `wrap_cone_table`
-    does."""
+    """`assemble_cone_cache` holds a cone volume as a 1-channel clamp
+    texture of its texels, which packed into JAX's layout (CONE_BRICK bricks
+    at CONE_STRIDE) is JAX's table, metadata and all; the sliced
+    `cone_table_rows` → `wrap_cone_table` gives the same texture."""
     rng = np.random.default_rng(15)
     vol = rng.uniform(size=RES).astype(np.float32)
     want = jmf.assemble_cone_cache(jnp.asarray(vol), extent=200e3)
     got = tmf.assemble_cone_cache(_t(vol), extent=200e3)
-    np.testing.assert_array_equal(got.table.table.numpy(), np.asarray(want.table.table))
-    assert _meta(got.table) == _meta(want.table)
+    tex = got.table
+    assert (tex.dims, tex.channels, tex.wrap) == (RES, 1, "clamp")
+    np.testing.assert_array_equal(tex.texels.numpy(), vol[..., None])
+    packed = tbrick.build_brick3(tex.texels, tmf.CONE_BRICK, tmf.CONE_STRIDE,
+                                 wrap="clamp")
+    np.testing.assert_array_equal(packed.table.numpy(), np.asarray(want.table.table))
+    assert _meta(packed) == _meta(want.table)
     assert got.extent == want.extent == 200e3
-    n_bricks = int(np.prod(tmf.brick3_grid(RES, tmf.CONE_STRIDE)))
-    rows = torch.cat([tmf.cone_table_rows(_t(vol), b0, min(100, n_bricks - b0))
-                      for b0 in range(0, n_bricks, 100)])
+    n = int(np.prod(RES))
+    rows = torch.cat([tmf.cone_table_rows(_t(vol), r0, min(100, n - r0))
+                      for r0 in range(0, n, 100)])
     sliced = tmf.wrap_cone_table(rows, RES, extent=200e3)
-    np.testing.assert_array_equal(sliced.table.table.numpy(), got.table.table.numpy())
-    assert _meta(sliced.table) == _meta(got.table) and sliced.extent == 200e3
+    np.testing.assert_array_equal(sliced.table.texels.numpy(), tex.texels.numpy())
+    assert (sliced.table.dims, sliced.table.channels, sliced.table.wrap) == \
+        (tex.dims, tex.channels, tex.wrap) and sliced.extent == 200e3

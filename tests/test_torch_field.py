@@ -171,7 +171,9 @@ def _channel(table, c):
 
 
 def test_field_table_matches_jax(scene):
-    """`build_density_field`'s brick table against JAX's: ≥ 99% of entries
+    """`build_density_field`'s texture, packed into JAX's layout (2-channel
+    4×4×4 bricks at stride 3, clamp), against JAX's brick table: the same
+    dims and wrap, and ≥ 99% of entries
     within atol 1e-5. The rest is the grid's y: torch's float32 sqrt on the
     CPU is one ulp (0.5 m) off the correctly rounded root JAX takes at
     ~1.3% of the cells, which moves their height fraction by 2e-4, and the
@@ -182,8 +184,10 @@ def test_field_table_matches_jax(scene):
     port's own cell centres, JAX's `pre` is the port's channel 0 at
     atol 1e-5 everywhere."""
     s = scene
-    jt, tt = s["jf"].table, s["tf"].table
-    assert tt.dims == jt.dims and tt.grid == jt.grid and tt.wrap == jt.wrap == "clamp"
+    jt, tex = s["jf"].table, s["tf"].table
+    assert tex.dims == jt.dims and tex.channels == 2 and tex.wrap == jt.wrap == "clamp"
+    tt = tbrick.build_brick3(tex.texels, (4, 4, 4), (3, 3, 3), wrap="clamp")
+    assert tt.grid == jt.grid
     want, got = np.asarray(jt.table), tt.table.numpy()
     assert got.shape == want.shape == (int(np.prod(jt.grid)), 128)
     assert (np.abs(got - want) <= 1e-5).mean() >= 0.99

@@ -123,9 +123,11 @@ def no_jax_warmers(monkeypatch):
 # ------------------------------------------------------------ pair tables
 
 def test_display_pair_tables_match_jax():
-    """`_build_display_pair` (`build_brick2_device` at (4, 4) / (3, 3),
-    clamp) against JAX's on the same rings: the tables bitwise, and a copy
-    that later in-place ring writes do not reach."""
+    """`_build_display_pair` (8-channel clamp textures of the blend pair)
+    against JAX's (`build_brick2_device` at (4, 4) / (3, 3), clamp) on the
+    same rings: each texture packed into JAX's layout is JAX's table
+    bitwise, and it is a copy that later in-place ring writes do not
+    reach."""
     rng = np.random.default_rng(11)
     cloud = rng.uniform(0, 1, (3, 20, 20, 4)).astype(np.float32)
     sky = rng.uniform(0, 20, (3, 10, 16, 4)).astype(np.float32)
@@ -134,13 +136,15 @@ def test_display_pair_tables_match_jax():
                                          jnp.int32(0), jnp.int32(1))
     ring_t = torch.from_numpy(cloud.copy())
     tc, ts = tengine._build_display_pair(ring_t, 1, 2, torch.from_numpy(sky), 0, 1)
-    for j, t in ((jc, tc), (js, ts)):
+    for j, tex in ((jc, tc), (js, ts)):
+        assert (tex.dims, tex.channels, tex.wrap) == (j.dims, j.channels, j.wrap)
+        t = tbrick.build_brick2(tex.texels, (4, 4), (3, 3), wrap="clamp")
         assert (t.dims, t.brick, t.stride, t.grid, t.channels, t.wrap) == \
             (j.dims, j.brick, j.stride, j.grid, j.channels, j.wrap)
         np.testing.assert_array_equal(t.table.numpy(), np.asarray(j.table))
-    before = tc.table.clone()
+    before = tc.texels.clone()
     ring_t[1:] = -1.0  # the engine writes tiles into the ring in place
-    assert torch.equal(tc.table, before)
+    assert torch.equal(tc.texels, before)
 
 
 @pytest.mark.parametrize("channels,brick,stride", [(8, (4, 4), (3, 3)),
@@ -177,28 +181,34 @@ def textures():
     return cloud, sky, tlut, d, (sun / np.linalg.norm(sun)).astype(np.float32)
 
 
-@pytest.mark.parametrize("form", ["pair", "preblended"])
+@pytest.mark.parametrize("form", ["pair", "preblended", "texture"])
 @pytest.mark.parametrize("deband", [False, True])
 def test_composite_display_matches(textures, form, deband):
     """`composite_display` over 8-channel pair tables and 4-channel
-    pre-blended tables (the transmittance LUT as a table too) against JAX's
+    pre-blended tables (the transmittance LUT as a table too), and over the
+    engine's form (8-channel pair textures, the LUT a raw image; JAX's
+    engine packs the same pairs into (4, 4) brick tables), against JAX's
     `composite_display` and the port's split `composite`: atol 2e-5 /
     rtol 1e-5."""
     cloud, sky, tlut, d, sun = textures
     blend = 0.40625
-    if form == "pair":
-        cloud_img = np.concatenate([cloud[0], cloud[1]], axis=-1)
-        sky_img = np.concatenate([sky[0], sky[1]], axis=-1)
-        brick, stride = (4, 4), (3, 3)
-    else:
+    if form == "preblended":
         cloud_img = cloud[0] + (cloud[1] - cloud[0]) * blend
         sky_img = sky[0] + (sky[1] - sky[0]) * blend
         brick, stride = (4, 8), (3, 7)
+    else:
+        cloud_img = np.concatenate([cloud[0], cloud[1]], axis=-1)
+        sky_img = np.concatenate([sky[0], sky[1]], axis=-1)
+        brick, stride = (4, 4), (3, 3)
     tables = []
     for build, conv in ((jbrick.build_brick2_device, jnp.asarray),
                         (tbrick.build_brick2_device, torch.from_numpy)):
         tables.append([build(conv(np.ascontiguousarray(x)), brick, stride,
                              wrap="clamp") for x in (cloud_img, sky_img, tlut)])
+    if form == "texture":
+        tables[0][2] = jnp.asarray(tlut)
+        tables[1] = [tbrick.build_texture2(torch.from_numpy(x), wrap="clamp")
+                     for x in (cloud_img, sky_img)] + [torch.from_numpy(tlut)]
     want = np.asarray(jax.jit(jcomp.composite_display, static_argnames="deband")(
         jnp.asarray(d), *tables[0], jnp.asarray(sun), jnp.float32(2.0),
         jnp.float32(blend), deband=deband))

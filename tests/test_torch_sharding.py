@@ -185,7 +185,7 @@ def test_replicate_moves_once_per_distinct_device(scene):
     assert reps[0].cloud_coverage.data_ptr() == tp.cloud_coverage.data_ptr()
     assert reps[2].light_direction.device.type == "meta"
     bricks = tsh.replicate(scene["tb"], [DEV])[0]
-    assert bricks.large[0].table.data_ptr() == scene["tb"].large[0].table.data_ptr()
+    assert bricks.large[0].texels.data_ptr() == scene["tb"].large[0].texels.data_ptr()
 
 
 # ----------------------------------------------------------- sharded renders
