@@ -41,13 +41,17 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    its cone cache and the display pair textures of its fused tick, at
    [587, 511] planes (299,957 samples, no multiple of a block) with texel
    centres and edges: a texture kernel within TEXTURE_TOL relative of its
-   plain version, K9 and the brick kernels within SAMPLE_TOL · max(1,
+   plain version, K9 bitwise, the brick kernels within SAMPLE_TOL · max(1,
    |plain|); three runs bitwise equal, a strided and a transposed view of
    the planes giving the same bits;
    each texture also packed into the JAX package's brick table and
    sampled by the brick kernel (K7, K8 on brick rows), which must give the
-   texture kernel's bits; then the v3 march of a V3_SMALL² octahedral map
-   on the card ≥ V3_SMALL_DB from the same call on the CPU;
+   texture kernel's bits; K9 on TINY_CASES (a (2, 1, 3) volume through
+   the runtime-dims instantiation, sample counts of every residue mod 4,
+   planes 4 and 12 B past 16-B alignment, coordinates with |q·4| ≥ 2^31
+   of both signs), each bitwise; then the v3
+   march of a V3_SMALL² octahedral map on the card ≥ V3_SMALL_DB from the
+   same call on the CPU;
 6. K3 (segscan) against its plain version, atol 2e-4, 1-D and batched
    ([k, n]: k rows over one row of heads): at the phase-5 engine's v3
    hot-list capacity (random heads, one segment over every block, every
@@ -234,7 +238,10 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    a texture's call also, on the brick table of the same texels, with the
    brick kernel (its row under sample_brick3 / sample_brick2); for the clamp tables `torch.nn.functional.grid_sample`
    on the texture (within LIBRARY_TOL of the kernel), its CUDA-event ms and
-   device µs; K2's library yardstick,
+   device µs; for K9 the stream yardstick `torch.addcmul(qx, qy, qz)` on
+   the same planes (the same 12 B read and 4 B written a sample; not K9's
+   function, never called by the port), and K7's 1-ch 32³ repeat row
+   printed again as the anchor against earlier runs; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
    pass × (device time − bound), each launch at the time of the shape it
@@ -334,7 +341,7 @@ NOISE_OUT = {"base": (16, 3), "detail": (12, 3), "weather": (12, 2)}
 # The change (its number in PERF.md §6's Findings) that redesigned each
 # kernel for the card after its first port; the ranking marks those.
 REDESIGNED_IN = {"accumulate": 4, "compact": 4, "segscan": 5, "sample_tex3": 13,
-                 "sample_tex2": 13}
+                 "sample_tex2": 13, "sample_tiny3": 14}
 # Device kernel names of each wrapper, for picking its launches out of a
 # profiler trace.
 KERNEL_NAMES = {
@@ -350,6 +357,10 @@ KERNEL_NAMES = {
     "sample_brick3": ("brick3_kernel",),
     "sample_brick2": ("brick2_kernel",),
     "grid_sample": ("grid_sampler_2d_kernel", "grid_sampler_3d_kernel"),
+    # K9's stream yardstick, torch.addcmul (the L2 flush before each call is
+    # a read, cuBLAS's dot, whose kernels none of these names).
+    "addcmul": ("vectorized_elementwise_kernel", "unrolled_elementwise_kernel",
+                "elementwise_kernel"),
 }
 
 
@@ -424,13 +435,22 @@ def noise_work(name: str, size: int):
 TRACE_WARM = 5
 TRACE_PAD = 20
 TRACE_TRIES = 3
+# The losses are a trace's leading calls (or, once, its last), late in a
+# long run: the profiler keeps a device activity only if its timestamp,
+# converted to the host's clock, lies inside the active step, and that
+# conversion drifts by milliseconds (on an H100, one trace of 40 calls kept
+# only its last). So the active step opens and closes with TRACE_MARGIN_S of
+# host time and no device work (the device synchronised), which a drift
+# smaller than the margin cannot move a call across.
+TRACE_MARGIN_S = 0.05
 
 
 def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     """Device time of one fn() call with a cold L2, from torch.profiler.
 
     Runs TRACE_WARM calls in the profiler's warm-up step, then traces
-    TRACE_PAD + `reps` calls, each after reading (or, with `write_flush`,
+    TRACE_PAD + `reps` calls (TRACE_MARGIN_S of idle host time at each end
+    of the step), each after reading (or, with `write_flush`,
     overwriting) an L2-sized scratch tensor, picks out of the trace the
     device kernels whose names are in `names` (the flush's kernels between
     two calls separate them) and keeps the last `reps` complete calls,
@@ -461,10 +481,12 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for n in (TRACE_WARM, TRACE_PAD + reps):
+                time.sleep(TRACE_MARGIN_S)
                 for _ in range(n):
                     flush()
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(TRACE_MARGIN_S)
                 prof.step()
         return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
@@ -1049,7 +1071,8 @@ def counted(fn):
 # (K7 tex3_kernel, K8 tex2_kernel) and its plain version take the same
 # steps in the same order and rounding, so they agree bitwise; they are held
 # at TEXTURE_TOL relative, the most the brick kernels have differed from
-# their plain versions on the card. The brick kernels and K9 sum a channel's 8
+# their plain versions on the card. So do K9 (tiny3_kernel) and its plain
+# version, which are held bitwise. The brick kernels sum a channel's 8
 # corners (4 in 2-D) in lane order where their plain versions' torch.sum
 # reduces all 128 lanes in another tree: the two agree within a few ulps of
 # the sample, not bitwise. So for them |kernel − plain| ≤ SAMPLE_TOL ·
@@ -1172,8 +1195,9 @@ def check_sampler(what: str, tab, qs) -> tuple:
     `qs`: within TEXTURE_TOL (a texture) or SAMPLE_TOL (scaled as
     SAMPLE_TOL says), three runs bitwise equal, and the same bits from
     views of the planes (x a strided component of a stacked tensor, y a
-    transposed view the wrapper copies). Returns (the largest |kernel − plain| / max(1, |plain|), the
-    largest |kernel − plain|, the kernel's output)."""
+    transposed view the wrapper copies); K9 bitwise its plain version.
+    Returns (the largest |kernel − plain| / max(1, |plain|), the largest
+    |kernel − plain|, the kernel's output)."""
     import torch
 
     fn, ref, _ = sampler_fns(sampler_of(tab))
@@ -1190,6 +1214,8 @@ def check_sampler(what: str, tab, qs) -> tuple:
     require(all(bitwise_equal(r, runs[0]) for r in runs[1:]),
             f"{what}: three runs differ")
     require(bitwise_equal(view_out, runs[0]), f"{what}: views differ from the planes")
+    if sampler_of(tab) == "sample_tiny3":
+        require(bitwise_equal(runs[0], want), f"{what}: K9 not bitwise its plain version")
     diff = (runs[0] - want).abs()
     err = float((diff / want.abs().clamp(min=1.0)).max())
     tol = TEXTURE_TOL if is_texture(tab) else SAMPLE_TOL
@@ -1241,6 +1267,61 @@ def run_sampler_checks(dev, eng) -> list:
             checked = [(sampler_of(tab), table_kind(tab), err, abs_err)]
         rows += [dict(table=name, kind=kind, kernel=kname, err=err, abs_err=abs_err)
                  for kname, kind, err, abs_err in checked]
+    return rows
+
+
+# Phase 5b's K9 cases beside the engine's tables (the engine's tiny volumes
+# are 4³, 2³ and 1³, which take compile-time dims): (dims, channels, dtype,
+# samples, each plane's float offset in its buffer, whether the planes
+# start with FAR_Q, what it covers). Each is held bitwise (`check_sampler`).
+TINY_CASES = (
+    ((2, 1, 3), 1, "float32", 299957, 0, False,
+     "runtime dims, float4 planes, a ragged tail"),
+    ((2, 1, 3), 2, "bfloat16", 4099, 0, False, "runtime dims, 2 channels, bfloat16"),
+    ((4, 4, 4), 1, "float32", 4097, 0, False,
+     "n = 1 mod 4: the tail one sample at a time"),
+    ((2, 2, 2), 2, "float32", 4098, 0, False, "n = 2 mod 4, 2 channels"),
+    ((4, 4, 4), 1, "float32", 299957, 1, False,
+     "planes 4 B past 16-B alignment: scalar loads"),
+    ((1, 1, 1), 2, "bfloat16", 4096, 3, False, "planes 12 B past alignment, n = 0 mod 4"),
+    ((4, 4, 4), 1, "float32", 4100, 0, True, "|q·4| ≥ 2^31 of both signs: the 64-bit mask"),
+)
+# Coordinates whose q·4 lies past 2^31 (below 2^63) on either side: the
+# compile-time wrap's 64-bit branch.
+FAR_Q = (2.0 ** 29, -2.0 ** 29, 2.0 ** 29 + 64, -(2.0 ** 29 + 64), 3e9, -3e9, 1e12,
+         -1e12, 2.5e15, -2.5e15, 1e18, -1e18)
+
+
+def run_tiny_cases(dev) -> list:
+    """Phase 5b: K9 on TINY_CASES: a random volume (seeded) and planes of
+    texel centres, edges and values in [−1.5, 2.5], each plane a view at its
+    offset into a larger buffer (an offset view reaches the kernel as it
+    is); bitwise its plain version, three runs and views bitwise."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import brick
+
+    rows = []
+    for seed, (dims, c, dtype, n, offset, far, what) in enumerate(TINY_CASES):
+        rng = np.random.default_rng(100 + seed)
+        vol = torch.from_numpy(rng.random(dims + (c,)).astype(np.float32)).to(dev)
+        tv = brick.build_tiny3(vol)
+        tv = brick.TinyVolume3D(row=tv.row.to(getattr(torch, dtype)), dims=tv.dims,
+                                channels=c)
+        qs = []
+        for j, q in enumerate(sample_planes(dev, 3, -1.5, 2.5, 200 + seed)):
+            buf = torch.zeros(n + 8, dtype=torch.float32, device=dev)
+            buf[offset:offset + n] = q.reshape(-1)[:n]
+            if far:
+                # Each plane's far values in another order, beside normal ones.
+                buf[offset + 4 * j:offset + 4 * j + len(FAR_Q)] = torch.tensor(
+                    FAR_Q[j:] + FAR_Q[:j], dtype=torch.float32)
+            qs.append(buf[offset:offset + n])
+        require(all(q.data_ptr() % 16 == 4 * offset % 16 for q in qs),
+                f"K9 case {what}: plane alignment")
+        err, abs_err, _ = check_sampler(f"K9 {what}", tv, qs)
+        rows.append(dict(table=what, kind=table_kind(tv), samples=n, offset=offset,
+                         err=err, abs_err=abs_err))
     return rows
 
 
@@ -1421,6 +1502,13 @@ def time_sampler(kname: str, kind: str, tab, qs, serves: str):
     row = sampler_row(kname, kind, tab, qs, nbytes, serves=serves)
     row.update(library_ms=None, library_device_us=None,
                library="none: no repeat wrap in PyTorch")
+    if kname == "sample_tiny3":
+        # K9's stream yardstick: one elementwise kernel over the same
+        # planes, reading the same 12 B and writing the same 4 B a sample.
+        # Not K9's function, and the port never calls it.
+        flat = [q.reshape(-1) for q in qs]
+        row["addcmul_us"] = device_us(lambda: torch.addcmul(*flat),
+                                      KERNEL_NAMES["addcmul"])["span_us"]
     fn = sampler_fns(kname)[0]
     if getattr(tab, "wrap", "repeat") == "clamp":
         call = grid_sample_fn(tab, qs)
@@ -1466,6 +1554,18 @@ def price_sizes(kname: str, tab, qs, sizes) -> dict:
     return groups
 
 
+def headline_params(dev, cov: float):
+    """The bench.py headline scene's MarchParams at cloud coverage `cov`."""
+    from cloudscape_tpu_torch.models.density import MarchParams
+
+    sun = np.array([0.3, 0.4, -0.85])
+    return MarchParams.create(
+        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
+        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=cov,
+        light_direction=sun / np.linalg.norm(sun),
+        ground_color=np.array([0.27, 0.19, 0.027]), device=dev)
+
+
 def run_headline(dev):
     """Phase 8: the bench.py headline scene, coverage 0.35 (timed) and 0.7,
     with bench.py's referee, the exact brick march (`march_bricks(chunk=
@@ -1476,7 +1576,6 @@ def run_headline(dev):
     import torch
 
     from cloudscape_tpu_torch.models import atmosphere
-    from cloudscape_tpu_torch.models.density import MarchParams
     from cloudscape_tpu_torch.models.march_fast import (
         BrickPack, build_cone_cache, march_bricks, march_bricks_v3,
         march_tile_dense, v3_auto_policy, v3_capacities)
@@ -1492,11 +1591,7 @@ def run_headline(dev):
     dirs = torch.from_numpy(hemisphere_dirs(WIDTH, HEIGHT)).to(dev)
     rows = []
     for cov in (0.35, 0.7):
-        params = MarchParams.create(
-            cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
-            weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=cov,
-            light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]),
-            device=dev)
+        params = headline_params(dev, cov)
         rk, ck, hk, cell_frac, hot_frac = v3_auto_policy(dirs, params, bricks,
                                                          steps=STEPS)
 
@@ -1917,7 +2012,6 @@ def run_config4(dev):
     import torch
 
     from cloudscape_tpu_torch.models import atmosphere
-    from cloudscape_tpu_torch.models.density import MarchParams
     from cloudscape_tpu_torch.models.march_fast import (
         BrickPack, _ray_capacity, build_cone_cache, march_bricks_v2,
         march_bricks_v3, march_tile_dense, v2_auto_policy, v2_capacity,
@@ -1944,11 +2038,7 @@ def run_config4(dev):
     sun /= np.linalg.norm(sun)
     sky = atmosphere.sky_lut(atmosphere.transmittance_lut(device=dev),
                              torch.tensor(sun, dtype=torch.float32, device=dev))
-    params = MarchParams.create(
-        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
-        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.35,
-        light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]),
-        device=dev)
+    params = headline_params(dev, 0.35)
     dirs = torch.from_numpy(hemisphere_dirs(width, height)).to(dev)
     rk, cap, tc, occ = v2_auto_policy(dirs, params, bricks, steps=steps)
     cone = build_cone_cache(params, bricks, 6, res=CONE_RES, chunk=65536)
@@ -2846,7 +2936,6 @@ def run_mesh(dev):
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
     from cloudscape_tpu_torch.models import atmosphere
-    from cloudscape_tpu_torch.models.density import MarchParams
     from cloudscape_tpu_torch.models.march import march
     from cloudscape_tpu_torch.models.march_fast import (
         BrickPack, _cull_prepass, _ray_setup, build_cone_cache, march_bricks_v2,
@@ -2867,11 +2956,7 @@ def run_mesh(dev):
     sun_t = torch.tensor(sun, dtype=torch.float32, device=dev)
     tlut = atmosphere.transmittance_lut(device=dev)
     sky = atmosphere.sky_lut(tlut, sun_t)
-    params = MarchParams.create(
-        cloud_pos=np.array([1.5, -0.3]), detailed_pos=np.array([0.4, 0.2]),
-        weather_pos=np.array([0.01, 0.02]), time=12.5, cloud_coverage=0.35,
-        light_direction=sun, ground_color=np.array([0.27, 0.19, 0.027]),
-        device=dev)
+    params = headline_params(dev, 0.35)
     cone = build_cone_cache(params, bricks, light, res=CONE_RES, chunk=65536)
     dirs = texel_directions(size, device=dev)
     mesh = make_mesh([dev] * MESH_SHARDS)
@@ -3373,11 +3458,17 @@ def main() -> int:
     sample_rows = run_sampler_checks(dev, eng)
     for row in sample_rows:
         texture = row["kernel"] in ("sample_tex3", "sample_tex2")
+        gate = ("bitwise" if row["kernel"] == "sample_tiny3"
+                else TEXTURE_TOL if texture else SAMPLE_TOL)
         print(f"{row['kernel']} {row['table']} ({row['kind']}): |kernel - plain| / "
-              f"max(1, |plain|) {row['err']:.3g} (gate "
-              f"{TEXTURE_TOL if texture else SAMPLE_TOL}), three runs and views "
+              f"max(1, |plain|) {row['err']:.3g} (gate {gate}), three runs and views "
               f"bitwise" + ("; the brick kernel on its brick table bitwise"
                             if texture else ""), flush=True)
+    tiny_rows = run_tiny_cases(dev)
+    for row in tiny_rows:
+        print(f"sample_tiny3 {row['kind']}, {row['samples']} samples, planes at float "
+              f"offset {row['offset']} ({row['table']}): bitwise the plain version, "
+              f"three runs and views bitwise", flush=True)
     vs = run_v3_small(dev)
     print(f"v3 march {V3_SMALL}x{V3_SMALL}x{STEPS} (octahedral, procedural pack "
           f"16/16/64, coverage 0.6), card vs CPU: {vs['db']:.2f} dB (gate "
@@ -3745,7 +3836,8 @@ def main() -> int:
                 checked = [(kname, tkind, err, abs_err)]
             for k, k_kind, err, abs_err in checked:
                 sample_errs.setdefault(k, []).append(abs_err)
-                gate = TEXTURE_TOL if k in ("sample_tex3", "sample_tex2") else SAMPLE_TOL
+                gate = ("bitwise" if k == "sample_tiny3" else TEXTURE_TOL
+                        if k in ("sample_tex3", "sample_tex2") else SAMPLE_TOL)
                 print(f"{k} {k_kind}, {qs[0].numel()} samples ({serves}, recorded): "
                       f"|kernel - plain| / max(1, |plain|) {err:.3g} (gate {gate}), "
                       f"three runs and views bitwise", flush=True)
@@ -3810,12 +3902,24 @@ def main() -> int:
                                f"faster by device time)"))
             if "brick_us" in row:
                 extra += f"; the brick kernel {row['brick_us']:.2f} us"
+            if "addcmul_us" in row:
+                extra += (f"; stream yardstick torch.addcmul(qx, qy, qz) "
+                          f"{row['addcmul_us']:.2f} us, the kernel "
+                          f"{row['device_us'] / row['addcmul_us']:.2f}x it")
             print(f"{kname} {row['shape']}{serves}: {row['device_us']:.2f} us device "
                   f"({row['kernels_per_call']} kernel(s), {row['kernel_sum_us']:.2f} us "
                   f"in kernels, {row['timing']}; {row['device_us_write_flush']:.2f} us "
                   f"after a write flush), bound {row['bound_us']:.2f} us by "
                   f"{row['bound_by']}, share {row['bound_share']:.3f}{extra} ({card})",
                   flush=True)
+
+    # K7's 1-ch 32³ repeat row: code no later change touched, so it
+    # anchors this run's device times against earlier runs' (PERF.md §6).
+    anchor = [row for row in rows["sample_tex3"]
+              if row["shape"].startswith("1-ch 32x32x32 texture, repeat, float32")]
+    require(bool(anchor), "no K7 call on the 1-ch 32³ noise mip was recorded")
+    print(f"anchor: sample_tex3 {anchor[0]['shape']}: {anchor[0]['device_us']:.2f} us "
+          f"device, share {anchor[0]['bound_share']:.3f} ({card})", flush=True)
 
     # launches: the counts read around each kernel's path (K1, K2: the
     # engine ticks; K3: the full-hemisphere and headline renders; K4–K6:

@@ -38,6 +38,20 @@
 // the tables use (below); a bfloat16 texel is widened to f32 (exact)
 // before the product, as torch's type promotion does in the plain version.
 //
+// K9 (tiny3_kernel) samples a whole volume of <= 128 values (the noise
+// mips' 4^3, 2^3 and 1^3 levels). Its row, 512 B at most, stays in L1, so
+// its bound is the stream: 12 B of coordinates in and 4*C B out a sample.
+// Its first form (one sample a thread, dims at run time) took the same time
+// on a 1^3 volume as on a 4^3 one, 0.37 of that bound on an H100: the index
+// math set its pace, six runtime 32-bit modulos a sample (a software
+// division each), not the texels. So the dims are template arguments for
+// 4^3, 2^3 and 1^3, where each wrap is a mask of a power of two, with one
+// instantiation of runtime dims for any other shape; and a thread takes 4
+// samples, its planes read and its outputs written as float4 (one at a time
+// where a plane is not 16-B aligned, and in the ragged tail). The row is
+// read through __ldg: staging it in shared memory once a block timed the
+// same within the runs' spread, and would cap the row's size.
+//
 // The arithmetic is the plain version's, step by step:
 //   - cx = q*n - 0.5 rounds the product and then the difference: written
 //     with __fmul_rn / __fsub_rn, which nvcc never contracts into an FMA
@@ -56,11 +70,12 @@
 //     i0 + 1, or past the edge n - 1 (clamp) or 0 (repeat);
 //   - each corner is ((wx * wy) * wz) * texel, and a channel's 8 corners
 //     are summed from 0 in corner order (z, then y, then x). The texture
-//     plain version does the same, so it and the kernel agree bitwise; the
-//     brick tables' plain version sums all 128 lanes with torch.sum in
-//     another tree, within a few ulps. That plain version multiplies every
-//     lane, so a non-finite texel anywhere in the row would make its sample
-//     NaN; the tables are finite, and the kernels read only the corners.
+//     and tiny plain versions do the same, so they and the kernels agree
+//     bitwise; the brick tables' plain version sums all 128 lanes with
+//     torch.sum in another tree, within a few ulps. That plain version
+//     multiplies every lane, so a non-finite texel anywhere in the row
+//     would make its sample NaN; the tables are finite, and the kernels
+//     read only the corners.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,9 +97,6 @@ struct Brick2 {
   int h, w, by, bx, sy, sx, nx, channels, clamp;
 };
 
-struct Tiny3 {
-  int d, h, w, channels;
-};
 
 __device__ __forceinline__ float texel(const float* p) { return __ldg(p); }
 
@@ -130,8 +142,8 @@ __device__ __forceinline__ void hat(int l0, float f, float w[2]) {
   w[1] = fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(a, __fadd_rn(lf, 1.0f)))));
 }
 
-// Each of the kC channels' kK corners of one brick row (or tiny row),
-// weighted and summed in corner order, written to out[0, kC).
+// Each of the kC channels' kK corners of one brick row, weighted and
+// summed in corner order, written to out[0, kC).
 template <int kC, int kK, typename T>
 __device__ __forceinline__ void weigh(const T* row, int L, const int off[kK],
                                       const float w[kK], float* __restrict__ out) {
@@ -207,13 +219,41 @@ brick2_kernel(const T* __restrict__ table, const float* __restrict__ qu,
   weigh<kC, 4>(table + (long long)fb * (kC * L), L, off, w, out + i * kC);
 }
 
-// K9's axis: lanes i0 and (i0 + 1) % n with weights 1 - f and f; for n = 1
-// both are lane 0, whose weight is then (1 - f) + f, and the second corner
-// weighs 0.
+// ---- whole tiny volumes (K9 tiny3_kernel) --------------------------------
+
+// Samples a K9 thread takes: one float4 of each coordinate plane in, one
+// float4 of output (two for 2 channels) out.
+constexpr int kTinyPer = 4;
+
+struct Tiny3 {
+  int d, h, w, channels;
+  int vec;  // planes and output 16-B aligned: float4 loads and stores
+};
+
+// One K9 axis of n texels: lanes i0 and (i0 + 1) mod n, weights 1 - f and
+// f; an n = 1 axis reads lane 0 twice, weighing (1 - f) + f and 0. kN > 0
+// is n at compile time, a power of two: the floor modulo is then the low
+// bits of the two's-complement index (64-bit past 2^31, as the plain
+// version's int64). kN = 0 takes n at run time and axis_coords' modulo.
+template <int kN>
 __device__ __forceinline__ void tiny_axis(float q, int n, int idx[2], float w[2]) {
   float f;
-  axis_coords(q, n, 0, idx[0], f);
-  idx[1] = (idx[0] + 1) % n;
+  if constexpr (kN > 0) {
+    static_assert((kN & (kN - 1)) == 0, "compile-time dims are powers of two");
+    constexpr int m = kN - 1;
+    n = kN;
+    const float cx = __fsub_rn(__fmul_rn(q, (float)kN), 0.5f);
+    const float i0f = floorf(cx);
+    f = __fsub_rn(cx, i0f);
+    if (fabsf(i0f) < 2147483648.0f)
+      idx[0] = (int)i0f & m;
+    else
+      idx[0] = (int)((long long)i0f & m);
+    idx[1] = (idx[0] + 1) & m;
+  } else {
+    axis_coords(q, n, 0, idx[0], f);
+    idx[1] = idx[0] + 1 < n ? idx[0] + 1 : 0;
+  }
   if (n == 1) {
     w[0] = __fadd_rn(__fsub_rn(1.0f, f), f);
     w[1] = 0.0f;
@@ -223,29 +263,102 @@ __device__ __forceinline__ void tiny_axis(float q, int n, int idx[2], float w[2]
   }
 }
 
-// K9.
-template <int kC, typename T>
+// One K9 sample's kC channels: 8 corners weighed ((wx * wy) * wz) and
+// summed from 0 in corner order (z, then y, then x).
+template <int kC, int kD, int kH, int kW, typename T>
+__device__ __forceinline__ void tiny_sample(const T* row, const Tiny3& g, float qx,
+                                            float qy, float qz, float* o) {
+  const int h = kH ? kH : g.h, w = kW ? kW : g.w;
+  const int L = (kD ? kD : g.d) * h * w;
+  int xi[2], yi[2], zi[2];
+  float wx[2], wy[2], wz[2];
+  tiny_axis<kW>(qx, g.w, xi, wx);
+  tiny_axis<kH>(qy, g.h, yi, wy);
+  tiny_axis<kD>(qz, g.d, zi, wz);
+  int off[8];
+  float wk[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+    off[k] = (zi[dz] * h + yi[dy]) * w + xi[dx];
+    wk[k] = __fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]);
+  }
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(wk[k], texel(row + c * L + off[k])));
+    o[c] = acc;
+  }
+}
+
+// K9: kTinyPer samples a thread, the planes read and the output written as
+// float4 where g.vec and the thread's samples are all in range (else one
+// sample at a time, the ragged tail included). kD, kH, kW: the volume's
+// dims, or 0 for the runtime dims of g.
+template <int kC, typename T, int kD, int kH, int kW>
 __global__ void __launch_bounds__(kThreads)
 tiny3_kernel(const T* __restrict__ row, const float* __restrict__ qx,
              const float* __restrict__ qy, const float* __restrict__ qz,
              float* __restrict__ out, long long n, Tiny3 g) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * kTinyPer;
   if (i >= n) return;
-  int xi[2], yi[2], zi[2];
-  float wx[2], wy[2], wz[2];
-  tiny_axis(__ldg(qx + i), g.w, xi, wx);
-  tiny_axis(__ldg(qy + i), g.h, yi, wy);
-  tiny_axis(__ldg(qz + i), g.d, zi, wz);
-  const int L = g.d * g.h * g.w;
-  int off[8];
-  float w[8];
+  const bool vec = g.vec && i + kTinyPer <= n;
+  float x[kTinyPer], y[kTinyPer], z[kTinyPer];
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(qx + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(qy + i));
+    const float4 c = __ldg(reinterpret_cast<const float4*>(qz + i));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    y[0] = b.x; y[1] = b.y; y[2] = b.z; y[3] = b.w;
+    z[0] = c.x; z[1] = c.y; z[2] = c.z; z[3] = c.w;
+  } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {  // corner order: z, then y, then x
-    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-    off[k] = (zi[dz] * g.h + yi[dy]) * g.w + xi[dx];
-    w[k] = __fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]);
+    for (int j = 0; j < kTinyPer; ++j) {
+      const long long k = i + j < n ? i + j : i;
+      x[j] = __ldg(qx + k);
+      y[j] = __ldg(qy + k);
+      z[j] = __ldg(qz + k);
+    }
   }
-  weigh<kC, 8>(row, L, off, w, out + i * kC);
+  float o[kTinyPer][kC];
+#pragma unroll
+  for (int j = 0; j < kTinyPer; ++j)
+    tiny_sample<kC, kD, kH, kW>(row, g, x[j], y[j], z[j], o[j]);
+  if (vec) {
+    float4* v = reinterpret_cast<float4*>(out + i * kC);
+    if constexpr (kC == 1) {
+      v[0] = make_float4(o[0][0], o[1][0], o[2][0], o[3][0]);
+    } else {
+      v[0] = make_float4(o[0][0], o[0][1], o[1][0], o[1][1]);
+      v[1] = make_float4(o[2][0], o[2][1], o[3][0], o[3][1]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kTinyPer; ++j) {
+      if (i + j >= n) break;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) out[(i + j) * kC + c] = o[j][c];
+    }
+  }
+}
+
+// Launches K9 on the instantiation of the volume's dims: 4^3, 2^3 and 1^3
+// (the noise mips' tiny levels) at compile time, any other at run time.
+template <int kC, typename T>
+void launch_tiny3(const T* row, const float* qx, const float* qy, const float* qz,
+                  float* out, long long n, const Tiny3& g, cudaStream_t s) {
+  const long long per_block = (long long)kThreads * kTinyPer;
+  const unsigned b = (unsigned)((n + per_block - 1) / per_block);
+  if (g.d == 4 && g.h == 4 && g.w == 4)
+    tiny3_kernel<kC, T, 4, 4, 4><<<b, kThreads, 0, s>>>(row, qx, qy, qz, out, n, g);
+  else if (g.d == 2 && g.h == 2 && g.w == 2)
+    tiny3_kernel<kC, T, 2, 2, 2><<<b, kThreads, 0, s>>>(row, qx, qy, qz, out, n, g);
+  else if (g.d == 1 && g.h == 1 && g.w == 1)
+    tiny3_kernel<kC, T, 1, 1, 1><<<b, kThreads, 0, s>>>(row, qx, qy, qz, out, n, g);
+  else
+    tiny3_kernel<kC, T, 0, 0, 0><<<b, kThreads, 0, s>>>(row, qx, qy, qz, out, n, g);
 }
 
 // ---- channel-last textures (K7 tex3_kernel, K8 tex2_kernel) -------------
@@ -461,25 +574,27 @@ extern "C" int cs_sample_brick2(const void* table, int bf16, const int* geom,
 
 // row: [C * d*h*w] f32 or bfloat16, channel-major, texels (z*h + y)*w + x;
 // geom: d, h, w, C; modular wrap; qx, qy, qz: contiguous f32 planes; out:
-// [n, C] f32.
+// [n, C] f32. Planes and output at any 4-B alignment (float4 where all
+// are 16-B aligned).
 extern "C" int cs_sample_tiny3(const void* row, int bf16, const int* geom,
                                const float* qx, const float* qy, const float* qz,
                                float* out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const Tiny3 g{geom[0], geom[1], geom[2], geom[3]};
   if (!positive(geom, 4)) return (int)cudaErrorInvalidValue;
-  const unsigned b = blocks_for(n);
+  const uintptr_t any = reinterpret_cast<uintptr_t>(qx) | reinterpret_cast<uintptr_t>(qy)
+                        | reinterpret_cast<uintptr_t>(qz) | reinterpret_cast<uintptr_t>(out);
+  const Tiny3 g{geom[0], geom[1], geom[2], geom[3], any % 16 == 0};
   cudaStream_t s = (cudaStream_t)stream;
   const uint16_t* h = (const uint16_t*)row;
   const float* f = (const float*)row;
   if (g.channels == 1 && bf16)
-    tiny3_kernel<1, uint16_t><<<b, kThreads, 0, s>>>(h, qx, qy, qz, out, n, g);
+    launch_tiny3<1>(h, qx, qy, qz, out, n, g, s);
   else if (g.channels == 2 && bf16)
-    tiny3_kernel<2, uint16_t><<<b, kThreads, 0, s>>>(h, qx, qy, qz, out, n, g);
+    launch_tiny3<2>(h, qx, qy, qz, out, n, g, s);
   else if (g.channels == 1)
-    tiny3_kernel<1, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
+    launch_tiny3<1>(f, qx, qy, qz, out, n, g, s);
   else if (g.channels == 2)
-    tiny3_kernel<2, float><<<b, kThreads, 0, s>>>(f, qx, qy, qz, out, n, g);
+    launch_tiny3<2>(f, qx, qy, qz, out, n, g, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -31,10 +31,10 @@ The samplers dispatch on the coordinates' device:
   (also for a channel count or table type that no main-path table has:
   `KERNEL_KINDS`); `launches` counts the launches per kernel, `samples`
   the samples they were given and `sizes` the launches by sample count;
-- a CPU tensor takes the plain version: for a texture the 8-corner (4 in
-  2-D) gather and weighted sum, in the kernel's order; for a brick table
-  the JAX package's lane-weight form, which gathers each sample's whole
-  row, weighs every lane with hat weights and sums them. A 96² tile at
+- a CPU tensor takes the plain version: for a texture and a tiny volume
+  the 8-corner (4 in 2-D) gather and weighted sum, in the kernel's order;
+  for a brick table the JAX package's lane-weight form, which gathers each
+  sample's whole row, weighs every lane with hat weights and sums them. A 96² tile at
   128 steps is 1.18 M samples, so both run in chunks of `SAMPLE_CHUNK`
   samples to bound what they materialise.
 """
@@ -390,27 +390,28 @@ def sample_brick2_xy_reference(bt: BrickTable2D, qu, qv):
     return _chunked(chunk, qu, qv)
 
 
-def sample_tiny3_xyz_reference(tv: TinyVolume3D, qx, qy, qz):
-    """Plain version of K9: weights over the whole row, in chunks."""
-    d, h, w = tv.dims
-    L = d * h * w
-    row = tv.row.reshape(tv.channels, L)
+def _tiny_axis(q, n: int):
+    """One axis of a tiny volume, as csrc/sample.cu's `tiny_axis`: lanes i0
+    and (i0 + 1) mod n, weights 1 − f and f; an n = 1 axis reads lane 0
+    twice, weighing (1 − f) + f and 0."""
+    i0, f = _axis_coords(q, n)
+    i1 = torch.remainder(i0 + 1, n)
+    if n == 1:
+        return (i0, i1), ((1.0 - f) + f, torch.zeros_like(f))
+    return (i0, i1), (1.0 - f, f)
 
-    def axis_w(i0, f, n):
-        lane = torch.arange(n, device=i0.device)[None, :]
-        i0e = i0[:, None]
-        fe = f[:, None]
-        return torch.where(lane == i0e, 1.0 - fe, 0.0) + torch.where(
-            lane == torch.remainder(i0e + 1, n), fe, 0.0)
+
+def sample_tiny3_xyz_reference(tv: TinyVolume3D, qx, qy, qz):
+    """Plain version of K9: the 8 corners gathered, weighed and summed in
+    the kernel's order and rounding, in chunks."""
+    d, h, w = tv.dims
+    texels = tv.row.reshape(tv.channels, d * h * w).t()  # [L, C], a view
 
     def chunk(qx, qy, qz):
-        ix0, fx = _axis_coords(qx, w)
-        iy0, fy = _axis_coords(qy, h)
-        iz0, fz = _axis_coords(qz, d)
-        wgt = (axis_w(ix0, fx, w)[:, None, None, :]
-               * axis_w(iy0, fy, h)[:, None, :, None]) \
-            * axis_w(iz0, fz, d)[:, :, None, None]
-        return torch.sum(row[None] * wgt.reshape(-1, 1, L), dim=-1)
+        return _weigh_texels(texels, tv.channels, (
+            (*_tiny_axis(qz, d), h * w),
+            (*_tiny_axis(qy, h), w),
+            (*_tiny_axis(qx, w), 1)))
 
     return _chunked(chunk, qx, qy, qz)
 

@@ -6,8 +6,9 @@ in float32: coordinates with every product and difference rounded (no FMA),
 the hat weights from the rounded a = float(l0) + f (K9: 1 − f and f, summed
 where the two lanes coincide), each corner's ((wx·wy)·wz)·texel and a
 channel's corners summed in the kernel's order. Each mirror is held against
-JAX's sampler and the port's plain version (the lane-weight form the CPU
-takes) on every table kind the marches and the composite sample:
+JAX's sampler and the port's plain version (the lane-weight form on brick
+tables, the 8-corner form on tiny volumes) on every table kind the marches
+and the composite sample:
 
 - K7: 2-ch 4×4×4 stride 3 (the large-noise mips; the baked field with
   clamp), 1-ch 8×4×4 strides (7, 3, 3) (the small-noise mips; the cone
@@ -15,13 +16,18 @@ takes) on every table kind the marches and the composite sample:
 - K8: 2-ch 8×8 stride 7 (weather) and 8-ch 4×4 stride 3 (the display
   pairs), each with both wraps;
 - K9: whole volumes of ≤ 128 values, 1 and 2 channels, float32 and
-  bfloat16, modular wrap.
+  bfloat16, modular wrap. `mirror_tiny3` follows K9's first form (one
+  sample a thread, runtime dims); `mirror_tiny3_grouped` the redesigned
+  `tiny3_kernel` (4 samples a thread, float4 planes where aligned, the
+  ragged tail one sample at a time; compile-time dims 4³, 2³ and 1³ whose
+  floor modulo is a mask of a power of two, runtime dims otherwise). The
+  two and the plain version are held bitwise, and JAX's within 1e-6.
 
 The coordinates cover negative values and values past 1, exact texel
 centres (f = 0), fractions that round to 1 just below a cell, and both clamp
 edges. Tolerance: 1e-6 absolute on the [0, 1] noise tables, as
 tests/test_torch_brick_atmo.py holds the plain samplers to JAX's: the
-plain version sums all 128 lanes with torch.sum, in another order than the
+brick plain version and JAX sum all 128 lanes, in another order than the
 kernel's 8 corners, and XLA on the CPU may contract q·n − 0.5 into an FMA,
 which moves a sample across a texel boundary where the filter is continuous.
 The display pairs carry HDR radiance (here up to 40), so they are held at
@@ -59,8 +65,7 @@ N_SAMPLES = 6000
 def axis_coords(q, n: int, clamp: bool):
     """`axis_coords`: (i0 int32, f float32), q·n and − 0.5 each rounded; the
     clamp tests on the integral float i0f, the repeat wrap C's truncating %
-    made a floor-mod (the inputs stay inside int32, the kernel's fast
-    path)."""
+    made a floor-mod, in 32 bits and, past 2^31, in 64 bits."""
     cx = (np.asarray(q, F) * F(n)).astype(F) - F(0.5)
     i0f = np.floor(cx)
     f = (cx - i0f).astype(F)
@@ -68,8 +73,10 @@ def axis_coords(q, n: int, clamp: bool):
         f = np.where(i0f < 0, F(0.0), np.where(i0f > F(n - 2), F(1.0), f)).astype(F)
         i = np.where(i0f < 0, 0, np.where(i0f > F(n - 2), max(n - 2, 0), i0f))
         return i.astype(np.int32), f
-    assert np.abs(i0f).max() < 2.0 ** 31
-    r = np.fmod(i0f.astype(np.int32), np.int32(n))
+    small = np.abs(i0f) < 2.0 ** 31
+    r32 = np.fmod(np.where(small, i0f, 0).astype(np.int32), np.int32(n))
+    r64 = np.fmod(np.where(small, 0, i0f).astype(np.int64), np.int64(n))
+    r = np.where(small, r32, r64)
     return np.where(r < 0, r + n, r).astype(np.int32), f
 
 
@@ -152,6 +159,7 @@ def tiny_axis(q, n: int):
 
 
 def mirror_tiny3(row, dims, channels, qx, qy, qz):
+    """K9's first form: one sample a thread, runtime dims."""
     d, h, w = dims
     (x0, x1), wx = tiny_axis(qx, w)
     (y0, y1), wy = tiny_axis(qy, h)
@@ -164,6 +172,73 @@ def mirror_tiny3(row, dims, channels, qx, qy, qz):
         wts.append(((wx[dx] * wy[dy]).astype(F) * wz[dz]).astype(F))
     rows = np.broadcast_to(widen(row)[None, :], (len(qx), widen(row).size))
     return weigh(rows, off, wts, channels, d * h * w)
+
+
+# The redesigned K9: its compile-time dims, and samples a thread.
+TINY_COMPILED = ((4, 4, 4), (2, 2, 2), (1, 1, 1))
+TINY_PER = 4
+
+
+def tiny_axis_masked(q, n: int, compiled: bool):
+    """`tiny_axis<kN>`: with n at compile time (a power of two) i0 is the low
+    bits of the two's-complement index, (int)i0f & (n − 1), in 64 bits past
+    2^31, and i0 + 1 wraps by the same mask; at run time `axis_coords`'
+    modulo and i0 + 1 wrapped to 0 at n. Weights as `tiny_axis`."""
+    if not compiled:
+        i0, f = axis_coords(q, n, False)
+        i1 = np.where(i0 + 1 < n, i0 + 1, 0).astype(np.int32)
+    else:
+        assert n & (n - 1) == 0
+        m = n - 1
+        cx = (np.asarray(q, F) * F(n)).astype(F) - F(0.5)
+        i0f = np.floor(cx)
+        f = (cx - i0f).astype(F)
+        small = np.abs(i0f) < 2.0 ** 31
+        lo = np.where(small, i0f, 0).astype(np.int32) & np.int32(m)
+        hi = (np.where(small, 0, i0f).astype(np.int64) & np.int64(m)).astype(np.int32)
+        i0 = np.where(small, lo, hi).astype(np.int32)
+        i1 = (i0 + 1) & np.int32(m)
+    if n == 1:
+        return (i0, i1), ((F(1.0) - f + f).astype(F), np.zeros_like(f))
+    return (i0, i1), ((F(1.0) - f).astype(F), f)
+
+
+def mirror_tiny3_grouped(row, dims, channels, qx, qy, qz, aligned: bool = True):
+    """The redesigned `tiny3_kernel`: thread t takes samples [4t, 4t + 4);
+    where the planes and output are 16-B aligned and all four are in range
+    it reads each plane's four as one float4 and writes the outputs as one
+    (two for 2 channels), else one sample at a time, reading sample 4t in
+    place of those past n and writing only those below n (the ragged
+    tail). Returns the [n, C] output and how often each sample was written."""
+    d, h, w = dims
+    compiled = tuple(dims) in TINY_COMPILED
+    n = len(qx)
+    threads = -(-n // TINY_PER)
+    idx = np.arange(threads)[:, None] * TINY_PER + np.arange(TINY_PER)[None, :]
+    vec = np.broadcast_to((idx[:, -1:] < n) & aligned, idx.shape)
+    # A vector load reads [4t, 4t + 4); a scalar one sample 4t + j, or 4t
+    # where that is past n.
+    src = np.where(vec | (idx < n), idx, idx[:, :1])
+    assert src.max() < n
+    xs, ys, zs = (np.asarray(q, F)[src].reshape(-1) for q in (qx, qy, qz))
+    (x0, x1), wx = tiny_axis_masked(xs, w, compiled)
+    (y0, y1), wy = tiny_axis_masked(ys, h, compiled)
+    (z0, z1), wz = tiny_axis_masked(zs, d, compiled)
+    xi, yi, zi = (x0, x1), (y0, y1), (z0, z1)
+    off, wts = [], []
+    for k in range(8):
+        dz, dy, dx = k >> 2, (k >> 1) & 1, k & 1
+        off.append((zi[dz] * h + yi[dy]) * w + xi[dx])
+        wts.append(((wx[dx] * wy[dy]).astype(F) * wz[dz]).astype(F))
+    rows = np.broadcast_to(widen(row)[None, :], (xs.size, widen(row).size))
+    got = weigh(rows, off, wts, channels, d * h * w)
+    out = np.zeros((n, channels), F)
+    writes = np.zeros(n, np.int64)
+    stored = (vec | (idx < n)).reshape(-1)
+    assert not (vec.reshape(-1) & (idx.reshape(-1) >= n)).any()
+    out[idx.reshape(-1)[stored]] = got[stored]
+    np.add.at(writes, idx.reshape(-1)[stored], 1)
+    return out, writes
 
 
 # ---- inputs ---------------------------------------------------------------
@@ -283,26 +358,117 @@ def test_brick2_mirror(kind, wrap):
 
 # ---- K9 ---------------------------------------------------------------------
 
+def bits(a):
+    """float32 values as their bits, for bitwise comparisons."""
+    return np.ascontiguousarray(a, F).view(np.uint32)
+
+
+def tiny_volume(shape, dtype: str, seed: int):
+    """A tiny volume of random [0, 1) texels (bfloat16 if asked) and its
+    row as the kernel reads it (float32, or bfloat16 bits as uint16)."""
+    vol = np.random.default_rng(seed).random(shape).astype(F)
+    tv = tbrick.build_tiny3(torch.from_numpy(vol))
+    if dtype == "bfloat16":
+        tv = tbrick.TinyVolume3D(row=tv.row.to(torch.bfloat16), dims=tv.dims,
+                                 channels=tv.channels)
+        return tv, bf16_bits(tv.row)
+    return tv, tv.row.numpy()
+
+
+def jax_tiny3(tv, qs):
+    jv = jbrick.TinyVolume3D(row=to_jax(tv.row.float().numpy(), tv.row.dtype
+                                        == torch.bfloat16), dims=tv.dims,
+                             channels=tv.channels)
+    return np.asarray(jbrick.sample_tiny3_xyz(jv, *map(jnp.asarray, qs)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 4, 4, 2), (4, 4, 4, 1), (2, 2, 2, 1),
                                    (1, 1, 1, 2), (2, 1, 3, 1)])
 def test_tiny3_mirror(shape, dtype):
-    rng = np.random.default_rng(sum(shape) + len(dtype))
-    vol = rng.random(shape).astype(F)
-    tv = tbrick.build_tiny3(torch.from_numpy(vol))
-    bf16 = dtype == "bfloat16"
-    if bf16:
-        tv = tbrick.TinyVolume3D(row=tv.row.to(torch.bfloat16), dims=tv.dims,
-                                 channels=tv.channels)
-    row = bf16_bits(tv.row) if bf16 else tv.row.numpy()
+    tv, row = tiny_volume(shape, dtype, sum(shape) + len(dtype))
     qx, qy, qz = planes(shape[:3], 13)
     want = mirror_tiny3(row, tv.dims, tv.channels, qx, qy, qz)
     plain = tbrick.sample_tiny3_xyz(tv, *map(torch.from_numpy, (qx, qy, qz))).numpy()
-    np.testing.assert_allclose(want, plain, atol=ATOL, rtol=0)
-    jv = jbrick.TinyVolume3D(row=to_jax(tv.row.float().numpy(), bf16), dims=tv.dims,
-                             channels=tv.channels)
-    jax_out = np.asarray(jbrick.sample_tiny3_xyz(jv, *map(jnp.asarray, (qx, qy, qz))))
-    np.testing.assert_allclose(want, jax_out, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(bits(want), bits(plain))
+    np.testing.assert_allclose(want, jax_tiny3(tv, (qx, qy, qz)), atol=ATOL, rtol=0)
+
+
+def huge(dims, rng, k: int = 24):
+    """k coordinates a plane with |q·n| ≥ 2^31 on its axis (x first), of
+    both signs: the kernels' 64-bit branch."""
+    out = []
+    for n_axis in reversed(dims):
+        mag = rng.uniform(2.0 ** 31, 2.0 ** 40, k) / n_axis
+        out.append((mag * rng.choice([-1.0, 1.0], k)).astype(F))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("dims", [(4, 4, 4), (2, 2, 2), (1, 1, 1), (2, 1, 3)])
+def test_tiny3_redesign_mirror(dims, channels, dtype):
+    """The redesigned K9, mirrored, bitwise K9's first form and the plain
+    version on n ≡ 0, 1, 2, 3 (mod 4) samples, aligned and not, with texel
+    centres, edges, fractions that round to 1 and |q·n| ≥ 2^31; within
+    1e-6 of JAX but where |q·n| ≥ 2^31 (JAX casts i0 to int32, which
+    saturates there; the port and its first form take the int64 floor
+    modulo)."""
+    seed = zlib.crc32(f"{dims} {channels} {dtype}".encode())
+    tv, row = tiny_volume(dims + (channels,), dtype, seed)
+    rng = np.random.default_rng(seed)
+    base = [np.concatenate([q, h]) for q, h in zip(planes(dims, seed), huge(dims, rng))]
+    assert base[0].size % TINY_PER == 0
+    for extra in range(TINY_PER):
+        n = base[0].size - TINY_PER + extra
+        qs = [q[:n] for q in base]
+        old = mirror_tiny3(row, tv.dims, channels, *qs)
+        plain = tbrick.sample_tiny3_xyz(tv, *map(torch.from_numpy, qs)).numpy()
+        for aligned in (True, False):
+            got, writes = mirror_tiny3_grouped(row, tv.dims, channels, *qs,
+                                               aligned=aligned)
+            assert (writes == 1).all()
+            np.testing.assert_array_equal(bits(got), bits(old))
+        np.testing.assert_array_equal(bits(plain), bits(old))
+        inside = np.ones(n, bool)
+        for q, n_axis in zip(qs, reversed(dims)):
+            inside &= np.abs(q.astype(np.float64) * n_axis) < 2.0 ** 31
+        assert 0 < inside.sum() < n
+        np.testing.assert_allclose(got[inside], jax_tiny3(tv, qs)[inside],
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_tiny3_mask_is_floor_modulo(n):
+    """A power-of-two axis's mask, i & (n − 1) on the two's-complement
+    index, is the floor modulo of every index, negatives included, in 32
+    bits and on the 64-bit branch past 2^31; and the masked axis equals
+    `axis_coords`' wrap on every coordinate."""
+    i32 = np.arange(-70000, 70000, dtype=np.int32)
+    np.testing.assert_array_equal(i32 & np.int32(n - 1), np.mod(i32, n))
+    i64 = np.array([-2 ** 40 - 3, -2 ** 31 - 1, -2 ** 31, 2 ** 31, 2 ** 31 + 5,
+                    2 ** 40 + 7], np.int64)
+    np.testing.assert_array_equal(i64 & np.int64(n - 1), np.mod(i64, n))
+    rng = np.random.default_rng(n)
+    q = np.concatenate([coords(n, rng), huge((n,), rng)[0]])
+    (i0, i1), _ = tiny_axis_masked(q, n, True)
+    want, _ = axis_coords(q, n, False)
+    np.testing.assert_array_equal(i0, want)
+    np.testing.assert_array_equal(i1, (want + 1) % n)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_tiny3_grouping(aligned):
+    """4 samples a thread: every sample of every n written exactly once,
+    with no read past n, and the grouped mirror equal to the first form."""
+    tv, row = tiny_volume((2, 2, 2, 2), "float32", 21)
+    qs = planes((2, 2, 2), 22)
+    for n in range(1, 13):
+        got, writes = mirror_tiny3_grouped(row, tv.dims, 2, *(q[:n] for q in qs),
+                                           aligned=aligned)
+        assert (writes == 1).all()
+        want = mirror_tiny3(row, tv.dims, 2, *(q[:n] for q in qs))
+        np.testing.assert_array_equal(bits(got), bits(want))
 
 
 # ---- the wrapper's plumbing ---------------------------------------------------
@@ -329,7 +495,10 @@ def _run_entry(entry: str, table, args):
         return mirror_brick2(tbl.reshape(-1, c * by * bx), (h, w), (by, bx),
                              (sy, sx), (0, nx), c, clamp, *qs)
     d, h, w, c = geom
-    return mirror_tiny3(tbl, (d, h, w), c, *qs)
+    # cs_sample_tiny3 takes float4 planes and stores where every plane and
+    # the output are 16-B aligned.
+    aligned = all(ptr % 16 == 0 for ptr in args[3:-1])
+    return mirror_tiny3_grouped(tbl, (d, h, w), c, *qs, aligned=aligned)[0]
 
 
 def _views(q, layout: str):
