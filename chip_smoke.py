@@ -248,10 +248,22 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    ran at (K3: one 1-D and one [3, n] launch per v3 march; K7–K9 by their
    launches per pass in power-of-two buckets of sample count, each bucket
    timed at its mean size on the kernel's main-row call cut to that many
-   samples), a JSON line with the kernels (each with `redesigned_in`, the
-   change that redesigned it for the card, or null; the brick kernels,
-   off the engine's path, under their own names), and as the last line
-   {"ok": true, "device": {...}}.
+   samples);
+14. the port's own bench and sweep (`cloudscape_tpu_torch/bench.py`,
+   `cloudscape_tpu_torch/sweep.py`): `bench.run()` at bench.py's sizes and
+   the sweep's configs 1–3 (configs 4 and 5 are phases 9 and 9b), the
+   record and each row printed on a line of its own; the phase fails on a
+   null bench field (but `vs_baseline*`, which bench.py rates against a
+   TPU target), a render that is not finite, either
+   `quality_db_vs_exact*` below 40 dB (tests/test_bench_config.py's
+   gate), no v3 bucket in `tile_bucket_hist`, a `per_tile_device_ms` that
+   is not positive, a v2 or v3 row of configs 2–3 below 40 dB against the
+   exact march (tests/test_march_v2.py's and test_bench_config.py's
+   gate), or a kernel of K1–K9 that the phase did not launch;
+then a JSON line with the kernels (each with `redesigned_in`, the change
+that redesigned it for the card, or null; the brick kernels, off the
+engine's path, under their own names), and as the last line {"ok": true,
+"device": {...}}.
 
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
@@ -267,8 +279,9 @@ references left out) and `launches_mesh_ticks` by its 70 mesh ticks. Phase
 8's counts are read. `launches_per_pass` counts one pass: phase 5, phase
 7's first render_full_hemisphere and phase 11b's timed window, without the
 one launch of K1–K3 and of each sampler kernel of phase 5's validation
-probe (a tiny input, not a pass's shape). Every engine the script builds must pass its
-validation (`can_run`).
+probe (a tiny input, not a pass's shape). `launches_bench` is phase 14's
+(zeroed just before the bench, read just after the sweep). Every engine
+the script builds must pass its validation (`can_run`).
 
 The process pins itself to one card (the first of CUDA_VISIBLE_DEVICES, or
 card 0) before CUDA starts, so the device count it reports is the one card
@@ -3386,6 +3399,52 @@ def run_composite(eng, eyedirs):
     return out
 
 
+# Phase 14's gates: bench.py's record names 40 dB for its referee
+# comparisons (tests/test_bench_config.py:118-138), and the v2 and v3
+# marches are held at 40 dB against the exact march there and in
+# tests/test_march_v2.py:79. The bench's fields that may be null: its
+# ratios against bench.py's TPU target.
+BENCH_DB = 40.0
+BENCH_NULLABLE = ("vs_baseline", "vs_baseline_with_bake")
+
+
+def run_bench() -> dict:
+    """Phase 14: the port's bench (`cloudscape_tpu_torch.bench.run()` at
+    bench.py's sizes) and its sweep's configs 1–3, each record printed on a
+    line of its own as it is made, with the kernel counts zeroed just before
+    the bench and read just after the sweep; every kernel of K1–K9 must
+    launch. Returns the launches."""
+    import torch
+
+    from cloudscape_tpu_torch import bench, sweep
+
+    zero_counts()
+    rec = bench.run()
+    print(json.dumps(rec), flush=True)
+    rows = sweep.run((1, 2, 3))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    nulls = [k for k, v in rec.items() if v is None and k not in BENCH_NULLABLE]
+    require(not nulls, f"the bench's fields {nulls} are null")
+    require(rec["finite"] and rec["per_tile_finite"], "the bench rendered non-finite values")
+    for key in ("quality_db_vs_exact", "quality_db_vs_exact_high_coverage"):
+        require(rec[key] >= BENCH_DB, f"the bench's {key} {rec[key]:.2f} dB < {BENCH_DB}")
+    require(any(tile_arm(float(b)) == "v3" for b in rec["tile_bucket_hist"]),
+            f"the bench's serving cycle has no v3 bucket: {rec['tile_bucket_hist']}")
+    require(rec["per_tile_device_ms"] > 0.0,
+            f"the bench's per_tile_device_ms is {rec['per_tile_device_ms']}")
+    for row in rows:
+        if row["config"] in (2, 3):
+            require(row["quality_db_vs_exact"] >= BENCH_DB,
+                    f"sweep row {row['metric']}: {row['quality_db_vs_exact']:.2f} dB "
+                    f"vs the exact march < {BENCH_DB}")
+    idle = [k for k, v in launches.items()
+            if v == 0 and k not in ("sample_brick3", "sample_brick2")]
+    require(not idle, f"phase 14 launched no {idle}: {launches}")
+    print(f"phase 14 launches: {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     # One card: pinned before torch starts CUDA.
     os.environ["CUDA_VISIBLE_DEVICES"] = \
@@ -4012,6 +4071,11 @@ def main() -> int:
                   f"{k:g} x {row['shape']} ({row['device_us']:.2f} us, bound "
                   f"{row['bound_us']:.2f} us)" for k, row in groups[kname]), flush=True)
     stamp("13")
+
+    bench_launches = run_bench()
+    for k in kernels:
+        k["launches_bench"] = bench_launches[k["name"]]
+    stamp("14")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}),
