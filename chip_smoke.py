@@ -21,9 +21,16 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    elements (more than the blocks' shared memory holds); then K4–K6
    (noise) against their plain versions at the shipped sizes
    (base 128³, detail 32³, weather 512², seed 0) and at sizes that are
-   not powers of two (48³, 20³, 100², seed 7), atol 2e-5; and the
-   engines' validation probe, which must launch K1–K3 and each sampler
-   kernel (K7 and K8 on a texture and on brick rows, K9) once each;
+   not powers of two (48³, 20³, 100², seed 7), atol 2e-5;
+   4c. K11 (`transmittance_kernel`, the engine's 256 x 64 LUT) and K10
+   (`sky_kernel`, the 200 x 100 sky-view LUT on K11's at ATMO_SUNS)
+   against their plain versions on the same inputs within ATMO_TOL x the
+   plain version's largest |value|, three runs bitwise alike; for every
+   band height the schedule can pick (SKY_BANDS) the bands of every row0
+   bitwise the whole call, and the first, horizon and last bands against
+   the plain version's rows; then the engines' validation probe, which
+   must launch K1–K3, each sampler kernel (K7 and K8 on a texture and on
+   brick rows, K9), K11 and K10 once each;
 5. the default engine (fast3, 768² / 64 frames / 128 steps / 6 light
    steps, cone cache (32, 512, 512), procedural_noise_pack(0), which K4–K6
    generate) on the card:
@@ -34,7 +41,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    K1, K2 and K4–K6 must show the path ran through those kernels; frames
    must be finite, nonnegative and not black, and the cloud ring must hold
    clouds; K7–K9 (the samplers: K7 and K8 on the engine's channel-last
-   textures, K9 on the tiny mips) launched at least once each;
+   textures, K9 on the tiny mips) launched at least once each, K11 once
+   for the engine's transmittance LUT and K10 for its sky LUTs;
    5b. K7–K9 (`csrc/sample.cu`) against their plain versions on every
    table the phase-5 engine samples: each mip of its pack (textures, the
    tiny ones through K9), the same pack in bfloat16, its weather texture,
@@ -97,13 +105,13 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    Phase 11b adds its first v3 tile, called as the
    engine's v3 arm calls it (no ray cull), against that arm's call; after
    phase 11b the three tables go out as one `v3_stages` JSON line;
-   8d. phase 8's v3 render at coverage 0.35 and its referee on a CROP²
-   window of the grid, every CROP_STEP-th texel (16,384 rays; the window
-   where the referee has the most cloud), against `oracle/reference.py`
-   in float64 on the host (ORACLE_WORKERS processes; the pack's level-0
-   volumes with the oracle's own pyramids and LUTs): both ≥ ORACLE_DB,
-   and v3 against the referee on those texels reported; the host
-   seconds of the phase;
+   8d. phase 8's v3 render and its referee at each coverage (0.35, then
+   0.7 with its own policy and cone cache) on a CROP² window of the grid,
+   every CROP_STEP-th texel (16,384 rays; the window where that scene's
+   referee has the most cloud), against `oracle/reference.py` in float64
+   on the host (ORACLE_WORKERS processes; the pack's level-0 volumes with
+   the oracle's own pyramids and LUTs): both ≥ ORACLE_DB, and v3 against
+   the referee on those texels reported; the host seconds of each;
    8b. the baked density field (`models/field.py`, `run_field`) on the
    headline scene at coverage 0.35: `build_density_field` at (32, 768,
    768), cone (16, 192, 192), chunk 65536 (its ms; the table finite);
@@ -164,6 +172,11 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    v3 tile's K2 and K3 calls are recorded, held against their plain
    versions (K2 bitwise, K3 atol 2e-4, three runs bitwise equal) and timed
    in phase 13;
+   11h. (after 11b) `python -m cloudscape_tpu_torch.probe_prebake`'s run
+   at the serving point (`run_probe`): each prebake stage timed alone at
+   three slice sizes and fitted to a call and a unit cost, then 70
+   labelled ticks across a boundary; every sky-band tick must launch K10
+   exactly once, no other tick K10, and K10's plain version never run;
    11c. a `kernel="fast"` engine (every tile through the exact brick
    march) at PerfConfig() on the phase-5 scene: warm start, 10
    render_frame ticks of the phase-5 camera that launch K2, frames finite,
@@ -240,7 +253,9 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    on the texture (within LIBRARY_TOL of the kernel), its CUDA-event ms and
    device µs; for K9 the stream yardstick `torch.addcmul(qx, qy, qz)` on
    the same planes (the same 12 B read and 4 B written a sample; not K9's
-   function, never called by the port), and K7's 1-ch 32³ repeat row
+   function, never called by the port); K10 on the schedule's sky band and
+   K11 on the engine's LUT (bound: the least instructions a texel
+   executes, counted on the SASS by `least_instructions`), and K7's 1-ch 32³ repeat row
    printed again as the anchor against earlier runs; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
@@ -267,7 +282,7 @@ engine's path, under their own names), and as the last line {"ok": true,
 
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
-phase 5's engine construction and config 4's pack, K7–K9 around phase 5;
+phase 5's engine construction and config 4's pack, K7–K11 around phase 5;
 `launches_tile_cull` around phase 11b; `launches_config5` by each call of
 config 5's path in phase 9b (the pack, the cone cache, the two policies,
 each row's warm call: zeroed just before the call, read just after); and
@@ -293,6 +308,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -369,6 +385,8 @@ KERNEL_NAMES = {
     "sample_tiny3": ("tiny3_kernel",),
     "sample_brick3": ("brick3_kernel",),
     "sample_brick2": ("brick2_kernel",),
+    "sky_lut": ("sky_kernel",),
+    "transmittance_lut": ("transmittance_kernel",),
     "grid_sample": ("grid_sampler_2d_kernel", "grid_sampler_3d_kernel"),
     # K9's stream yardstick, torch.addcmul (the L2 flush before each call is
     # a read, cuBLAS's dot, whose kernels none of these names).
@@ -764,6 +782,201 @@ def check_noise(dev):
     return rows
 
 
+# K10–K11 (csrc/atmosphere.cu) against their plain versions
+# (`_sky_lut_rows_plain`, `_transmittance_lut_plain` run on the card). The
+# kernels round each product and sum as eager torch does (built with
+# -fmad=false) and call the CUDA math library torch's kernels call; on an
+# H100 they measured bitwise their plain versions, but a transcendental
+# inlined into the kernel need not round as torch's own build of it does,
+# so they are held at ATMO_TOL x the plain version's largest |value|; a
+# band is the same rows of a whole call bitwise, and three runs are
+# bitwise alike.
+ATMO_TOL = 1e-5
+# The suns of the checks: tests/test_torch_brick_atmo.py's two (one at
+# the horizon, where the ground and atmosphere hits graze).
+ATMO_SUNS = ((0.3, 0.5, -0.8), (0.0, -0.05, 1.0))
+# Every band height the engine's schedule can pick: the divisors of the
+# sky-view LUT's 100 rows.
+SKY_BANDS = tuple(h for h in range(1, 101) if 100 % h == 0)
+ATMO_KERNELS = ("sky_lut", "transmittance_lut")
+# Steps of each atmosphere kernel's march (csrc/atmosphere.cu's
+# kInScatteringSteps, kTransmittanceSteps), and the SASS name of each kernel.
+ATMO_STEPS = {"sky_lut": 30, "transmittance_lut": 40}
+SASS_INSTRUCTION = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(text: str) -> dict:
+    """`cuobjdump -sass` output → {function name: [(address, predicate,
+    opcode, operands)]}."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        out[name] = [(int(m.group(1), 16), (m.group(2) or "").strip(), m.group(3),
+                      m.group(4).strip()) for m in SASS_INSTRUCTION.finditer(part)]
+    return out
+
+
+def least_instructions(ins, steps: int) -> dict:
+    """The fewest SASS instructions one thread of a one-loop kernel executes
+    (ins from `sass_functions`): the shortest path from the entry to the
+    step loop's head, then `steps` times through its body, then on to an
+    EXIT, each data-dependent branch taken the short way (so no out-of-line
+    slow path a CALL reaches, no special-case block) and no back edge but
+    the step loop's. The step loop is the widest backward branch; it must
+    count its trips one step at a time (an `IADD3 Rk, Rk, 0x1` and a
+    compare of Rk with `steps`), else raises. Returns {"per_texel", "pre",
+    "body", "post", "static"}."""
+    at = {a: i for i, (a, _, _, _) in enumerate(ins)}
+
+    def target(k):
+        return int(ins[k][3].split()[-1], 16)
+
+    back = [k for k, (a, _, op, _) in enumerate(ins)
+            if op.startswith("BRA") and target(k) < a]
+    require(back, "no step loop in the SASS")
+    tail = max(back, key=lambda k: ins[k][0] - target(k))
+    head = at[target(tail)]
+    body_ops = [f"{op} {args}" for _, _, op, args in ins[head:tail + 1]]
+    counters = {m.group(1) for m in (re.match(r"IADD3 (R\d+), \1, 0x1, RZ$", t)
+                                     for t in body_ops) if m}
+    require(any(re.match(rf"ISETP\.NE\.AND P\d, PT, ({'|'.join(counters) or '-'}), "
+                         rf"{steps:#x}, PT$", t) for t in body_ops),
+            f"the step loop does not run one of {steps} steps a trip")
+
+    def costs(start):
+        """Fewest instructions executed from ins[start] until each later
+        instruction is reached, forward edges only."""
+        cost = [math.inf] * len(ins)
+        cost[start] = 0
+        for k in range(start, len(ins)):
+            _, pred, op, _ = ins[k]
+            ends = op == "EXIT" or op.startswith(("RET", "BRA"))
+            nxt = [k + 1] if pred or not ends else []
+            if op.startswith("BRA") and target(k) > ins[k][0]:
+                nxt.append(at[target(k)])
+            for j in nxt:
+                if j < len(ins):
+                    cost[j] = min(cost[j], cost[k] + 1)
+        return cost
+
+    pre = costs(0)[head]
+    body = costs(head)[tail] + 1
+    after = costs(tail + 1)
+    post = min(after[k] + 1 for k, x in enumerate(ins) if x[2] == "EXIT")
+    require(max(pre, body, post) < math.inf, "no path through the step loop to an EXIT")
+    return dict(per_texel=pre + steps * body + post, pre=pre, body=body, post=post,
+                static=len(ins))
+
+
+def atmo_ops() -> dict:
+    """Least instructions a texel of K10 and K11 executes
+    (`least_instructions`), from `cuobjdump -sass` of the built library."""
+    from cloudscape_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _cuda.build()], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = sass_functions(text)
+    out = {}
+    for k, steps in ATMO_STEPS.items():
+        (name,) = [n for n in funcs if KERNEL_NAMES[k][0] in n]
+        out[k] = least_instructions(funcs[name], steps)
+    return out
+
+
+def atmo_work(name: str, texels: int, lut_texels: int, ops: dict):
+    """(bytes, instructions) of one K10 / K11 call over `texels` texels: K10
+    reads the [h, w, 4] f32 LUT once and the sun vector; both write 16 B a
+    texel; `ops` is `atmo_ops()`."""
+    nbytes = 16 * texels + (16 * lut_texels + 12 if name == "sky_lut" else 0)
+    return nbytes, texels * ops[name]["per_texel"]
+
+
+def check_atmosphere(dev) -> dict:
+    """Phase 4c: K11 at the engine's 256 x 64 and K10 over the whole 200 x
+    100 LUT at both ATMO_SUNS, each against its plain version on the same
+    inputs (K10 on K11's LUT) within ATMO_TOL x its largest |value|, three
+    runs bitwise alike; then for every height of SKY_BANDS the bands of
+    every row0 concatenated bitwise the whole K10 call, and its first,
+    horizon and last bands against the plain version's same rows. Returns
+    the largest errors (absolute and as a share of the peak) and K11's
+    LUT."""
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+
+    def held(what, got, want):
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"{what}: wrong shape or not finite")
+        e, peak = float((got - want).abs().max()), float(want.abs().max())
+        require(e <= ATMO_TOL * peak,
+                f"{what}: max abs err {e:.3g} > {ATMO_TOL} x peak {peak:.4g}")
+        return e, e / peak
+
+    def thrice(what, fn):
+        runs = [fn() for _ in range(3)]
+        require(all(bitwise_equal(r, runs[0]) for r in runs[1:]),
+                f"{what}: three runs are not bitwise alike")
+        return runs[0]
+
+    out = {}
+    tlut = thrice("K11", lambda: atmosphere.transmittance_lut(device=dev))
+    out["transmittance_lut"] = held("K11 vs plain", tlut,
+                                    atmosphere._transmittance_lut_plain(device=dev))
+    sky_errs = []
+    for sun in ATMO_SUNS:
+        s = torch.tensor(sun, dtype=torch.float32, device=dev)
+        s = s / torch.linalg.norm(s)
+        whole = thrice(f"K10 sun {sun}",
+                       lambda: atmosphere.sky_lut_rows(tlut, s, 0, rows=100))
+        plain = atmosphere._sky_lut_rows_plain(tlut, s, 0, rows=100)
+        errs = [held(f"K10 vs plain, sun {sun}", whole, plain)]
+        peak = float(plain.abs().max())
+        for h in SKY_BANDS:
+            bands = torch.cat([atmosphere.sky_lut_rows(tlut, s, r0, rows=h)
+                               for r0 in range(0, 100, h)])
+            require(bitwise_equal(bands, whole),
+                    f"K10 bands of {h} rows are not the whole call's bits (sun {sun})")
+            for r0 in sorted({0, (50 // h) * h, 100 - h}):
+                got = atmosphere.sky_lut_rows(tlut, s, r0, rows=h)
+                want = atmosphere._sky_lut_rows_plain(tlut, s, r0, rows=h)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                require(e <= ATMO_TOL * peak,
+                        f"K10 band {r0}+{h} vs plain, sun {sun}: max abs err {e:.3g} "
+                        f"> {ATMO_TOL} x peak {peak:.4g}")
+                errs.append((e, e / peak))
+        sky_errs += errs
+    out["sky_lut"] = (max(e for e, _ in sky_errs), max(r for _, r in sky_errs))
+    out["tlut"] = tlut
+    return out
+
+
+def time_atmosphere(dev, tlut, rows: int, ops: dict):
+    """K10's device µs on a band of `rows` rows (the sun of the checks) and
+    K11's, each against its instruction count (`atmo_ops()`), with the
+    wrapper's and the plain version's CUDA-event ms (no PyTorch call
+    computes either LUT)."""
+    import torch
+
+    from cloudscape_tpu_torch.models import atmosphere
+
+    sun = torch.tensor(ATMO_SUNS[0], dtype=torch.float32, device=dev)
+    lut_texels = tlut.shape[0] * tlut.shape[1]
+    calls = {
+        "sky_lut": (f"{rows} x 200 band of the 100 x 200 LUT", rows * 200, lut_texels,
+                    lambda: atmosphere.sky_lut_rows(tlut, sun, 0, rows=rows),
+                    lambda: atmosphere._sky_lut_rows_plain(tlut, sun, 0, rows=rows)),
+        "transmittance_lut": ("64 x 256", 64 * 256, 0,
+                              lambda: atmosphere.transmittance_lut(device=dev),
+                              lambda: atmosphere._transmittance_lut_plain(device=dev))}
+    return {k: [timed_row(shape, fn, KERNEL_NAMES[k], *atmo_work(k, texels, lut, ops),
+                          event_ms=cuda_time_ms(fn), plain_ms=cuda_time_ms(plain, reps=3))]
+            for k, (shape, texels, lut, fn, plain) in calls.items()}
+
+
 def bitwise_equal(a, b) -> bool:
     """Same shape and the same f32 bits (torch.equal alone takes -0 for +0)."""
     import torch
@@ -1027,10 +1240,12 @@ def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     import collections
 
-    from cloudscape_tpu_torch.ops import accum, brick, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.ops import (accum, atmosphere_kernel, brick, compact,
+                                          noise_kernel, segscan)
 
     accum.launches = compact.launches = segscan.launches = 0
     noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
+    atmosphere_kernel.launches = dict.fromkeys(atmosphere_kernel.launches, 0)
     brick.launches = dict.fromkeys(brick.launches, 0)
     brick.samples = dict.fromkeys(brick.samples, 0)
     brick.sizes = {k: collections.Counter() for k in brick.sizes}
@@ -1038,12 +1253,15 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launch count, by its name in the kernels line."""
-    from cloudscape_tpu_torch.ops import accum, brick, compact, noise_kernel, segscan
+    from cloudscape_tpu_torch.ops import (accum, atmosphere_kernel, brick, compact,
+                                          noise_kernel, segscan)
 
     return dict(accumulate=accum.launches, compact=compact.launches,
                 segscan=segscan.launches,
                 **{f"noise_{k}": v for k, v in noise_kernel.launches.items()},
-                **{f"sample_{k}": v for k, v in brick.launches.items()})
+                **{f"sample_{k}": v for k, v in brick.launches.items()},
+                sky_lut=atmosphere_kernel.launches["sky"],
+                transmittance_lut=atmosphere_kernel.launches["transmittance"])
 
 
 def read_samples() -> dict:
@@ -1672,7 +1890,7 @@ def run_headline(dev):
                                        for c in render_calls]
                          + [c + ("the headline's cone build",) for c in build_calls
                             if c[0] == "sample_tiny3"] if cov == 0.35 else None,
-                         exact=exact if cov == 0.35 else None,
+                         exact=exact,
                          active=int(mask.sum()),
                          cloud_frac=float((out[..., 3] > 0.1).float().mean()),
                          # For phases 8c and 8d: the render, its inputs and
@@ -1821,12 +2039,13 @@ def _oracle_rays(dirs):
 
 
 def run_oracle_crop(h) -> dict:
-    """Phase 8d: phase 8's v3 render at coverage 0.35 and its referee (the
-    exact march) on the crop against `oracle/reference.py` in float64 on the
-    host: the pack's level-0 volumes as f64 with the oracle's own pyramids,
-    its own transmittance and sky LUTs, the render's params. v3 and the
-    exact march must each be ≥ ORACLE_DB from the oracle; v3 against the
-    exact march on the same texels is reported beside them."""
+    """Phase 8d: one of phase 8's v3 renders (coverage 0.35 or 0.7, each
+    with its own policy and cone cache) and its referee (the exact march)
+    on the crop of its scene against `oracle/reference.py` in float64 on
+    the host: the pack's level-0 volumes as f64 with the oracle's own
+    pyramids, its own transmittance and sky LUTs, the render's params. v3
+    and the exact march must each be ≥ ORACLE_DB from the oracle; v3
+    against the exact march on the same texels is reported beside them."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1863,9 +2082,10 @@ def run_oracle_crop(h) -> dict:
     ex = exact[crop]
     require(np.isfinite(want).all(), "the oracle's crop is not finite")
     db_v3, db_exact, db_v3_exact = psnr(v3, want), psnr(ex, want), psnr(v3, ex)
-    require(db_v3 >= ORACLE_DB, f"headline v3 vs the f64 oracle {db_v3:.2f} dB < {ORACLE_DB}")
-    require(db_exact >= ORACLE_DB,
-            f"the headline referee vs the f64 oracle {db_exact:.2f} dB < {ORACLE_DB}")
+    require(db_v3 >= ORACLE_DB, f"headline v3 at coverage {h['cov']} vs the f64 "
+            f"oracle {db_v3:.2f} dB < {ORACLE_DB}")
+    require(db_exact >= ORACLE_DB, f"the headline referee at coverage {h['cov']} vs "
+            f"the f64 oracle {db_exact:.2f} dB < {ORACLE_DB}")
     return dict(window=(r0, c0), rays=flat.shape[0], db_v3=db_v3, db_exact=db_exact,
                 db_v3_exact=db_v3_exact, cloud_frac=float((want[..., 3] > 0.1).mean()),
                 host_s=time.perf_counter() - t0, oracle_s=march_s)
@@ -2173,8 +2393,16 @@ def run_engine(dev, ticks: int):
                     "boundary did not pick up the prebake")
             pickups += 1
     k1_launches, k2_launches = accum.launches, compact.launches
-    samples = {k: v for k, v in read_counts().items() if k in SAMPLERS}
+    counts = read_counts()
+    samples = {k: counts[k] for k in SAMPLERS}
+    atmo = {k: counts[k] for k in ATMO_KERNELS}
     sample_sizes, size_counts = read_samples(), read_sizes()
+    # K11 bakes the engine's transmittance LUT once at construction, and
+    # its validation probes it once; K10 renders the sky LUTs in the ticks
+    # (the warm start's, the prebake's bands).
+    require(atmo["transmittance_lut"] == built["transmittance_lut"] == 2
+            and atmo["sky_lut"] > built["sky_lut"],
+            f"the engine phase launched K10–K11 {atmo}, by its construction {built}")
 
     require(pickups >= 1, "no cycle boundary picked up a prebaked cone cache")
     require(all(samples[k] > built[k] for k in MAIN_SAMPLERS),
@@ -2192,7 +2420,7 @@ def run_engine(dev, ticks: int):
     require(cloud_frac > 0.0, "no clouds in the cloud ring")
     return eng, dict(warm_s=warm_s, tick_ms=tick_ms, pickups=pickups,
                      k1=k1_launches, k2=k2_launches, noise=noise_launches,
-                     samples=samples, sample_sizes=sample_sizes,
+                     samples=samples, sample_sizes=sample_sizes, atmo=atmo,
                      size_counts=size_counts,
                      cloud_frac=cloud_frac, frame_mean=float(frame.mean()))
 
@@ -2560,8 +2788,10 @@ def run_tile_cull(dev):
     counts = read_counts()
     phase = dict(k1=accum.launches, k2=compact.launches, k3=segscan.launches,
                  noise=dict(noise_kernel.launches),
-                 samples={k: counts[k] for k in SAMPLERS})
+                 samples={k: counts[k] for k in SAMPLERS},
+                 atmo={k: counts[k] for k in ATMO_KERNELS})
     samples = {k: counts[k] - s_warm[k] for k in SAMPLERS}
+    atmo_window = {k: counts[k] - s_warm[k] for k in ATMO_KERNELS}
     require(all(phase["samples"][k] > built[k] for k in MAIN_SAMPLERS),
             f"the tile-cull phase launched K7–K9 {phase['samples']}, its "
             f"validation {built}")
@@ -2674,11 +2904,40 @@ def run_tile_cull(dev):
         arm_ticks={a: len(v) for a, v in arms.items()},
         histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
         k1=k1, k2=k2, k3=k3, samples=samples, window_samples=window_samples,
-        window_sizes=window_sizes,
+        window_sizes=window_sizes, atmo_window=atmo_window,
         phase=phase, v3_tiles=len(arms["v3"]),
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
         frame_mean=float(frame.mean()), tile_stages=tile_stages)
+
+
+def run_probe(dev) -> dict:
+    """Phase 11h: `python -m cloudscape_tpu_torch.probe_prebake`'s run at the
+    serving point (its lines printed as they come), with K10's plain version
+    counted: every sky-band tick of its labelled loop must launch K10 once,
+    every other tick none, and the plain version must never run."""
+    from cloudscape_tpu_torch import probe_prebake
+    from cloudscape_tpu_torch.models import atmosphere
+
+    plain_calls = []
+    real = atmosphere._sky_lut_rows_plain
+
+    def counting(*args, **kwargs):
+        plain_calls.append(1)
+        return real(*args, **kwargs)
+
+    atmosphere._sky_lut_rows_plain = counting
+    try:
+        rec = probe_prebake.run(dev, log=lambda line: print(f"probe_prebake: {line}",
+                                                            flush=True))
+    finally:
+        atmosphere._sky_lut_rows_plain = real
+    bands = [t for t in rec["ticks"] if t["stage"] == "sky_band"]
+    require(bands, "the probe's labelled ticks ran no sky-band tick")
+    wrong = [t for t in rec["ticks"] if t["sky_launches"] != (t["stage"] == "sky_band")]
+    require(not wrong, f"ticks whose K10 launches are not one a sky band: {wrong}")
+    require(not plain_calls, f"K10's plain version ran {len(plain_calls)} times on the card")
+    return rec
 
 
 # bench/sweep.py's config 5 (`bench/sweep.py:183-259`): hemisphere rays,
@@ -3488,6 +3747,14 @@ def main() -> int:
         print(f"K4–K6 noise {kname} {size} (and {odd}): max_abs_err {nr['err']:.3g}, "
               f"{nr['ms']:.4f} ms kernel vs {nr['plain_ms']:.4f} ms plain ({card})",
               flush=True)
+    atmo = check_atmosphere(dev)
+    for kname in ("transmittance_lut", "sky_lut"):
+        e, rel = atmo[kname]
+        what = ("K11 transmittance_lut 64x256" if kname == "transmittance_lut" else
+                f"K10 sky_lut 100x200 at suns {ATMO_SUNS} and bands of {SKY_BANDS} rows "
+                f"(every band of each height bitwise the whole call)")
+        print(f"{what}: max_abs_err {e:.3g} = {rel:.3g} x the plain version's peak "
+              f"(gate {ATMO_TOL}); three runs bitwise", flush=True)
     # Every engine on the card validates itself with one probe launch of
     # K1–K3 on a tiny input; those launches are counted here and kept out
     # of the per-pass counts, which price each launch at a pass's shape.
@@ -3495,14 +3762,16 @@ def main() -> int:
 
     _, probe = counted(lambda: _probe_kernels(dev))
     probe_samples, probe_sizes = read_samples(), read_sizes()
-    probe = {k: probe[k] for k in ("accumulate", "compact", "segscan") + SAMPLERS}
+    probe = {k: probe[k]
+             for k in ("accumulate", "compact", "segscan") + SAMPLERS + ATMO_KERNELS}
     require(all(v == 1 for v in probe.values()),
-            f"the validation probe did not launch K1–K3 and K7–K9 once each: {probe}")
+            f"the validation probe did not launch K1–K3, K7–K11 once each: {probe}")
     print(f"validation probe (every engine construction): launches {probe}", flush=True)
     stamp("1-4")
 
     eng, r = run_engine(dev, TICKS)
     ms = r["tick_ms"]
+    sky_rows = eng._sky_rows  # the schedule's band: K10's main-path shape
     print(f"engine start (construction + first render_frame, which runs the "
           f"warm start): {r['warm_s']:.2f} s ({card})", flush=True)
     print(f"engine tick (render_frame 1280x720): median {statistics.median(ms):.2f} ms, "
@@ -3511,7 +3780,8 @@ def main() -> int:
           f"{r['cloud_frac']:.4f}, frame mean {r['frame_mean']:.4f}; pack "
           f"launches {r['noise']} ({card})", flush=True)
     print("tick ms: " + " ".join(f"{v:.1f}" for v in ms), flush=True)
-    print(f"engine phase K7–K9 launches {r['samples']}", flush=True)
+    print(f"engine phase K7–K9 launches {r['samples']}, K10–K11 {r['atmo']} (sky "
+          f"bands of {sky_rows} rows)", flush=True)
     stamp("5")
 
     sample_rows = run_sampler_checks(dev, eng)
@@ -3595,15 +3865,18 @@ def main() -> int:
     for t in v3_stages:
         print_stages(t, card)
     stamp("8c")
-    oc = run_oracle_crop(headline[0])
-    print(f"headline coverage 0.35 vs the f64 oracle on a {CROP}x{CROP} crop (rows "
-          f"{oc['window'][0]}.., columns {oc['window'][1]}.., every {CROP_STEP}nd texel: "
-          f"{oc['rays']} rays x {STEPS} steps; cloud fraction {oc['cloud_frac']:.4f}): "
-          f"v3 {oc['db_v3']:.2f} dB, the exact march (phase 8's referee) "
-          f"{oc['db_exact']:.2f} dB (gates {ORACLE_DB}); v3 vs the exact march there "
-          f"{oc['db_v3_exact']:.2f} dB; the phase took {oc['host_s']:.1f} s on the host, "
-          f"the oracle's march {oc['oracle_s']:.1f} s in {ORACLE_WORKERS} processes "
-          f"({card})", flush=True)
+    for h in headline:
+        oc = run_oracle_crop(h)
+        print(f"headline coverage {h['cov']} vs the f64 oracle on a {CROP}x{CROP} crop "
+              f"(rows {oc['window'][0]}.., columns {oc['window'][1]}.., every "
+              f"{CROP_STEP}nd texel: {oc['rays']} rays x {STEPS} steps; cloud fraction "
+              f"{oc['cloud_frac']:.4f}): v3 {oc['db_v3']:.2f} dB, the exact march "
+              f"(phase 8's referee) {oc['db_exact']:.2f} dB (gates {ORACLE_DB}); v3 vs "
+              f"the exact march there {oc['db_v3_exact']:.2f} dB; the phase took "
+              f"{oc['host_s']:.1f} s on the host, the oracle's march "
+              f"{oc['oracle_s']:.1f} s in {ORACLE_WORKERS} processes ({card})",
+              flush=True)
+    headline[1].pop("exact")
     for h in headline:  # phases 8c-8d's inputs
         for key in ("out", "params", "cone", "scene", "launches"):
             h.pop(key)
@@ -3732,6 +4005,13 @@ def main() -> int:
     v3_stages.append(c["tile_stages"])
     print(json.dumps({"v3_stages": v3_stages, "card": card}), flush=True)
     stamp("11b")
+    pr = run_probe(dev)
+    print(f"probe_prebake: fitted costs {pr['bake_costs']}, bake budget "
+          f"{pr['bake_tick_ms']:.2f} ms, schedule {pr['schedule_now']}; labelled ticks "
+          f"median {pr['median_ms']:.2f} ms, max {max(t['ms'] for t in pr['ticks']):.2f}; "
+          f"{sum(t['stage'] == 'sky_band' for t in pr['ticks'])} sky-band tick(s), one "
+          f"K10 launch each and no plain call ({card})", flush=True)
+    stamp("11h")
 
     fe = run_fast_engine(dev)
     tm = fe["tick_ms"]
@@ -3939,6 +4219,17 @@ def main() -> int:
     for k in MAIN_SAMPLERS:
         _, _, tab, qs, _ = sample_calls[k][0]
         groups[k] = price_sizes(k, tab, qs, pass_sizes[k])
+    # K10–K11: the engine's sky band and transmittance LUT; a pass is phase
+    # 5 without its validation probe and the tile-cull window.
+    ops = atmo_ops()
+    for k, n in ops.items():
+        print(f"{k}: {n['per_texel']} SASS instructions a texel at the least "
+              f"({n['pre']} + {ATMO_STEPS[k]} x {n['body']} + {n['post']}; "
+              f"{n['static']} in the kernel) ({card})", flush=True)
+    rows.update(time_atmosphere(dev, atmo["tlut"], sky_rows, ops))
+    atmo_pass = {k: r["atmo"][k] - probe[k] + c["atmo_window"][k] for k in ATMO_KERNELS}
+    for k in ATMO_KERNELS:
+        groups[k] = [(atmo_pass[k], rows[k][0])]
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
           f"{K2_N}-cell mask {nonzero_ms:.4f} ms (CUDA events, its host "
@@ -3959,6 +4250,9 @@ def main() -> int:
                                f"us device ({row['library']}; the kernel "
                                f"{row['library_device_us'] / row['device_us']:.2f}x "
                                f"faster by device time)"))
+            if kname in ATMO_KERNELS:
+                extra = (f"; events {row['event_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                         f"ms, library none: no PyTorch call computes the LUT")
             if "brick_us" in row:
                 extra += f"; the brick kernel {row['brick_us']:.2f} us"
             if "addcmul_us" in row:
@@ -3988,15 +4282,15 @@ def main() -> int:
     # warm start, the ticks), phase 7's first render_full_hemisphere and
     # the tile-cull timed window.
     meta = [
-        ("accumulate", "accum.cu", "accum_pallas.py:101", r["k1"],
+        ("accumulate", "accum.cu", "ops/accum_pallas.py:101", r["k1"],
          p5_k1 + v["k1"] + c["k1"], c["phase"]["k1"], max(k1_err, k1_64_err)),
-        ("compact", "compact.cu", "compact_pallas.py:184", r["k2"],
+        ("compact", "compact.cu", "ops/compact_pallas.py:184", r["k2"],
          p5_k2 + v["k2"] + c["k2"], c["phase"]["k2"], 0.0),
-        ("segscan", "segscan.cu", "segscan_pallas.py:121", k3_launches,
+        ("segscan", "segscan.cu", "ops/segscan_pallas.py:121", k3_launches,
          v["k3"] + c["k3"], c["phase"]["k3"], max(k3_err, c["k3_err"])),
     ]
     for (kname, _, _, _), line in zip(NOISE_CASES, (187, 214, 240)):
-        meta.append((f"noise_{kname}", "noise.cu", f"noise_pallas.py:{line}",
+        meta.append((f"noise_{kname}", "noise.cu", f"ops/noise_pallas.py:{line}",
                      r["noise"][kname] + c4["noise_launches"][kname],
                      r["noise"][kname], c["phase"]["noise"][kname],
                      noise_rows[kname]["err"]))
@@ -4007,16 +4301,22 @@ def main() -> int:
     for kname, line in zip(SAMPLERS, (282, 323, 351, 282, 323)):
         errs = [x["abs_err"] for x in sample_rows if x["kernel"] == kname]
         errs += sample_errs[kname]
-        meta.append((kname, "sample.cu", f"brick.py:{line} (no pallas_call: XLA's "
+        meta.append((kname, "sample.cu", f"ops/brick.py:{line} (no pallas_call: XLA's "
                      f"gather and lane-weight reduce)", r["samples"][kname],
                      sample_pass[kname][0], c["phase"]["samples"][kname], max(errs)))
+    # K10–K11: JAX jits the eager math of models/atmosphere.py, no
+    # pallas_call. The launches: phase 5's; max_abs_err: phase 4c's checks.
+    for kname, line in zip(ATMO_KERNELS, (208, 122)):
+        meta.append((kname, "atmosphere.cu", f"models/atmosphere.py:{line} (no "
+                     f"pallas_call: XLA's fusion of the jitted math)", r["atmo"][kname],
+                     atmo_pass[kname], c["phase"]["atmo"][kname], atmo[kname][0]))
     kernels = []
     for kname, src, tpu, launches, per_pass, cull_launches, err in meta:
         main_row = rows[kname][0]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"cloudscape_tpu_torch/csrc/{src}",
-            "replaces": f"cloudscape_tpu/ops/{tpu}",
+            "replaces": f"cloudscape_tpu/{tpu}",
             "launches": launches, "launches_per_pass": per_pass,
             "launches_tile_cull": cull_launches,
             # Config 5 (phase 9b): each call of its path counted alone;

@@ -299,10 +299,11 @@ def tile_arm(bucket: float) -> str:
     return "skip" if bucket == 0.0 else ("dense" if bucket >= 1.0 else "v3")
 
 
-def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
-                      frames: int, tile_steps: int, timed_ticks: int, view) -> None:
-    """The amortized operating point at the reference's shipped defaults;
-    fills rec in place, so a failure leaves the headline intact."""
+def serving_engine(dev, sun, noise, cone_res=CONE_RES, texture_size: int = 768,
+                   frames: int = 64, tile_steps: int = 128):
+    """bench.py's serving engine: fast3 `tile_cull` at `PerfConfig(texture_size,
+    frames, tile_steps)`, coverage 0.35, lit from the unit vector `sun`.
+    Raises if it fails its validation."""
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
 
@@ -315,6 +316,14 @@ def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
         cone_res=cone_res, tile_cull=True, device=dev)
     if not eng.can_run:
         raise RuntimeError("the serving engine failed its validation")
+    return eng
+
+
+def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
+                      frames: int, tile_steps: int, timed_ticks: int, view) -> None:
+    """The amortized operating point at the reference's shipped defaults;
+    fills rec in place, so a failure leaves the headline intact."""
+    eng = serving_engine(dev, sun, noise, cone_res, texture_size, frames, tile_steps)
     eye = torch.from_numpy(view_dirs(*view)).to(dev)
     rec["per_tile_kernel"] = eng.kernel
     frame = eng.render_frame(eye, now=0.0)  # the warm start

@@ -45,7 +45,6 @@ from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
 from cloudscape_tpu_torch.models.march import RANDOM_VECTORS, march
 from cloudscape_tpu_torch.models.march_fast import (
     BrickPack,
-    _ceil_to,
     ConeCache,
     bake_cone_cells,
     build_cone_cache,
@@ -67,7 +66,7 @@ from cloudscape_tpu_torch.models.march_fast import (
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
 from cloudscape_tpu_torch.ops import _cuda, accum, brick, compact, segscan
-from cloudscape_tpu_torch.ops.brick import brick3_grid, build_texture2
+from cloudscape_tpu_torch.ops.brick import build_texture2
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
                                                     replicate, shard_map)
@@ -86,12 +85,12 @@ _KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
 
 
 def _probe_kernels(device) -> None:
-    """Build the kernel library and launch each of its marching kernels (K1
+    """Build the kernel library and launch each of its engine kernels (K1
     accumulate, K2 compact, K3 segscan, the samplers K7–K9, K7 and K8 on a
-    texture and on a brick table) once on a tiny
-    input on `device`; raises on a failed build or launch, or an output of
-    the wrong shape or not finite. The comparisons with the plain versions
-    are the tests' and chip_smoke's."""
+    texture and on a brick table, the atmosphere LUTs K11 and K10) once on
+    a tiny input on `device`; raises on a failed build or launch, or an
+    output of the wrong shape or not finite. The comparisons with the plain
+    versions are the tests' and chip_smoke's."""
     _cuda.lib()
     f32 = dict(dtype=torch.float32, device=device)
     n, steps = 2, 8
@@ -110,13 +109,18 @@ def _probe_kernels(device) -> None:
                brick.sample_brick3_xyz(brick.build_brick3(vol), q, q, q),
                brick.sample_brick2_xy(brick.build_brick2(vol[0]), q, q),
                brick.sample_tiny3_xyz(brick.build_tiny3(vol), q, q, q))
+    tlut = atmosphere.transmittance_lut(16, 4, device=device)
+    sky = atmosphere.sky_lut_rows(tlut, (0.3, 0.5, -0.8), 1, rows=2, width=8, height=4)
     if tuple(acc.shape) != (n, 4) or tuple(idx.shape) != (3,) \
             or tuple(scan.shape) != (8,) or any(tuple(s.shape) != (8, 2)
-                                                for s in samples):
+                                                for s in samples) \
+            or tuple(tlut.shape) != (4, 16, 4) or tuple(sky.shape) != (2, 8, 4):
         raise RuntimeError(f"probe shapes {tuple(acc.shape)}, {tuple(idx.shape)}, "
                            f"{tuple(scan.shape)}, "
-                           f"{[tuple(s.shape) for s in samples]}")
-    if not all(bool(torch.isfinite(t).all()) for t in (acc, scan) + samples):
+                           f"{[tuple(s.shape) for s in samples]}, "
+                           f"{tuple(tlut.shape)}, {tuple(sky.shape)}")
+    if not all(bool(torch.isfinite(t).all())
+               for t in (acc, scan, tlut, sky) + samples):
         raise RuntimeError("a probe's output is not finite")
 
 
@@ -267,8 +271,7 @@ class _PendingCycle:
     """The NEXT cycle's state, frozen one rotation ahead and baked across the
     current cycle's ticks, one stage step per tick (`_advance_prebake`):
     occupancy slices → occupancy finalize (kernel K2) → cone-march slices →
-    assembly ticks (the JAX engine's brick-row slices; no work here) →
-    wrap → sky-LUT row bands → (tile cull) cull
+    wrap → sky-LUT row bands (kernel K10) → (tile cull) cull
     prepass slices → cull finalize → the tile fractions' host read. `fresh`
     skips the boundary tick itself."""
 
@@ -279,7 +282,6 @@ class _PendingCycle:
     occ_done: int = 0
     idx: Any = None                   # compacted occupied-cell indices
     slices_done: int = 0
-    asm_done: int = 0
     cone: Optional[ConeCache] = None  # assembled cache once complete
     sky_rows: Any = None              # list of prebaked sky-LUT row bands
     sky: Any = None                   # prebaked sky-LUT image for the pickup
@@ -525,33 +527,43 @@ class CloudSkyEngine:
             self._start_time = _time.monotonic()
         return _time.monotonic() - self._start_time
 
-    # Per-unit bake costs used ONLY to size the prebake slices; correctness
-    # never depends on them. They are the JAX engine's figures, measured on
-    # other hardware, carried over so the slice schedule matches it — not
-    # this port's costs (the card's own: ROADMAP A11).
+    # The card's own prebake costs: per sliced stage (ms a call, ms a unit:
+    # an occupancy cell, a cone cell, a sky-LUT row, a cull ray), the
+    # least-squares line through each stage's device-complete time at three
+    # slice sizes up to the whole stage, from `python -m
+    # cloudscape_tpu_torch.probe_prebake` at the serving point on an NVIDIA
+    # H100 80GB HBM3 at 700.00 W: each term the median of three runs' fits
+    # (PERF.md §5). Every stage costs its call far more than its units: the
+    # occupancy (124 launches), cone (911) and cull (222 a 32,768-ray chunk)
+    # stages are the host's launches, the sky LUT one launch of K10. Used
+    # ONLY to size the prebake slices; correctness never depends on them
+    # (every schedule reproduces the synchronous bake bitwise).
     _BAKE_COSTS = {
-        "cone_us_per_cell": 0.06,
-        "asm_us_per_row": 1.9,
-        "occ_us_per_cell": 0.0105,
-        "sky_ms_per_row": 0.2,
-        "cull_us_per_ray": 0.7,
+        "occ": (1.100, 3.286e-07),
+        "cone": (14.36, 1.251e-07),
+        "sky": (0.06827, 9.518e-05),
+        "cull": (2.902, 4.165e-05),
     }
-    _BAKE_TICK_MS = 14.0
+    # The per-tick budget of added bake work: 0.4x the steady serving tick
+    # (15.83 ms, the median of the same runs' steady-tick medians), as the
+    # JAX engine's budget is 0.4x its own steady tick.
+    _BAKE_TICK_MS = 6.33
 
     def _derive_prebake_schedule(self) -> None:
-        """Per-tick stage sizing for the amortized cycle bake: every stage
-        step is sized to ≲ _BAKE_TICK_MS of work at `_BAKE_COSTS`; when the
-        step count does not fit in frames_to_update ticks the per-tick
-        budget grows until it does. When even that fails, the pending bake
-        is not ready at the boundary and the synchronous build runs. With
-        tile cull the prepass is sliced over the stride-subsampled texel
-        grid (`_dirs_sub`)."""
+        """Per-tick stage sizing for the amortized cycle bake: each stage
+        step costs a call plus its units at `_BAKE_COSTS`, and is sized to
+        fit the per-tick budget, `_BAKE_TICK_MS` to start with: (budget −
+        per call) / per unit, at least one unit, so a stage whose call
+        costs most of a tick is not split into ticks that each pay it.
+        When the step count does not fit in frames_to_update ticks the
+        budget grows until it does (`_bake_budget_ms` keeps the last,
+        `_bake_ticks` the ticks the bake then takes);
+        when even that fails, the pending bake is not ready at the boundary
+        and the synchronous build runs. With tile cull the prepass is
+        sliced over the stride-subsampled texel grid (`_dirs_sub`)."""
         c = self._BAKE_COSTS
         n = int(np.prod(self.cone_res))
         self._cone_capacity = cone_capacity(n, 0.45, _CONE_CHUNK)
-        # The JAX engine's cone brick rows: they size the assembly stage's
-        # ticks, kept so that a cache goes live on the JAX engine's tick.
-        self._n_bricks = int(np.prod(brick3_grid(self.cone_res, (7, 3, 3))))
         sky_h = self.SKY_LUT_SHAPE[0]
         self._n_sub = 0
         if self.tile_cull:
@@ -560,45 +572,36 @@ class CloudSkyEngine:
             self._n_sub = (size // self._cull_stride) ** 2
             self._dirs_sub = texel_directions(size, device=self.device)[
                 ::self._cull_stride, ::self._cull_stride].reshape(-1, 3)
+        units = {"occ": n, "cone": self._cone_capacity, "sky": sky_h,
+                 "cull": self._n_sub}
+
+        def slice_at(stage: str, budget_ms: float) -> int:
+            call_ms, unit_ms = c[stage]
+            return min(max(int((budget_ms - call_ms) / unit_ms), 1), units[stage])
 
         def plan(budget_ms: float):
-            occ_slice = max(int(budget_ms * 1e3 / c["occ_us_per_cell"]), 1)
-            cone_slice = max(int(budget_ms * 1e3 / c["cone_us_per_cell"]), 1)
-            asm_slice = max(int(budget_ms * 1e3 / c["asm_us_per_row"]), 1)
-            sky_rows = max(int(budget_ms / c["sky_ms_per_row"]), 1)
-            occ_slice = min(_ceil_to(occ_slice, 65536), n)
-            cone_slice = min(_ceil_to(cone_slice, 16384), self._cone_capacity)
-            asm_slice = min(_ceil_to(asm_slice, 2048), self._n_bricks)
-            sky_rows = min(sky_rows, sky_h)
-            while sky_h % sky_rows:
-                sky_rows -= 1
-            cull_slice = n_cull = 0
-            if self.tile_cull:
-                cull_slice = max(int(budget_ms * 1e3 / c["cull_us_per_ray"]), 1)
-                cull_slice = min(_ceil_to(cull_slice, 4096), self._n_sub)
-                n_cull = -(-self._n_sub // cull_slice)
-            counts = (-(-n // occ_slice), -(-self._cone_capacity // cone_slice),
-                      -(-self._n_bricks // asm_slice), sky_h // sky_rows, n_cull)
+            sizes = {st: slice_at(st, budget_ms) for st in units if units[st]}
+            while sky_h % sizes["sky"]:
+                sizes["sky"] -= 1
+            counts = {st: -(-units[st] // k) for st, k in sizes.items()}
             # skip, idx-finalize, wrap, (cull finalize + host read), slack
-            total = 4 + (2 if self.tile_cull else 0) + sum(counts)
-            return total, counts, (occ_slice, cone_slice, asm_slice, sky_rows,
-                                   cull_slice)
+            total = 4 + (2 if self.tile_cull else 0) + sum(counts.values())
+            return total, counts, sizes
 
-        total_var_ms = (self._cone_capacity * c["cone_us_per_cell"]
-                        + n * c["occ_us_per_cell"]
-                        + self._n_bricks * c["asm_us_per_row"]) * 1e-3 \
-            + sky_h * c["sky_ms_per_row"] \
-            + self._n_sub * c["cull_us_per_ray"] * 1e-3
+        total_var_ms = sum(c[st][0] + u * c[st][1] for st, u in units.items() if u)
         avail = max(self.perf.frames_to_update - 6, 1)
         budget = max(self._BAKE_TICK_MS, total_var_ms / avail)
         total, counts, sizes = plan(budget)
         while total > self.perf.frames_to_update and budget < 4096.0:
             budget *= 1.1
             total, counts, sizes = plan(budget)
-        (self._n_occ, self._n_cone_slices, self._n_asm, self._n_sky,
-         self._n_cull) = counts
-        (self._occ_slice, self._cone_slice, _, self._sky_rows,
-         self._cull_slice) = sizes
+        self._bake_budget_ms, self._bake_ticks = budget, total
+        self._n_occ, self._n_cone_slices, self._n_sky = \
+            counts["occ"], counts["cone"], counts["sky"]
+        self._occ_slice, self._cone_slice, self._sky_rows = \
+            sizes["occ"], sizes["cone"], sizes["sky"]
+        self._n_cull = counts.get("cull", 0)
+        self._cull_slice = sizes.get("cull", 0)
 
     def _build_cone(self, params: MarchParams) -> ConeCache:
         return build_cone_cache(params, self._bricks, self.perf.light_steps,
@@ -653,56 +656,73 @@ class CloudSkyEngine:
             vol=torch.zeros((int(np.prod(self.cone_res)) + 1,),
                             dtype=torch.float32, device=self.device))
 
-    def _advance_prebake(self) -> None:
-        """One stage step of the pending cycle's bake per tick."""
+    def _prebake_stage(self) -> Optional[str]:
+        """The stage step the next `_advance_prebake` takes, in the bake's
+        order: "fresh" (the tick that made the pending cycle, which bakes
+        nothing), "occupancy", "finalize", "cone", "wrap", "sky_band",
+        then with tile cull "cull", "cull_finalize" and "cull_read"; None
+        when there is no pending bake or it is done."""
         pend = self._pending
         if pend is None or not self.cone_prebake:
-            return
+            return None
         if pend.fresh:
+            return "fresh"
+        if pend.cone is None:
+            if pend.idx is None:
+                return "occupancy" if pend.occ_done < self._n_occ else "finalize"
+            return "cone" if pend.slices_done < self._n_cone_slices else "wrap"
+        if pend.sky is None:
+            return "sky_band"
+        if self.tile_cull and pend.buckets is None:
+            if pend.prio is None:
+                return "cull" if pend.cull_done < self._n_cull else "cull_finalize"
+            return "cull_read"
+        return None
+
+    def _advance_prebake(self) -> None:
+        """One stage step of the pending cycle's bake per tick
+        (`_prebake_stage`)."""
+        stage = self._prebake_stage()
+        if stage is None:
+            return
+        pend = self._pending
+        if stage == "fresh":
             pend.fresh = False
             return
         n = int(np.prod(self.cone_res))
         params = pend.march_params
-        if pend.cone is None:
-            if pend.idx is None and pend.occ_done < self._n_occ:
-                if pend.occ is None:
-                    pend.occ = torch.zeros((n,), dtype=torch.bool,
-                                           device=self.device)
-                i0 = min(pend.occ_done * self._occ_slice,
-                         max(n - self._occ_slice, 0))
-                # In place: writes occ[i0 : i0 + slice], in one piece (each
-                # piece is a round of launches; the slice is sized to a tick).
-                cone_occupancy_slice(pend.occ, i0, params, self._bricks,
-                                     count=self._occ_slice, res=self.cone_res,
-                                     chunk=self._occ_slice)
-                pend.occ_done += 1
-            elif pend.idx is None:
-                pend.idx = cone_occupancy_finalize(pend.occ, res=self.cone_res,
-                                                   chunk=_CONE_CHUNK)
-                pend.occ = None
-            elif pend.slices_done < self._n_cone_slices:
-                i0 = min(pend.slices_done * self._cone_slice,
-                         max(self._cone_capacity - self._cone_slice, 0))
-                # In place: writes the slice's cells into pend.vol, in one
-                # piece.
-                bake_cone_cells(pend.vol, pend.idx, i0, params, self._bricks,
-                                count=self._cone_slice,
-                                light_steps=self.perf.light_steps,
-                                res=self.cone_res, chunk=self._cone_slice)
-                pend.slices_done += 1
-            elif pend.asm_done < self._n_asm:
-                # The JAX engine's schedule: _n_asm ticks, sized to its
-                # brick rows, in which it packs them. The texture needs no
-                # packing, so these ticks only keep the tick on which the
-                # cache goes live.
-                pend.asm_done += 1
-            else:
-                # A view of pend.vol, which no later bake writes: the next
-                # cycle's bake gets a volume of its own.
-                pend.cone = wrap_cone_table(pend.vol[:n], self.cone_res)
-                pend.vol = None
-                pend.idx = None
-        elif pend.sky is None:
+        if stage == "occupancy":
+            if pend.occ is None:
+                pend.occ = torch.zeros((n,), dtype=torch.bool, device=self.device)
+            i0 = min(pend.occ_done * self._occ_slice, max(n - self._occ_slice, 0))
+            # In place: writes occ[i0 : i0 + slice], in one piece (each
+            # piece is a round of launches; the slice is sized to a tick).
+            cone_occupancy_slice(pend.occ, i0, params, self._bricks,
+                                 count=self._occ_slice, res=self.cone_res,
+                                 chunk=self._occ_slice)
+            pend.occ_done += 1
+        elif stage == "finalize":
+            pend.idx = cone_occupancy_finalize(pend.occ, res=self.cone_res,
+                                               chunk=_CONE_CHUNK)
+            pend.occ = None
+        elif stage == "cone":
+            i0 = min(pend.slices_done * self._cone_slice,
+                     max(self._cone_capacity - self._cone_slice, 0))
+            # In place: writes the slice's cells into pend.vol, in one piece.
+            bake_cone_cells(pend.vol, pend.idx, i0, params, self._bricks,
+                            count=self._cone_slice,
+                            light_steps=self.perf.light_steps,
+                            res=self.cone_res, chunk=self._cone_slice)
+            pend.slices_done += 1
+        elif stage == "wrap":
+            # The tick after the last cone slice (the JAX engine first packs
+            # its cone brick table, over ticks of their own; the texture
+            # needs no packing). A view of pend.vol, which no later bake
+            # writes: the next cycle's bake gets a volume of its own.
+            pend.cone = wrap_cone_table(pend.vol[:n], self.cone_res)
+            pend.vol = None
+            pend.idx = None
+        elif stage == "sky_band":
             if pend.sky_rows is None:
                 pend.sky_rows = []
             r0 = len(pend.sky_rows) * self._sky_rows
@@ -712,33 +732,29 @@ class CloudSkyEngine:
             if len(pend.sky_rows) >= self._n_sky:
                 pend.sky = torch.cat(pend.sky_rows, dim=0)
                 pend.sky_rows = None
-        elif self.tile_cull and pend.buckets is None:
-            if pend.prio is None and pend.cull_done < self._n_cull:
-                if pend.raw is None:
-                    pend.raw = torch.zeros((self._n_sub, self._cull_ps),
-                                           dtype=torch.float32,
-                                           device=self.device)
-                # The last slice overlaps the one before it.
-                i0 = min(pend.cull_done * self._cull_slice,
-                         max(self._n_sub - self._cull_slice, 0))
-                # In place: writes raw rows [i0, i0 + slice).
-                cull_raw_slice(pend.raw, self._dirs_sub, i0, params,
-                               self._bricks, count=self._cull_slice,
-                               steps=self.perf.march_steps,
-                               prepass_steps=self._cull_ps)
-                pend.cull_done += 1
-            elif pend.prio is None:
-                pend.prio, pend.tile_keep, pend.tile_cell = cull_finalize(
-                    pend.raw, texel_directions(self.perf.texture_size,
-                                               device=self.device),
-                    self.perf.update_region_size, self._cull_stride)
-                pend.raw = None
-            else:
-                # The cycle's one host read of the per-tile fractions.
-                keep = pend.tile_keep.reshape(-1).cpu().numpy()
-                cell = pend.tile_cell.reshape(-1).cpu().numpy()
-                pend.tile_keep = pend.tile_cell = None
-                pend.buckets = self._buckets_from_keep(keep, cell)
+        elif stage == "cull":
+            if pend.raw is None:
+                pend.raw = torch.zeros((self._n_sub, self._cull_ps),
+                                       dtype=torch.float32, device=self.device)
+            # The last slice overlaps the one before it.
+            i0 = min(pend.cull_done * self._cull_slice,
+                     max(self._n_sub - self._cull_slice, 0))
+            # In place: writes raw rows [i0, i0 + slice).
+            cull_raw_slice(pend.raw, self._dirs_sub, i0, params, self._bricks,
+                           count=self._cull_slice, steps=self.perf.march_steps,
+                           prepass_steps=self._cull_ps)
+            pend.cull_done += 1
+        elif stage == "cull_finalize":
+            pend.prio, pend.tile_keep, pend.tile_cell = cull_finalize(
+                pend.raw, texel_directions(self.perf.texture_size,
+                                           device=self.device),
+                self.perf.update_region_size, self._cull_stride)
+            pend.raw = None
+        else:  # "cull_read": the cycle's one host read of the tile fractions
+            keep = pend.tile_keep.reshape(-1).cpu().numpy()
+            cell = pend.tile_cell.reshape(-1).cpu().numpy()
+            pend.tile_keep = pend.tile_cell = None
+            pend.buckets = self._buckets_from_keep(keep, cell)
 
     # ------------------------------------------------------------ tile cull
 

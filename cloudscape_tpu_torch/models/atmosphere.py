@@ -10,14 +10,20 @@ The port of `cloudscape_tpu.models.atmosphere`:
   elementwise in (u, v), so bands equal the whole render).
 
 Spectral in 4 samples (630/560/490/430 nm) following Fernando García Liñán's
-MIT-licensed model. Small enough (16.4k / 20k rays) that plain tensor code
-over all texels with a Python loop over steps is the right tool.
+MIT-licensed model. The public functions dispatch by device through
+`ops/atmosphere_kernel.py`: on the card each LUT is one launch of a
+hand-written kernel (K10 the sky-view rows, K11 the transmittance LUT,
+`csrc/atmosphere.cu`); on the CPU, and as the kernels' plain versions,
+`_sky_lut_rows_plain` and `_transmittance_lut_plain` run the eager tensor
+code below (a Python loop over the march steps: ~10k launches a sky call
+on a card).
 """
 
 from __future__ import annotations
 
 import torch
 
+from cloudscape_tpu_torch.ops import atmosphere_kernel
 from cloudscape_tpu_torch.ops.math import dot3
 from cloudscape_tpu_torch.ops.sampling import sample2d
 
@@ -98,7 +104,13 @@ def _atmosphere_coefficients(h):
 
 def transmittance_lut(width: int = 256, height: int = 64, device="cuda"):
     """Bake the spectral sun-transmittance LUT, [height, width, 4] float32
-    (`transmittance-lut.glsl:157-196`)."""
+    (`transmittance-lut.glsl:157-196`): kernel K11 on a card, the plain
+    version on the CPU."""
+    return atmosphere_kernel.transmittance_lut(width, height, device)
+
+
+def _transmittance_lut_plain(width: int = 256, height: int = 64, device="cpu"):
+    """K11's plain version: the eager tensor march of `transmittance_lut`."""
     u = (torch.arange(width, dtype=torch.float32, device=device) / width)[None, :]
     v = (torch.arange(height, dtype=torch.float32, device=device) / height)[:, None]
     u, v = torch.broadcast_tensors(u, v)
@@ -159,7 +171,17 @@ def sky_lut(tlut, sun_direction, width: int = 200, height: int = 100):
 
 def sky_lut_rows(tlut, sun_direction, row0: int, *, rows: int,
                  width: int = 200, height: int = 100):
-    """One row band [row0, row0+rows) of `sky_lut`, [rows, width, 4]."""
+    """One row band [row0, row0+rows) of `sky_lut`, [rows, width, 4]: one
+    launch of kernel K10 for a LUT on a card, the plain version on the CPU.
+    Each texel is computed alone, so a band is the same rows of a whole
+    call (on the card bitwise)."""
+    return atmosphere_kernel.sky_lut_rows(tlut, sun_direction, row0, rows, width,
+                                          height)
+
+
+def _sky_lut_rows_plain(tlut, sun_direction, row0: int, *, rows: int,
+                        width: int = 200, height: int = 100):
+    """K10's plain version: the eager tensor march of `sky_lut_rows`."""
     dev = tlut.device
     s = torch.as_tensor(sun_direction, dtype=torch.float32, device=dev)
     sun_dir = torch.stack([-s[0], -s[2], s[1]])

@@ -27,6 +27,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cloudscape_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Flags of one source on top of NVCC_FLAGS. atmosphere.cu rounds as its
+# plain version's eager torch ops do, one product or sum at a time, so nvcc
+# must not contract a*b + c into an FMA there (its header says why).
+SOURCE_FLAGS = {"atmosphere.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -57,6 +61,7 @@ def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
+        h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(src), [])).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libcloudscape_kernels_{h.hexdigest()[:16]}.so")
@@ -76,7 +81,8 @@ def build() -> str:
     jobs = []
     for src in (s for s in _sources() if s.endswith(".cu")):
         obj = f"{tmp}.{os.path.basename(src)}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(src), []),
+               "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -128,6 +134,10 @@ def lib() -> ctypes.CDLL:
             for fn in (handle.cs_sample_brick2, handle.cs_sample_tex2):
                 fn.argtypes = [p, i, geom, p, p, p, ll, p]
                 fn.restype = i
+            handle.cs_sky_lut.argtypes = [p, i, i, p, i, i, i, i, p, p]
+            handle.cs_sky_lut.restype = i
+            handle.cs_transmittance_lut.argtypes = [i, i, p, p]
+            handle.cs_transmittance_lut.restype = i
             _LIB = handle
     return _LIB
 

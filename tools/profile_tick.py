@@ -34,27 +34,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEADY = 10
 
 
-def stage_of(eng) -> str:
-    """The prebake stage the next `update_sky` runs (mirrors the branch
-    order of `CloudSkyEngine._advance_prebake`)."""
-    if eng.ring.frame >= eng.perf.frames_to_update:
-        return "boundary"
-    p = eng._pending
-    if p is None:
-        return "steady"
-    if p.cone is None:
-        if p.idx is None and p.occ_done < eng._n_occ:
-            return "occupancy"
-        if p.idx is None:
-            return "finalize"
-        if p.slices_done < eng._n_cone_slices:
-            return "cone"
-        if p.asm_done < eng._n_asm:
-            return "table"
-        return "wrap"
-    return "sky_band" if p.sky is None else "steady"
-
-
 def tick(eng, eyedirs, now, torch):
     """One render_frame split into its two calls; host ms of each."""
     t0 = time.perf_counter()
@@ -86,6 +65,7 @@ def main() -> int:
     from chip_smoke import camera_dirs, card_line
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.probe_prebake import stage_of
 
     card = card_line()
     print(card, flush=True)
