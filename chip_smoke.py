@@ -254,8 +254,9 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    device µs; for K9 the stream yardstick `torch.addcmul(qx, qy, qz)` on
    the same planes (the same 12 B read and 4 B written a sample; not K9's
    function, never called by the port); K10 on the schedule's sky band and
-   K11 on the engine's LUT (bound: the least instructions a texel
-   executes, counted on the SASS by `least_instructions`), and K7's 1-ch 32³ repeat row
+   a 5-row band, K11 on the engine's LUT (bound: the frozen work of a
+   texel, SERIAL_WORK, at the issue rate or the SFU rate, whichever is
+   slower), and K7's 1-ch 32³ repeat row
    printed again as the anchor against earlier runs; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
@@ -345,6 +346,9 @@ EXACT_DENSE_DB = 40.0
 # through the same 128 lanes).
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12 / 2
+# The special-function unit (MUFU: the reciprocal, square-root, exp2 and
+# log2 approximations): 16 results a clock on each SM (132 x 16 x 1.98 GHz).
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # Between timed calls a 64 MB tensor is read (a dot product with itself),
 # so the 50 MB L2 holds none of a kernel's inputs, only clean lines, and HBM
 # is the right yardstick. Overwriting the tensor instead (`zero_`) leaves
@@ -370,7 +374,8 @@ NOISE_OUT = {"base": (16, 3), "detail": (12, 3), "weather": (12, 2)}
 # The change (its number in PERF.md §6's Findings) that redesigned each
 # kernel for the card after its first port; the ranking marks those.
 REDESIGNED_IN = {"accumulate": 4, "compact": 4, "segscan": 5, "sample_tex3": 13,
-                 "sample_tex2": 13, "sample_tiny3": 14}
+                 "sample_tex2": 13, "sample_tiny3": 14, "sky_lut": 17,
+                 "transmittance_lut": 17}
 # Device kernel names of each wrapper, for picking its launches out of a
 # profiler trace.
 KERNEL_NAMES = {
@@ -424,11 +429,12 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_us(nbytes: int, ops: int = 0):
-    """(µs, what bounds it): the least time the card could take, the larger
-    of `nbytes` over the HBM rate and `ops` over the ALU rate."""
+def bound_us(nbytes: int, ops: int = 0, sfu: int = 0):
+    """(µs, what bounds it): the least time the card could take, the largest
+    of `nbytes` over the HBM rate, `ops` instructions over the ALU rate and
+    `sfu` special-function results over the SFU rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    by_ops = ops / ALU_OPS_PER_S * 1e6
+    by_ops = max(ops / ALU_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e6
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -574,10 +580,11 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
                 kernels=None, how="cuda graph")
 
 
-def timed_row(shape: str, fn, names, nbytes: int, ops: int = 0, **extra):
+def timed_row(shape: str, fn, names, nbytes: int, ops: int = 0, sfu: int = 0,
+              **extra):
     """One row of the kernel table: device µs (cold L2) against the bound."""
     d = device_us(fn, names)
-    b, by = bound_us(nbytes, ops)
+    b, by = bound_us(nbytes, ops, sfu)
     return dict(shape=shape, device_us=d["span_us"], kernel_sum_us=d["sum_us"],
                 kernels_per_call=d["kernels"], timing=d["how"], bound_us=b,
                 bound_by=by, bound_share=b / d["span_us"],
@@ -799,9 +806,23 @@ ATMO_SUNS = ((0.3, 0.5, -0.8), (0.0, -0.05, 1.0))
 # sky-view LUT's 100 rows.
 SKY_BANDS = tuple(h for h in range(1, 101) if 100 % h == 0)
 ATMO_KERNELS = ("sky_lut", "transmittance_lut")
+# K10's second timed shape: a band of 5 rows (1,000 texels), where a launch
+# is a few blocks and its time the latency of one texel's work.
+ATMO_BAND = 5
 # Steps of each atmosphere kernel's march (csrc/atmosphere.cu's
-# kInScatteringSteps, kTransmittanceSteps), and the SASS name of each kernel.
+# kInScatteringSteps, kTransmittanceSteps).
 ATMO_STEPS = {"sky_lut": 30, "transmittance_lut": 40}
+# The work of one texel of K10 / K11, frozen so that every form of the
+# kernels is held to one yardstick: (the fewest SASS instructions, the fewest
+# MUFU instructions) a texel executes in the one-thread-a-texel form the
+# kernels first took (one step loop; counted by `least_instructions` on its
+# build with this repository's nvcc flags, -fmad=false included:
+# tools/bench_atmosphere.py recounts them on that form's source). K10 276 +
+# 30 x 697 + 38 instructions and 4 + 30 x 22 + 0 MUFU, K11 113 + 40 x 144 +
+# 36 and 3 + 40 x 4 + 4 (an H100 run of the tool; NVIDIA H100 80GB HBM3,
+# 700.00 W). The lane-group form adds barriers, shuffles and shared-memory
+# traffic, which are overhead, not work.
+SERIAL_WORK = {"sky_lut": (21224, 664), "transmittance_lut": (5909, 167)}
 SASS_INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -817,7 +838,7 @@ def sass_functions(text: str) -> dict:
     return out
 
 
-def least_instructions(ins, steps: int) -> dict:
+def least_instructions(ins, steps: int, counted=None) -> dict:
     """The fewest SASS instructions one thread of a one-loop kernel executes
     (ins from `sass_functions`): the shortest path from the entry to the
     step loop's head, then `steps` times through its body, then on to an
@@ -825,7 +846,9 @@ def least_instructions(ins, steps: int) -> dict:
     slow path a CALL reaches, no special-case block) and no back edge but
     the step loop's. The step loop is the widest backward branch; it must
     count its trips one step at a time (an `IADD3 Rk, Rk, 0x1` and a
-    compare of Rk with `steps`), else raises. Returns {"per_texel", "pre",
+    compare of Rk with `steps`), else raises. With `counted` (a predicate
+    on the opcode) only the instructions it accepts are counted, and the
+    path is the one with the fewest of those. Returns {"per_texel", "pre",
     "body", "post", "static"}."""
     at = {a: i for i, (a, _, _, _) in enumerate(ins)}
 
@@ -844,9 +867,11 @@ def least_instructions(ins, steps: int) -> dict:
                          rf"{steps:#x}, PT$", t) for t in body_ops),
             f"the step loop does not run one of {steps} steps a trip")
 
+    weight = [1 if counted is None or counted(op) else 0 for _, _, op, _ in ins]
+
     def costs(start):
-        """Fewest instructions executed from ins[start] until each later
-        instruction is reached, forward edges only."""
+        """Fewest counted instructions executed from ins[start] until each
+        later instruction is reached, forward edges only."""
         cost = [math.inf] * len(ins)
         cost[start] = 0
         for k in range(start, len(ins)):
@@ -857,40 +882,32 @@ def least_instructions(ins, steps: int) -> dict:
                 nxt.append(at[target(k)])
             for j in nxt:
                 if j < len(ins):
-                    cost[j] = min(cost[j], cost[k] + 1)
+                    cost[j] = min(cost[j], cost[k] + weight[k])
         return cost
 
     pre = costs(0)[head]
-    body = costs(head)[tail] + 1
+    body = costs(head)[tail] + weight[tail]
     after = costs(tail + 1)
-    post = min(after[k] + 1 for k, x in enumerate(ins) if x[2] == "EXIT")
+    post = min(after[k] + weight[k] for k, x in enumerate(ins) if x[2] == "EXIT")
     require(max(pre, body, post) < math.inf, "no path through the step loop to an EXIT")
     return dict(per_texel=pre + steps * body + post, pre=pre, body=body, post=post,
                 static=len(ins))
 
 
-def atmo_ops() -> dict:
-    """Least instructions a texel of K10 and K11 executes
-    (`least_instructions`), from `cuobjdump -sass` of the built library."""
-    from cloudscape_tpu_torch.ops import _cuda
-
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", _cuda.build()], capture_output=True,
-                          text=True, check=True).stdout
-    funcs = sass_functions(text)
-    out = {}
-    for k, steps in ATMO_STEPS.items():
-        (name,) = [n for n in funcs if KERNEL_NAMES[k][0] in n]
-        out[k] = least_instructions(funcs[name], steps)
-    return out
+def least_mufu(ins, steps: int) -> dict:
+    """The fewest special-function (MUFU.*) instructions one thread of a
+    one-loop kernel executes: `least_instructions` counting those alone."""
+    return least_instructions(ins, steps, counted=lambda op: op.startswith("MUFU"))
 
 
-def atmo_work(name: str, texels: int, lut_texels: int, ops: dict):
-    """(bytes, instructions) of one K10 / K11 call over `texels` texels: K10
-    reads the [h, w, 4] f32 LUT once and the sun vector; both write 16 B a
-    texel; `ops` is `atmo_ops()`."""
+def atmo_work(name: str, texels: int, lut_texels: int):
+    """(bytes, instructions, MUFU instructions) of one K10 / K11 call over
+    `texels` texels: K10 reads the [h, w, 4] f32 LUT once and the sun
+    vector; both write 16 B a texel; the instructions are SERIAL_WORK's a
+    texel."""
     nbytes = 16 * texels + (16 * lut_texels + 12 if name == "sky_lut" else 0)
-    return nbytes, texels * ops[name]["per_texel"]
+    ins, mufu = SERIAL_WORK[name]
+    return nbytes, texels * ins, texels * mufu
 
 
 def check_atmosphere(dev) -> dict:
@@ -954,9 +971,10 @@ def check_atmosphere(dev) -> dict:
     return out
 
 
-def time_atmosphere(dev, tlut, rows: int, ops: dict):
+def time_atmosphere(dev, tlut, rows: int):
     """K10's device µs on a band of `rows` rows (the sun of the checks) and
-    K11's, each against its instruction count (`atmo_ops()`), with the
+    on a band of ATMO_BAND rows, and K11's, each against its frozen work
+    (`atmo_work`: the larger of the issue-rate and the SFU term), with the
     wrapper's and the plain version's CUDA-event ms (no PyTorch call
     computes either LUT)."""
     import torch
@@ -965,16 +983,25 @@ def time_atmosphere(dev, tlut, rows: int, ops: dict):
 
     sun = torch.tensor(ATMO_SUNS[0], dtype=torch.float32, device=dev)
     lut_texels = tlut.shape[0] * tlut.shape[1]
-    calls = {
-        "sky_lut": (f"{rows} x 200 band of the 100 x 200 LUT", rows * 200, lut_texels,
-                    lambda: atmosphere.sky_lut_rows(tlut, sun, 0, rows=rows),
-                    lambda: atmosphere._sky_lut_rows_plain(tlut, sun, 0, rows=rows)),
-        "transmittance_lut": ("64 x 256", 64 * 256, 0,
-                              lambda: atmosphere.transmittance_lut(device=dev),
-                              lambda: atmosphere._transmittance_lut_plain(device=dev))}
-    return {k: [timed_row(shape, fn, KERNEL_NAMES[k], *atmo_work(k, texels, lut, ops),
-                          event_ms=cuda_time_ms(fn), plain_ms=cuda_time_ms(plain, reps=3))]
-            for k, (shape, texels, lut, fn, plain) in calls.items()}
+
+    def sky(n):
+        return (f"{n} x 200 band of the 100 x 200 LUT", "sky_lut", n * 200, lut_texels,
+                lambda: atmosphere.sky_lut_rows(tlut, sun, 0, rows=n),
+                lambda: atmosphere._sky_lut_rows_plain(tlut, sun, 0, rows=n))
+
+    calls = [sky(rows)] + ([sky(ATMO_BAND)] if rows != ATMO_BAND else []) + [
+        ("64 x 256", "transmittance_lut", 64 * 256, 0,
+         lambda: atmosphere.transmittance_lut(device=dev),
+         lambda: atmosphere._transmittance_lut_plain(device=dev))]
+    out = {k: [] for k in ATMO_KERNELS}
+    for shape, k, texels, lut, fn, plain in calls:
+        nbytes, ins, mufu = atmo_work(k, texels, lut)
+        out[k].append(timed_row(shape, fn, KERNEL_NAMES[k], nbytes, ins, mufu,
+                                issue_us=ins / ALU_OPS_PER_S * 1e6,
+                                sfu_us=mufu / SFU_OPS_PER_S * 1e6,
+                                event_ms=cuda_time_ms(fn),
+                                plain_ms=cuda_time_ms(plain, reps=3)))
+    return out
 
 
 def bitwise_equal(a, b) -> bool:
@@ -4221,12 +4248,10 @@ def main() -> int:
         groups[k] = price_sizes(k, tab, qs, pass_sizes[k])
     # K10–K11: the engine's sky band and transmittance LUT; a pass is phase
     # 5 without its validation probe and the tile-cull window.
-    ops = atmo_ops()
-    for k, n in ops.items():
-        print(f"{k}: {n['per_texel']} SASS instructions a texel at the least "
-              f"({n['pre']} + {ATMO_STEPS[k]} x {n['body']} + {n['post']}; "
-              f"{n['static']} in the kernel) ({card})", flush=True)
-    rows.update(time_atmosphere(dev, atmo["tlut"], sky_rows, ops))
+    for k, (ins, mufu) in SERIAL_WORK.items():
+        print(f"{k}: bound by the frozen work of a texel, {ins} SASS instructions "
+              f"and {mufu} MUFU at the least (the one-thread form's SASS)", flush=True)
+    rows.update(time_atmosphere(dev, atmo["tlut"], sky_rows))
     atmo_pass = {k: r["atmo"][k] - probe[k] + c["atmo_window"][k] for k in ATMO_KERNELS}
     for k in ATMO_KERNELS:
         groups[k] = [(atmo_pass[k], rows[k][0])]
@@ -4251,7 +4276,10 @@ def main() -> int:
                                f"{row['library_device_us'] / row['device_us']:.2f}x "
                                f"faster by device time)"))
             if kname in ATMO_KERNELS:
-                extra = (f"; events {row['event_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                extra = (f"; issue term {row['issue_us']:.2f} us, SFU term "
+                         f"{row['sfu_us']:.2f} us ("
+                         f"{'SFU' if row['sfu_us'] > row['issue_us'] else 'issue'} binds)"
+                         f"; events {row['event_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
                          f"ms, library none: no PyTorch call computes the LUT")
             if "brick_us" in row:
                 extra += f"; the brick kernel {row['brick_us']:.2f} us"

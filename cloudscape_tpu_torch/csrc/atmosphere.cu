@@ -24,17 +24,30 @@
 // the ground hit, from the plain version's. So built, both kernels gave
 // their plain versions' bits on an H100 (chip_smoke.py phase 4c).
 //
-// Bound: float32 ALU and the special-function unit. Per sky texel 30 steps
-// of ~13 expf/logf/powf, 3 IEEE divisions, a sqrtf and four bilinear
-// fetches from the 256 KB transmittance LUT (through __ldg, L1/L2-resident
-// after the first texels); 16 bytes written a texel, so memory is idle.
+// Bound: the float32 issue rate. The work is frozen at what one thread a
+// texel executes at the least on this source's first form (chip_smoke.py's
+// SERIAL_WORK: K10 21,224 SASS instructions a texel, 664 of them MUFU; K11
+// 5,909 and 167), and the issue rate binds, not the special-function unit
+// (K10's LUT: 12.67 us at 33.5 T/s against 3.18 us at 4.18 T/s). Per sky
+// step ~13 expf/logf/powf, 3 IEEE divisions, a sqrtf and four bilinear
+// fetches from the 256 KB transmittance LUT (through __ldg); 16 bytes
+// written a texel, so memory is idle.
 //
-// Design: one thread per texel, every step of its march in registers; no
-// thread shares work with another, so a texel's bits do not depend on its
-// position in the launch, and a band equals the same rows of a whole call
-// bitwise (the engine's prebaked sky equals its synchronous one). At the
-// engine's bands (a few rows of 200 texels) a launch is a few blocks and
-// its time is the march's latency, not its throughput.
+// Design: a texel's steps are independent but for two running sums (K10
+// l_in += trans * s_int, trans *= step; K11 tau += ext * dt), so a group of
+// G lanes takes a texel, lane j its steps j, j + G, ..., each computed as
+// the one-thread march computed it, and the sums run afterwards in step
+// order: the same operations in the same order, so the same bits, whatever
+// a texel's place in the launch (a band equals the same rows of a whole
+// call bitwise). A block runs three phases between two barriers: the
+// prologue (ray, dt, phases) a thread a texel into shared memory; the
+// steps, thread t lane t / T of texel t % T (T = kThreads / G texels a
+// block), so one warp instruction marches 32 G / kThreads steps of adjacent
+// texels and its LUT fetches stay close; the sums a thread a (texel,
+// channel). One thread a texel was latency-bound: the engine's 20,000
+// texels are 1.2 warps a scheduler, each a 21,224-instruction chain.
+// tools/bench_atmosphere.py measured G and the phases on an H100 (PERF.md
+// §6).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +57,15 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTransmittanceSteps = 40;  // transmittance-lut.glsl:45
 constexpr int kInScatteringSteps = 30;   // sky-lut.glsl:53
+// Lanes a texel: a group of G lanes takes a texel, lane j its steps j,
+// j + G, j + 2G, ... (ops/atmosphere_kernel.py's LANES mirrors them).
+constexpr int kSkyLanes = 8;
+constexpr int kTransmittanceLanes = 8;
+// A texel's row of per-step terms in shared memory: K10 s_int and step (8
+// floats a step), K11 ext * dt (4); 4 floats of padding put the summing
+// threads of a warp (8 texels, 4 channels) on distinct banks.
+constexpr int kSkyRow = 8 * kInScatteringSteps + 4;
+constexpr int kTransmittanceRow = 4 * kTransmittanceSteps + 4;
 
 constexpr float kEarthRadius = 6371.0f;
 constexpr float kEarthRadius2 = 40589640.0f;       // f32(6371.0 ** 2)
@@ -179,10 +201,17 @@ __device__ __forceinline__ void multiple_scattering(const float4* __restrict__ l
   }
 }
 
-// The sky-view texel (x, row) of a [height, width] LUT (sky-lut.glsl:278-315).
-__device__ __forceinline__ float4 sky_texel(const float4* __restrict__ lut, int lut_h,
-                                            int lut_w, V3 sun_dir, int x, int row,
-                                            int width, int height) {
+// ---- the marches, cut into a prologue and single steps
+
+// What every step of a sky-view texel's march reads (sky-lut.glsl:278-300).
+struct SkyRay {
+  V3 rd;
+  float dt, molecular_phase, aerosol_phase;
+};
+
+// The prologue of the sky-view texel (x, row) of a [height, width] LUT.
+__device__ __forceinline__ SkyRay sky_ray(V3 sun_dir, int x, int row, int width,
+                                          int height) {
   const float u = (float)x * (1.0f / (float)width);
   const float v = (float)row * (1.0f / (float)height);
   const float azimuth = kTwoPi * u;
@@ -198,119 +227,230 @@ __device__ __forceinline__ float4 sky_texel(const float4* __restrict__ lut, int 
   const float t_d = ground_dist < 0.0f ? atmos_dist : ground_dist;
 
   const float cos_theta = dot3(V3{-rd.x, -rd.y, -rd.z}, sun_dir);
-  const float molecular_phase = kRayleighPhase * (1.0f + cos_theta * cos_theta);
   const float den = kAerosolDen0 + kAerosolDen1 * cos_theta;
-  const float aerosol_phase = (1.0f / (den * sqrtf(den))) * kAerosolPhase;
-
-  const float dt = t_d * (1.0f / (float)kInScatteringSteps);
-  float l_in[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float trans[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  for (int i = 0; i < kInScatteringSteps; ++i) {
-    const float t = dt * ((float)i + 0.5f);
-    const V3 p = {ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t};
-    const float dist = sqrtf(dot3(p, p));
-    const V3 zenith = {p.x / dist, p.y / dist, p.z / dist};
-    const float altitude = dist - kEarthRadius;
-    const float alt = altitude * kInvThickness;
-    const float sample_cos = dot3(zenith, sun_dir);
-
-    float aer_scat[4], mol_scat[4], ext[4], t_sun[4], ms[4];
-    coefficients(altitude, aer_scat, mol_scat, ext);
-    as_array(transmittance_at(lut, lut_h, lut_w, sample_cos, alt), t_sun);
-    multiple_scattering(lut, lut_h, lut_w, sample_cos, alt, dist, ms);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float s_term = kSunIrradiance[c] *
-          (mol_scat[c] * (molecular_phase * t_sun[c] + ms[c]) +
-           aer_scat[c] * (aerosol_phase * t_sun[c] + ms[c]));
-      const float step = expf(-dt * ext[c]);
-      // Hillaire's energy-conserving analytic step (sky-lut.glsl:261-272).
-      const float s_int = (s_term - s_term * step) / fmaxf(ext[c], 1e-7f);
-      l_in[c] = l_in[c] + trans[c] * s_int;
-      trans[c] = trans[c] * step;
-    }
-  }
-  float rgb[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    // The plain version's Python sum: ((0 + a0) + a1 + a2) + a3.
-    rgb[k] = 0.0f + l_in[0] * kSpectralToSrgb[k][0] + l_in[1] * kSpectralToSrgb[k][1] +
-             l_in[2] * kSpectralToSrgb[k][2] + l_in[3] * kSpectralToSrgb[k][3];
-  }
-  return make_float4(rgb[0], rgb[1], rgb[2], 1.0f);
+  SkyRay r;
+  r.rd = rd;
+  r.dt = t_d * (1.0f / (float)kInScatteringSteps);
+  r.molecular_phase = kRayleighPhase * (1.0f + cos_theta * cos_theta);
+  r.aerosol_phase = (1.0f / (den * sqrtf(den))) * kAerosolPhase;
+  return r;
 }
 
-// The transmittance texel (x, y) of a [height, width] LUT
+// Step i of a sky-view texel's march: per channel the light it scatters in
+// and its transmittance (sky-lut.glsl:240-272).
+__device__ __forceinline__ void sky_step(const float4* __restrict__ lut, int lut_h,
+                                         int lut_w, V3 sun_dir, const SkyRay& r, int i,
+                                         float s_int[4], float step[4]) {
+  const V3 ro = {0.0f, 0.0f, kEyeDistance};
+  const float t = r.dt * ((float)i + 0.5f);
+  const V3 p = {ro.x + r.rd.x * t, ro.y + r.rd.y * t, ro.z + r.rd.z * t};
+  const float dist = sqrtf(dot3(p, p));
+  const V3 zenith = {p.x / dist, p.y / dist, p.z / dist};
+  const float altitude = dist - kEarthRadius;
+  const float alt = altitude * kInvThickness;
+  const float sample_cos = dot3(zenith, sun_dir);
+
+  float aer_scat[4], mol_scat[4], ext[4], t_sun[4], ms[4];
+  coefficients(altitude, aer_scat, mol_scat, ext);
+  as_array(transmittance_at(lut, lut_h, lut_w, sample_cos, alt), t_sun);
+  multiple_scattering(lut, lut_h, lut_w, sample_cos, alt, dist, ms);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float s_term = kSunIrradiance[c] *
+        (mol_scat[c] * (r.molecular_phase * t_sun[c] + ms[c]) +
+         aer_scat[c] * (r.aerosol_phase * t_sun[c] + ms[c]));
+    step[c] = expf(-r.dt * ext[c]);
+    // Hillaire's energy-conserving analytic step (sky-lut.glsl:261-272).
+    s_int[c] = (s_term - s_term * step[c]) / fmaxf(ext[c], 1e-7f);
+  }
+}
+
+// What every step of a transmittance texel's march reads.
+struct SunRay {
+  V3 ro, rd;
+  float dt;
+};
+
+// The prologue of the transmittance texel (x, y) of a [height, width] LUT
 // (transmittance-lut.glsl:157-196).
-__device__ __forceinline__ float4 transmittance_texel(int x, int y, int width,
-                                                      int height) {
+__device__ __forceinline__ SunRay sun_ray(int x, int y, int width, int height) {
   const float u = (float)x * (1.0f / (float)width);
   const float v = (float)y * (1.0f / (float)height);
   const float sun_cos = u * 2.0f - 1.0f;
-  const V3 sun_dir = {-sqrtf(fmaxf(1.0f - sun_cos * sun_cos, 0.0f)), 0.0f, sun_cos};
-  const float dist = 100.0f * v + kEarthRadius;
-  const V3 ro = {0.0f, 0.0f, dist};
-  const float t_d = ray_sphere(ro, sun_dir, kAtmosphereRadius2);
-  const float dt = t_d * (1.0f / (float)kTransmittanceSteps);
-  float tau[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < kTransmittanceSteps; ++i) {
-    const float t = dt * ((float)i + 0.5f);
-    const V3 p = {ro.x + sun_dir.x * t, ro.y + sun_dir.y * t, ro.z + sun_dir.z * t};
-    const float altitude = sqrtf(dot3(p, p)) - kEarthRadius;
-    float aer_scat[4], mol_scat[4], ext[4];
-    coefficients(altitude, aer_scat, mol_scat, ext);
+  SunRay r;
+  r.rd = {-sqrtf(fmaxf(1.0f - sun_cos * sun_cos, 0.0f)), 0.0f, sun_cos};
+  r.ro = {0.0f, 0.0f, 100.0f * v + kEarthRadius};
+  r.dt = ray_sphere(r.ro, r.rd, kAtmosphereRadius2) * (1.0f / (float)kTransmittanceSteps);
+  return r;
+}
+
+// Step i of a transmittance texel's march: its optical depth per channel.
+__device__ __forceinline__ void sun_step(const SunRay& r, int i, float tau[4]) {
+  const float t = r.dt * ((float)i + 0.5f);
+  const V3 p = {r.ro.x + r.rd.x * t, r.ro.y + r.rd.y * t, r.ro.z + r.rd.z * t};
+  const float altitude = sqrtf(dot3(p, p)) - kEarthRadius;
+  float aer_scat[4], mol_scat[4], ext[4];
+  coefficients(altitude, aer_scat, mol_scat, ext);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) tau[c] = tau[c] + ext[c] * dt;
-  }
-  return make_float4(expf(-tau[0]), expf(-tau[1]), expf(-tau[2]), expf(-tau[3]));
+  for (int c = 0; c < 4; ++c) tau[c] = ext[c] * r.dt;
 }
 
 // ---- kernels and C entry points
+
+// A thread's place in the step phase of a launch of G lanes a texel: a
+// block holds kThreads / G texels, and thread t is lane t / (kThreads / G) of
+// texel t % (kThreads / G), so the lanes of one warp instruction march the
+// same step (or, where a block holds fewer than 32 texels, 32 G / kThreads
+// steps) of adjacent texels, and their LUT fetches stay close.
+template <int G>
+struct Group {
+  static_assert(G >= 4 && kThreads % G == 0, "a whole group and a thread a channel");
+  static constexpr int kTexels = kThreads / G;  // texels a block
+  int lane;  // the lane in its group: its first step
+  int slot;  // the group's texel in the block
+
+  __device__ __forceinline__ Group()
+      : lane(threadIdx.x / kTexels), slot(threadIdx.x % kTexels) {}
+};
+
+// In both kernels every thread reaches both barriers and the shuffles, and
+// a texel past the launch's last is marched as that last one and not
+// stored. The sums put a texel's four channels in four consecutive lanes,
+// which shuffle them to the first.
 
 __global__ void __launch_bounds__(kThreads)
 sky_kernel(const float4* __restrict__ lut, int lut_h, int lut_w,
            const float* __restrict__ sun, int row0, int rows, int width, int height,
            float4* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows * width) return;
-  const int r = i / width, x = i - r * width;
+  using G = Group<kSkyLanes>;
+  __shared__ SkyRay rays[G::kTexels];
+  __shared__ __align__(16) float terms[G::kTexels][kSkyRow];
+  const int n = rows * width;
+  const int base = blockIdx.x * G::kTexels;
   // The world (y-up) sun vector in the LUT's z-up frame.
   const V3 sun_dir = {-__ldg(sun), -__ldg(sun + 2), __ldg(sun + 1)};
-  out[i] = sky_texel(lut, lut_h, lut_w, sun_dir, x, row0 + r, width, height);
+  if (threadIdx.x < G::kTexels) {
+    const int texel = min(base + (int)threadIdx.x, n - 1);
+    const int r = texel / width;
+    rays[threadIdx.x] = sky_ray(sun_dir, texel - r * width, row0 + r, width, height);
+  }
+  __syncthreads();
+  const G g;
+  const SkyRay ray = rays[g.slot];
+  float* row = terms[g.slot];
+  for (int s = g.lane; s < kInScatteringSteps; s += kSkyLanes) {
+    float s_int[4], step[4];
+    sky_step(lut, lut_h, lut_w, sun_dir, ray, s, s_int, step);
+    reinterpret_cast<float4*>(row + 8 * s)[0] = make_float4(s_int[0], s_int[1], s_int[2],
+                                                            s_int[3]);
+    reinterpret_cast<float4*>(row + 8 * s)[1] = make_float4(step[0], step[1], step[2],
+                                                            step[3]);
+  }
+  __syncthreads();
+  // Channel c's sums over the steps in order: the products and sums of the
+  // one-thread march, so its bits.
+  const int slot = threadIdx.x / 4, c = threadIdx.x % 4;
+  float l_in = 0.0f;
+  if (slot < G::kTexels) {
+    const float* sums = terms[slot];
+    float trans = 1.0f;
+#pragma unroll
+    for (int s = 0; s < kInScatteringSteps; ++s) {
+      l_in = l_in + trans * sums[8 * s + c];
+      trans = trans * sums[8 * s + 4 + c];
+    }
+  }
+  float l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) l[k] = __shfl_sync(0xffffffffu, l_in, (threadIdx.x & 28) + k);
+  if (c != 0 || slot >= G::kTexels || base + slot >= n) return;
+  float rgb[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // The plain version's Python sum: ((0 + a0) + a1 + a2) + a3.
+    rgb[k] = 0.0f + l[0] * kSpectralToSrgb[k][0] + l[1] * kSpectralToSrgb[k][1] +
+             l[2] * kSpectralToSrgb[k][2] + l[3] * kSpectralToSrgb[k][3];
+  }
+  out[base + slot] = make_float4(rgb[0], rgb[1], rgb[2], 1.0f);
 }
 
 __global__ void __launch_bounds__(kThreads)
 transmittance_kernel(int width, int height, float4* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= width * height) return;
-  const int y = i / width, x = i - y * width;
-  out[i] = transmittance_texel(x, y, width, height);
+  using G = Group<kTransmittanceLanes>;
+  __shared__ SunRay rays[G::kTexels];
+  __shared__ __align__(16) float terms[G::kTexels][kTransmittanceRow];
+  const int n = width * height;
+  const int base = blockIdx.x * G::kTexels;
+  if (threadIdx.x < G::kTexels) {
+    const int texel = min(base + (int)threadIdx.x, n - 1);
+    const int y = texel / width;
+    rays[threadIdx.x] = sun_ray(texel - y * width, y, width, height);
+  }
+  __syncthreads();
+  const G g;
+  const SunRay ray = rays[g.slot];
+  float* row = terms[g.slot];
+  for (int s = g.lane; s < kTransmittanceSteps; s += kTransmittanceLanes) {
+    float tau[4];
+    sun_step(ray, s, tau);
+    reinterpret_cast<float4*>(row)[s] = make_float4(tau[0], tau[1], tau[2], tau[3]);
+  }
+  __syncthreads();
+  const int slot = threadIdx.x / 4, c = threadIdx.x % 4;
+  float e = 0.0f;
+  if (slot < G::kTexels) {
+    const float* sums = terms[slot];
+    float tau = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kTransmittanceSteps; ++s) tau = tau + sums[4 * s + c];
+    e = expf(-tau);
+  }
+  float t[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t[k] = __shfl_sync(0xffffffffu, e, (threadIdx.x & 28) + k);
+  if (c == 0 && slot < G::kTexels && base + slot < n)
+    out[base + slot] = make_float4(t[0], t[1], t[2], t[3]);
 }
 
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+// The launch geometry ops/atmosphere_kernel.py's `launch_geometry` gives:
+// `blocks` blocks of kThreads threads, `per_block` texels a block, `lanes`
+// lanes a texel. True if it is the kernel's (`kernel_lanes`) and covers
+// `texels` texels with no block to spare.
+bool geometry_ok(long long texels, int blocks, int per_block, int lanes,
+                 int kernel_lanes) {
+  return lanes == kernel_lanes && per_block == kThreads / kernel_lanes && blocks >= 1 &&
+         (long long)blocks * per_block >= texels &&
+         (long long)(blocks - 1) * per_block < texels;
+}
 
 }  // namespace
 
 // K10. lut: [lut_h, lut_w, 4] f32; sun: 3 f32 (the world sun vector);
 // out: [rows, width, 4] f32, the LUT rows [row0, row0 + rows) of a
-// [height, width] sky-view LUT. Returns a CUDA error code.
+// [height, width] sky-view LUT; blocks, per_block, lanes: the launch
+// geometry. Returns a CUDA error code.
 extern "C" int cs_sky_lut(const void* lut, int lut_h, int lut_w, const void* sun,
-                          int row0, int rows, int width, int height, void* out,
-                          void* stream) {
+                          int row0, int rows, int width, int height, int blocks,
+                          int per_block, int lanes, void* out, void* stream) {
   if (rows < 1 || width < 1 || height < 1 || lut_h < 1 || lut_w < 1 ||
-      (long long)rows * width > 0x7fffffffLL)
+      (long long)rows * width > 0x7fffffffLL ||
+      !geometry_ok((long long)rows * width, blocks, per_block, lanes, kSkyLanes))
     return (int)cudaErrorInvalidValue;
-  sky_kernel<<<blocks_for((long long)rows * width), kThreads, 0, (cudaStream_t)stream>>>(
+  sky_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)lut, lut_h, lut_w, (const float*)sun, row0, rows, width, height,
       (float4*)out);
   return (int)cudaGetLastError();
 }
 
-// K11. out: [height, width, 4] f32. Returns a CUDA error code.
-extern "C" int cs_transmittance_lut(int width, int height, void* out, void* stream) {
-  if (width < 1 || height < 1 || (long long)width * height > 0x7fffffffLL)
+// K11. out: [height, width, 4] f32; blocks, per_block, lanes: as K10's.
+// Returns a CUDA error code.
+extern "C" int cs_transmittance_lut(int width, int height, int blocks, int per_block,
+                                    int lanes, void* out, void* stream) {
+  if (width < 1 || height < 1 || (long long)width * height > 0x7fffffffLL ||
+      !geometry_ok((long long)width * height, blocks, per_block, lanes,
+                   kTransmittanceLanes))
     return (int)cudaErrorInvalidValue;
-  transmittance_kernel<<<blocks_for((long long)width * height), kThreads, 0,
-                         (cudaStream_t)stream>>>(width, height, (float4*)out);
+  transmittance_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      width, height, (float4*)out);
   return (int)cudaGetLastError();
 }

@@ -134,9 +134,9 @@ def lib() -> ctypes.CDLL:
             for fn in (handle.cs_sample_brick2, handle.cs_sample_tex2):
                 fn.argtypes = [p, i, geom, p, p, p, ll, p]
                 fn.restype = i
-            handle.cs_sky_lut.argtypes = [p, i, i, p, i, i, i, i, p, p]
+            handle.cs_sky_lut.argtypes = [p, i, i, p, i, i, i, i, i, i, i, p, p]
             handle.cs_sky_lut.restype = i
-            handle.cs_transmittance_lut.argtypes = [i, i, p, p]
+            handle.cs_transmittance_lut.argtypes = [i, i, i, i, i, p, p]
             handle.cs_transmittance_lut.restype = i
             _LIB = handle
     return _LIB

@@ -19,6 +19,35 @@ from cloudscape_tpu_torch.ops import _cuda
 
 launches = {"sky": 0, "transmittance": 0}
 
+# csrc/atmosphere.cu's kThreads and kSkyLanes / kTransmittanceLanes, and the
+# marches' steps: a block of THREADS threads takes THREADS // G texels, G =
+# LANES[kernel] lanes a texel, lane j its steps j, j + G, j + 2G, ...
+THREADS = 128
+LANES = {"sky": 8, "transmittance": 8}
+STEPS = {"sky": 30, "transmittance": 40}
+
+
+def launch_geometry(texels: int, lanes: int,
+                    threads: int = THREADS) -> tuple[int, int, int]:
+    """(blocks, texels a block, lanes a texel) of a K10 / K11 launch over
+    `texels` texels with `lanes` lanes a texel in blocks of `threads`; the
+    C entry refuses any other geometry."""
+    per_block = threads // lanes
+    return -(-texels // per_block), per_block, lanes
+
+
+def thread_work(geometry, texels: int, steps: int, block: int, thread: int):
+    """(texel, its steps) that thread `thread` of block `block` marches, as
+    the kernels deal them out (thread t is lane t // per_block of the block's
+    texel t % per_block), or None for a lane of a texel past the last (it
+    marches the last texel and stores nothing)."""
+    _, per_block, lanes = geometry
+    lane, slot = divmod(thread, per_block)
+    texel = block * per_block + slot
+    if texel >= texels:
+        return None
+    return texel, range(lane, steps, lanes)
+
 
 def _count_launch(name: str) -> None:
     """Add one to `launches[name]`, under `_cuda.COUNT_LOCK` (shards launch
@@ -65,10 +94,11 @@ def sky_lut_rows(tlut, sun_direction, row0: int, rows: int, width: int, height: 
     out = torch.empty((rows, width, 4), dtype=torch.float32, device=dev)
     if rows == 0:
         return out
+    geometry = launch_geometry(rows * width, LANES["sky"])
     with torch.cuda.device(dev):
         rc = _cuda.lib().cs_sky_lut(tlut.data_ptr(), tlut.shape[0], tlut.shape[1],
                                     sun.data_ptr(), row0, rows, width, height,
-                                    out.data_ptr(), _cuda.stream_handle(dev))
+                                    *geometry, out.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check(rc, "cs_sky_lut")
     _count_launch("sky")
     return out
@@ -82,8 +112,9 @@ def transmittance_lut(width: int, height: int, device):
     if width < 1 or height < 1:
         raise ValueError(f"transmittance_lut: width {width}, height {height}")
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    geometry = launch_geometry(width * height, LANES["transmittance"])
     with torch.cuda.device(dev):
-        rc = _cuda.lib().cs_transmittance_lut(width, height, out.data_ptr(),
+        rc = _cuda.lib().cs_transmittance_lut(width, height, *geometry, out.data_ptr(),
                                               _cuda.stream_handle(dev))
     _cuda.check(rc, "cs_transmittance_lut")
     _count_launch("transmittance")

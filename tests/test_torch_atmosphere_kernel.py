@@ -14,16 +14,26 @@ versions, and the prebake schedule the card's costs give the engine.
   budget is not split into ticks that each pay it.
 - `python -m cloudscape_tpu_torch.probe_prebake`'s `run` at a tiny size.
 - `stage_of` (the engine's `_prebake_stage`) over one cycle, and
-  chip_smoke.py's instruction count of K10–K11 on a SASS listing.
+  chip_smoke.py's instruction and MUFU counts of K10–K11 on a SASS listing.
+- The kernels' launch geometry (`launch_geometry`, `thread_work`): every
+  texel of every band the schedule can pick, and of K11's LUT, taken by one
+  group whose lanes take each step once; the lanes a texel as the source
+  sets them; chip_smoke's bound from the frozen work a texel.
 
 The kernels themselves run only on a card: chip_smoke.py holds them against
 these plain versions there (phase 4c).
 """
 
+import collections
+import os
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+
+import chip_smoke
 
 from cloudscape_tpu.models import atmosphere as jatmo
 from cloudscape_tpu.utils.image import psnr
@@ -224,12 +234,10 @@ SASS = """
 
 
 def test_least_instructions_counts_the_short_path():
-    """chip_smoke.py's bound for K10–K11 counts a texel's instructions on
-    the kernel's SASS: the entry to the step loop (3), the loop body the
-    short way past its slow-path CALL (5) once a step, then on to the EXIT
-    (2); a loop that does not run one step a trip is refused."""
-    import chip_smoke
-
+    """chip_smoke.py's count of K10–K11's work a texel on the one-thread
+    form's SASS: the entry to the step loop (3), the loop body the short
+    way past its slow-path CALL (5) once a step, then on to the EXIT (2); a
+    loop that does not run one step a trip is refused."""
     (name, ins), = chip_smoke.sass_functions(SASS).items()
     assert "sky_kernel" in name and len(ins) == 15
     got = chip_smoke.least_instructions(ins, 30)
@@ -272,3 +280,106 @@ def test_probe_prebake_runs_on_the_cpu():
                for r in rec["ticks"])
     assert rec["bake_tick_ms"] == pytest.approx(0.4 * rec["steady_median_ms"])
     assert rec["schedule_fitted"]["ticks"] <= 16
+
+
+MUFU_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_120transmittance_kernelEii
+        /*0000*/                   MUFU.RSQ R5, R4 ;
+        /*0010*/                   MOV R1, RZ ;
+        /*0020*/               @P1 BRA 0x70 ;
+        /*0030*/                   FMUL R2, R2, R2 ;
+        /*0040*/                   FADD R2, R2, R3 ;
+        /*0050*/                   FMUL R2, R2, R3 ;
+        /*0060*/                   BRA 0x80 ;
+        /*0070*/                   MUFU.EX2 R2, R2 ;
+        /*0080*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0090*/                   ISETP.NE.AND P2, PT, R1, 0x28, PT ;
+        /*00a0*/               @P2 BRA 0x20 ;
+        /*00b0*/                   MUFU.EX2 R2, R2 ;
+        /*00c0*/                   STG.E [R4.64], R2 ;
+        /*00d0*/                   EXIT ;
+"""
+
+
+def test_least_mufu_takes_the_path_of_fewest_mufu():
+    """The SFU term's count: the fewest MUFU a thread executes, on the path
+    with the fewest of them (the loop's longer FMUL arm, no MUFU), which
+    is not the path of the fewest instructions (the MUFU.EX2 arm): one
+    before the loop, none a step, one after it."""
+    (_, ins), = chip_smoke.sass_functions(MUFU_SASS).items()
+    got = chip_smoke.least_mufu(ins, 40)
+    assert got == dict(per_texel=2, pre=1, body=0, post=1, static=14)
+    shortest = chip_smoke.least_instructions(ins, 40)
+    assert shortest == dict(per_texel=2 + 40 * 5 + 3, pre=2, body=5, post=3, static=14)
+
+
+def _geometry_cases():
+    return ([("sky", rows * 200, rows) for rows in chip_smoke.SKY_BANDS]
+            + [("transmittance", 64 * 256, None)])
+
+
+@pytest.mark.parametrize("kernel,texels,rows", _geometry_cases())
+def test_launch_geometry_takes_every_texel_and_step_once(kernel, texels, rows):
+    """K10 on a band of every height the schedule can pick (200 texels a
+    row) and K11 on its 64 x 256 LUT: the launch's threads, as the kernel
+    deals them out, take every texel in one group of LANES lanes of one
+    block, and the group's lanes every step of its march exactly once; no
+    block is spare."""
+    lanes = atmosphere_kernel.LANES[kernel]
+    steps = atmosphere_kernel.STEPS[kernel]
+    geometry = atmosphere_kernel.launch_geometry(texels, lanes)
+    blocks, per_block, got_lanes = geometry
+    assert got_lanes == lanes and per_block * lanes == atmosphere_kernel.THREADS
+    assert (blocks - 1) * per_block < texels <= blocks * per_block
+    taken = collections.Counter()
+    groups = collections.defaultdict(list)
+    for block in range(blocks):
+        for thread in range(atmosphere_kernel.THREADS):
+            work = atmosphere_kernel.thread_work(geometry, texels, steps, block, thread)
+            if work is None:
+                continue
+            texel, its_steps = work
+            groups[texel].append(block)
+            taken.update((texel, s) for s in its_steps)
+    assert sorted(groups) == list(range(texels))
+    assert all(g == [g[0]] * lanes for g in groups.values())
+    assert taken == collections.Counter({(t, s): 1 for t in range(texels)
+                                         for s in range(steps)})
+
+
+def test_lanes_are_the_kernel_sources():
+    """THREADS, LANES and STEPS are csrc/atmosphere.cu's kThreads,
+    kSkyLanes / kTransmittanceLanes and the marches' steps."""
+    path = os.path.join(os.path.dirname(atmosphere_kernel.__file__), "..", "csrc",
+                        "atmosphere.cu")
+    with open(path) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert atmosphere_kernel.THREADS == const("kThreads")
+    assert atmosphere_kernel.LANES == {"sky": const("kSkyLanes"),
+                                       "transmittance": const("kTransmittanceLanes")}
+    assert atmosphere_kernel.STEPS == {"sky": const("kInScatteringSteps"),
+                                       "transmittance": const("kTransmittanceSteps")}
+    assert chip_smoke.ATMO_STEPS == {"sky_lut": 30, "transmittance_lut": 40}
+
+
+@pytest.mark.parametrize("kernel", ["sky_lut", "transmittance_lut"])
+def test_atmo_work_is_the_frozen_work_a_texel(kernel):
+    """chip_smoke's bound of K10 / K11: texels times the frozen serial
+    counts (instructions and MUFU a texel), and bytes of the output (and
+    K10's LUT and sun vector read once); the larger of the issue-rate and
+    SFU terms bounds it."""
+    ins, mufu = chip_smoke.SERIAL_WORK[kernel]
+    assert (kernel, ins, mufu) in (("sky_lut", 21224, 664),
+                                   ("transmittance_lut", 5909, 167))
+    lut = 64 * 256 if kernel == "sky_lut" else 0
+    nbytes, got_ins, got_mufu = chip_smoke.atmo_work(kernel, 1000, lut)
+    assert got_ins == 1000 * ins and got_mufu == 1000 * mufu
+    assert nbytes == 16 * 1000 + (16 * lut + 12 if lut else 0)
+    bound, by = chip_smoke.bound_us(nbytes, got_ins, got_mufu)
+    assert by == "operations"
+    assert bound == pytest.approx(max(got_ins / chip_smoke.ALU_OPS_PER_S,
+                                      got_mufu / chip_smoke.SFU_OPS_PER_S) * 1e6)
