@@ -501,8 +501,9 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
     import re
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from cloudscape_tpu_torch.utils.profiling import device_activities
 
     pat = re.compile(r"(?:^|[\s:])(?:%s)[<(]" % "|".join(map(re.escape, names)))
     scratch = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -525,8 +526,7 @@ def device_us(fn, names, write_flush: bool = False, reps: int = 20):
                 torch.cuda.synchronize()
                 time.sleep(TRACE_MARGIN_S)
                 prof.step()
-        return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
+        return sorted(device_activities(prof.events()), key=lambda e: e.time_range.start)
 
     fn()
     for attempt in range(1, TRACE_TRIES + 1):
@@ -1271,6 +1271,7 @@ def zero_counts() -> None:
                                           noise_kernel, segscan)
 
     accum.launches = compact.launches = segscan.launches = 0
+    accum.sizes, compact.sizes, segscan.sizes = (collections.Counter() for _ in range(3))
     noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
     atmosphere_kernel.launches = dict.fromkeys(atmosphere_kernel.launches, 0)
     brick.launches = dict.fromkeys(brick.launches, 0)
@@ -1300,17 +1301,22 @@ def read_samples() -> dict:
 
 
 def read_sizes() -> dict:
-    """Each sampler kernel's launches by their sample count (a Counter of
-    n → launches, counted where they launch), by kernel name."""
+    """Each sampler kernel's launches by their sample count, and K1–K3's by
+    their element count (a Counter of n → launches, counted where they
+    launch), by kernel name."""
     import collections
 
-    from cloudscape_tpu_torch.ops import brick
+    from cloudscape_tpu_torch.ops import accum, brick, compact, segscan
 
-    return {f"sample_{k}": collections.Counter(v) for k, v in brick.sizes.items()}
+    return dict(accumulate=collections.Counter(accum.sizes),
+                compact=collections.Counter(compact.sizes),
+                segscan=collections.Counter(segscan.sizes),
+                **{f"sample_{k}": collections.Counter(v) for k, v in brick.sizes.items()})
 
 
 def sizes_since(before: dict) -> dict:
-    """The sampler launches by size since `before` (a `read_sizes()`)."""
+    """The K1–K3 and sampler launches by size since `before` (a
+    `read_sizes()`)."""
     return {k: v - before[k] for k, v in read_sizes().items()}
 
 
@@ -3620,8 +3626,9 @@ def trace_calls(fn, reps: int = 10, pad: int = TRACE_PAD):
     measured calls' events are those after the trace's longest gap. Only
     the card's activity is traced."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from cloudscape_tpu_torch.utils.profiling import device_activities
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3632,8 +3639,7 @@ def trace_calls(fn, reps: int = 10, pad: int = TRACE_PAD):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    events = sorted(device_activities(prof.events()), key=lambda e: e.time_range.start)
     if not events:
         return None, None
     gaps = [b.time_range.start - a.time_range.end for a, b in zip(events, events[1:])]
@@ -4241,8 +4247,14 @@ def main() -> int:
             r["samples"][k] - probe[k] + v["samples"][k] + c["samples"][k],
             r["sample_sizes"][k] - probe_samples[k] + v["sample_sizes"][k]
             + c["window_samples"][k])
+    for k in SAMPLERS + ("accumulate", "compact", "segscan"):
         pass_sizes[k] = (r["size_counts"][k] - probe_sizes[k] + v["size_counts"][k]
                          + c["window_sizes"][k])
+    # K1–K3's launches a pass by element count, for pricing them by size
+    # as K7–K9 are.
+    for k in ("accumulate", "compact", "segscan"):
+        print(f"{k} launches per pass by element count: "
+              f"{dict(sorted(pass_sizes[k].items()))}", flush=True)
     for k in MAIN_SAMPLERS:
         _, _, tab, qs, _ = sample_calls[k][0]
         groups[k] = price_sizes(k, tab, qs, pass_sizes[k])

@@ -58,6 +58,8 @@ import time
 import numpy as np
 import torch
 
+from cloudscape_tpu_torch.utils.profiling import device_activities
+
 WIDTH, HEIGHT = 1024, 512
 STEPS = 128
 CONE_RES = (32, 512, 512)
@@ -406,7 +408,6 @@ def device_busy_ms(tick, n: int, group: int = TRACE_GROUP) -> tuple[float, list]
     (`busy_us`); a session that lost activities is traced again on the
     next calls, opened by four times the idle time, TRACE_TRIES times in
     all."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     groups, i, lead = [], 0, TRACE_MARGIN_S
@@ -423,8 +424,7 @@ def device_busy_ms(tick, n: int, group: int = TRACE_GROUP) -> tuple[float, list]
                 torch.cuda.synchronize()
                 time.sleep(TRACE_MARGIN_S)
             try:
-                groups.append(busy_us(e for e in prof.events()
-                                      if e.device_type == DeviceType.CUDA))
+                groups.append(busy_us(device_activities(prof.events())))
                 break
             except ValueError as e:
                 print(f"device trace of calls {i}..{i + size - 1}, try {attempt} "

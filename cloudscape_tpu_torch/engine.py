@@ -71,6 +71,7 @@ from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
                                                     replicate, shard_map)
 from cloudscape_tpu_torch.temporal import FrameData, RingState
+from cloudscape_tpu_torch.utils.profiling import span
 
 # fast3 tiles without a cull bucket take the dense march below this many
 # rays and the staged v2 march above (the JAX engine's threshold).
@@ -213,42 +214,51 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
     sharded over that mesh axis, and fast3's v3 arm exchanges its prepass
     dilations' boundary rows with the neighbouring shards. The other arms
     are per-ray math on the shard's rows (hier's window probe and fast2's
-    ray ranking see only the shard's rows, as in JAX)."""
+    ray ranking see only the shard's rows, as in JAX).
+
+    Each call is one span named by the arm it takes: `tile.reference`,
+    `tile.exact`, `tile.hier`, `tile.v3`, `tile.dense` or `tile.v2`."""
     if kernel == "reference":
-        return march(dirs, params, noise, sky_img, steps=steps,
-                     light_steps=light_steps)
+        with span("tile.reference"):
+            return march(dirs, params, noise, sky_img, steps=steps,
+                         light_steps=light_steps)
     if kernel == "fast":
-        return march_bricks(dirs, params, noise, sky_img, steps=steps,
-                            light_steps=light_steps,
-                            chunk=min(region * region, 16384), capacity_frac=0.5)
+        with span("tile.exact"):
+            return march_bricks(dirs, params, noise, sky_img, steps=steps,
+                                light_steps=light_steps,
+                                chunk=min(region * region, 16384), capacity_frac=0.5)
     bricks, cone_cache = noise
     n = int(np.prod(dirs.shape[:-1]))
     if kernel == "hier":
-        return march_hierarchical_v3(
-            dirs, params, bricks, sky_img, steps=steps, light_steps=light_steps,
-            chunk=min(n, 16384), coarse_steps=min(32, max(8, steps // 4)),
-            cell_keep_frac=1.0, hot_keep_frac=1.0, ray_keep_frac=None,
-            cone_cache=cone_cache, prepass_steps=_prepass_steps(steps),
-            ray_stride=1)
+        with span("tile.hier"):
+            return march_hierarchical_v3(
+                dirs, params, bricks, sky_img, steps=steps, light_steps=light_steps,
+                chunk=min(n, 16384), coarse_steps=min(32, max(8, steps // 4)),
+                cell_keep_frac=1.0, hot_keep_frac=1.0, ray_keep_frac=None,
+                cone_cache=cone_cache, prepass_steps=_prepass_steps(steps),
+                ray_stride=1)
     if kernel == "fast3":
         if ray_keep_frac is not None and 0.0 < ray_keep_frac < 1.0 \
                 and dirs.dim() == 3:
-            return march_bricks_v3(
-                dirs, params, bricks, sky_img, steps=steps,
-                light_steps=light_steps, chunk=min(n, 16384),
-                cell_keep_frac=float(ray_keep_frac), hot_keep_frac=0.5,
-                cone_cache=cone_cache, ray_keep_frac=None,
-                prepass_steps=_prepass_steps(steps), ray_stride=2,
-                cell_margin=0.1, axis_name=axis_name)
+            with span("tile.v3"):
+                return march_bricks_v3(
+                    dirs, params, bricks, sky_img, steps=steps,
+                    light_steps=light_steps, chunk=min(n, 16384),
+                    cell_keep_frac=float(ray_keep_frac), hot_keep_frac=0.5,
+                    cone_cache=cone_cache, ray_keep_frac=None,
+                    prepass_steps=_prepass_steps(steps), ray_stride=2,
+                    cell_margin=0.1, axis_name=axis_name)
         if n < V3_TILE_MIN_RAYS:
-            return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
-                                    light_steps=light_steps,
-                                    chunk=min(n, 16384), cone_cache=cone_cache)
+            with span("tile.dense"):
+                return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
+                                        light_steps=light_steps,
+                                        chunk=min(n, 16384), cone_cache=cone_cache)
     chunk = min(region * region if kernel == "fast2" else n, 16384)
-    return march_bricks_v2(dirs, params, bricks, sky_img, steps=steps,
-                           light_steps=light_steps, chunk=chunk,
-                           capacity_frac=0.5, cone_cache=cone_cache,
-                           ray_keep_frac=ray_keep_frac, cull_prio=cull_prio)
+    with span("tile.v2"):
+        return march_bricks_v2(dirs, params, bricks, sky_img, steps=steps,
+                               light_steps=light_steps, chunk=chunk,
+                               capacity_frac=0.5, cone_cache=cone_cache,
+                               ray_keep_frac=ray_keep_frac, cull_prio=cull_prio)
 
 
 def _build_display_pair(cloud_ring, cfrom: int, cto: int, sky_ring, b0: int,
@@ -604,8 +614,9 @@ class CloudSkyEngine:
         self._cull_slice = sizes.get("cull", 0)
 
     def _build_cone(self, params: MarchParams) -> ConeCache:
-        return build_cone_cache(params, self._bricks, self.perf.light_steps,
-                                res=self.cone_res, chunk=_CONE_CHUNK)
+        with span("cone.build"):
+            return build_cone_cache(params, self._bricks, self.perf.light_steps,
+                                    res=self.cone_res, chunk=_CONE_CHUNK)
 
     def _refresh_frame_data(self, now: float) -> None:
         """`_update_per_frame_data` (`cloud_sky.gd:165-187`) minus the LUT
@@ -615,46 +626,47 @@ class CloudSkyEngine:
         ticks; when the pending bake is not ready they are built
         synchronously. The unstaged kernels take the snapshot at once and
         build no cone cache."""
-        self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
-        if not self.cone_prebake:
-            self.frame_data.update_light_data(self.sun, self._sun_srgb)
-            self.frame_data.update_config(self.config)
-            self.frame_data.integrate_wind(now)
-            self._march_params = self.frame_data.to_march_params(self.device)
-            if self._staged:
+        with span("engine.snapshot"):
+            self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
+            if not self.cone_prebake:
+                self.frame_data.update_light_data(self.sun, self._sun_srgb)
+                self.frame_data.update_config(self.config)
+                self.frame_data.integrate_wind(now)
+                self._march_params = self.frame_data.to_march_params(self.device)
+                if self._staged:
+                    self._cone_cache = self._build_cone(self._march_params)
+                    if self.tile_cull:
+                        self._refresh_tile_cull()
+                return
+
+            head = self._head_frame_data
+            head.update_light_data(self.sun, self._sun_srgb)
+            head.update_config(self.config)
+            head.integrate_wind(now)
+            pend = self._pending
+            ready = (pend is not None and pend.cone is not None
+                     and pend.sky is not None
+                     and (not self.tile_cull or pend.buckets is not None))
+            if ready:
+                self.frame_data = pend.frame_data
+                self._march_params = pend.march_params
+                self._cone_cache = pend.cone
+                self._picked_sky = pend.sky
+                if self.tile_cull:
+                    self._prio_map = pend.prio
+                    self._tile_buckets = pend.buckets
+            else:
+                self._picked_sky = None
+                self.frame_data = copy.deepcopy(head)
+                self._march_params = self.frame_data.to_march_params(self.device)
                 self._cone_cache = self._build_cone(self._march_params)
                 if self.tile_cull:
                     self._refresh_tile_cull()
-            return
-
-        head = self._head_frame_data
-        head.update_light_data(self.sun, self._sun_srgb)
-        head.update_config(self.config)
-        head.integrate_wind(now)
-        pend = self._pending
-        ready = (pend is not None and pend.cone is not None
-                 and pend.sky is not None
-                 and (not self.tile_cull or pend.buckets is not None))
-        if ready:
-            self.frame_data = pend.frame_data
-            self._march_params = pend.march_params
-            self._cone_cache = pend.cone
-            self._picked_sky = pend.sky
-            if self.tile_cull:
-                self._prio_map = pend.prio
-                self._tile_buckets = pend.buckets
-        else:
-            self._picked_sky = None
-            self.frame_data = copy.deepcopy(head)
-            self._march_params = self.frame_data.to_march_params(self.device)
-            self._cone_cache = self._build_cone(self._march_params)
-            if self.tile_cull:
-                self._refresh_tile_cull()
-        fd = copy.deepcopy(head)
-        self._pending = _PendingCycle(
-            frame_data=fd, march_params=fd.to_march_params(self.device),
-            vol=torch.zeros((int(np.prod(self.cone_res)) + 1,),
-                            dtype=torch.float32, device=self.device))
+            fd = copy.deepcopy(head)
+            self._pending = _PendingCycle(
+                frame_data=fd, march_params=fd.to_march_params(self.device),
+                vol=torch.zeros((int(np.prod(self.cone_res)) + 1,),
+                                dtype=torch.float32, device=self.device))
 
     def _prebake_stage(self) -> Optional[str]:
         """The stage step the next `_advance_prebake` takes, in the bake's
@@ -681,14 +693,20 @@ class CloudSkyEngine:
 
     def _advance_prebake(self) -> None:
         """One stage step of the pending cycle's bake per tick
-        (`_prebake_stage`)."""
+        (`_prebake_stage`), each step but "fresh" a span named
+        `prebake.<stage>`."""
         stage = self._prebake_stage()
         if stage is None:
             return
-        pend = self._pending
         if stage == "fresh":
-            pend.fresh = False
+            self._pending.fresh = False
             return
+        with span("prebake." + stage):
+            self._bake_step(stage)
+
+    def _bake_step(self, stage: str) -> None:
+        """The pending cycle's bake step `stage` (not "fresh")."""
+        pend = self._pending
         n = int(np.prod(self.cone_res))
         params = pend.march_params
         if stage == "occupancy":
@@ -771,16 +789,17 @@ class CloudSkyEngine:
         synchronous fallback and the prebake build the map one way. Both
         give the one-pass map's tile fractions bitwise and its priorities
         within 1e-6 (tests/test_torch_serving.py)."""
-        raw = torch.zeros((self._n_sub, self._cull_ps), dtype=torch.float32,
-                          device=self.device)
-        cull_raw_slice(raw, self._dirs_sub, 0, params, self._bricks,
-                       count=self._n_sub, steps=self.perf.march_steps,
-                       prepass_steps=self._cull_ps)
-        prio, tile_keep, tile_cell = cull_finalize(
-            raw, texel_directions(self.perf.texture_size, device=self.device),
-            self.perf.update_region_size, self._cull_stride)
-        return prio, self._buckets_from_keep(tile_keep.reshape(-1).cpu().numpy(),
-                                             tile_cell.reshape(-1).cpu().numpy())
+        with span("cull.build"):
+            raw = torch.zeros((self._n_sub, self._cull_ps), dtype=torch.float32,
+                              device=self.device)
+            cull_raw_slice(raw, self._dirs_sub, 0, params, self._bricks,
+                           count=self._n_sub, steps=self.perf.march_steps,
+                           prepass_steps=self._cull_ps)
+            prio, tile_keep, tile_cell = cull_finalize(
+                raw, texel_directions(self.perf.texture_size, device=self.device),
+                self.perf.update_region_size, self._cull_stride)
+            return prio, self._buckets_from_keep(tile_keep.reshape(-1).cpu().numpy(),
+                                                 tile_cell.reshape(-1).cpu().numpy())
 
     def _buckets_from_keep(self, keep, cell=None) -> List[float]:
         """Per-tile buckets from the tiles' fractions (row-major tile order;
@@ -853,16 +872,17 @@ class CloudSkyEngine:
     def _render_sky_lut(self) -> None:
         """One LUT render + ring rotation (`sky_lut.gd:122-148`), three times
         on first use so all slots are valid (`sky_lut.gd:49-52`)."""
-        renders = 3 if self._sky_lut_needs_full_update else 1
-        self._sky_lut_needs_full_update = False
-        sun_dir = self._light_dir(self.frame_data)
-        picked = self._picked_sky
-        for _ in range(renders):
-            img = picked if (renders == 1 and picked is not None) \
-                else self._render_sky_image(sun_dir)
-            self.sky_ring[self.ring.sky_lut_current] = img  # in place
-            self.ring.advance_sky_lut()
-        self._picked_sky = None
+        with span("sky_lut.render"):
+            renders = 3 if self._sky_lut_needs_full_update else 1
+            self._sky_lut_needs_full_update = False
+            sun_dir = self._light_dir(self.frame_data)
+            picked = self._picked_sky
+            for _ in range(renders):
+                img = picked if (renders == 1 and picked is not None) \
+                    else self._render_sky_image(sun_dir)
+                self.sky_ring[self.ring.sky_lut_current] = img  # in place
+                self.ring.advance_sky_lut()
+            self._picked_sky = None
 
     def _update_tile(self, tex_idx: int, x0: int, y0: int, prio_map=None,
                      ray_keep_frac: Optional[float] = None) -> None:
@@ -935,9 +955,11 @@ class CloudSkyEngine:
     def _clear_tile(self, tex_idx: int, x0: int, y0: int) -> None:
         """The tile-cull 0.0 bucket: a tile whose whole priority window sits
         below the keep margin renders what the march returns for all-culled
-        rays, zeros, so the march is skipped."""
+        rays, zeros, so the march is skipped: the span `tile.skip`, beside
+        `_march_tile`'s arms."""
         region = self.perf.update_region_size
-        self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = 0.0  # in place
+        with span("tile.skip"):
+            self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = 0.0  # in place
 
     def _write_tile(self) -> None:
         """This tick's tile at the cursor, by its cull bucket: zeros for the
@@ -965,20 +987,22 @@ class CloudSkyEngine:
         remaining = n_frames - self.ring.frame
         if remaining <= 0:
             return
-        for k in range(remaining):
-            tile = start_tile + k
-            self._update_tile(self.ring.texture_to_update,
-                              (tile % tiles_per_row) * region,
-                              (tile // tiles_per_row) * region)
+        with span("cycle.tiles"):
+            for k in range(remaining):
+                tile = start_tile + k
+                self._update_tile(self.ring.texture_to_update,
+                                  (tile % tiles_per_row) * region,
+                                  (tile // tiles_per_row) * region)
         self.ring.update_position = (0, 0)
         self.ring.frame = n_frames
         self._blend_amount = 1.0
 
     def _rotate(self, now: float) -> None:
-        self.ring.rotate_cloud()
-        self._display_pair = None  # the blend pair changed
-        self._refresh_frame_data(now)
-        self._render_sky_lut()
+        with span("engine.rotate"):
+            self.ring.rotate_cloud()
+            self._display_pair = None  # the blend pair changed
+            self._refresh_frame_data(now)
+            self._render_sky_lut()
 
     def update_cycle(self, now: Optional[float] = None) -> None:
         """Complete one full amortized cycle in one call (batch/offline use);
@@ -1008,13 +1032,14 @@ class CloudSkyEngine:
         """The head of a per-frame tick (`cloud_sky.gd:129-152`): warm start
         on first use, rotation at a cycle boundary, and the display blend
         captured before the tile update (`cloud_sky.gd:152`)."""
-        now = self._now(now)
-        if self.needs_full_sky_init:
-            self.needs_full_sky_init = False
-            self.initialize_sky(now)
-        if self.ring.frame >= self.perf.frames_to_update:
-            self._rotate(now)
-        self._blend_amount = self.ring.blend_amount(self.perf.frames_to_update)
+        with span("tick.begin"):
+            now = self._now(now)
+            if self.needs_full_sky_init:
+                self.needs_full_sky_init = False
+                self.initialize_sky(now)
+            if self.ring.frame >= self.perf.frames_to_update:
+                self._rotate(now)
+            self._blend_amount = self.ring.blend_amount(self.perf.frames_to_update)
 
     def _end_tick(self) -> None:
         """The tail of a tick: advance the cursor and the pending bake."""
@@ -1045,13 +1070,14 @@ class CloudSkyEngine:
         (world, on the engine's device) → [..., 3] linear HDR
         (`clouds.gdshader:104-116`)."""
         b0, b1 = self.ring.sky_back_textures
-        return composite(
-            eyedirs.to(device=self.device, dtype=torch.float32),
-            self.cloud_ring[self.ring.texture_to_blend_from],
-            self.cloud_ring[self.ring.texture_to_blend_to],
-            self.sky_ring[b0], self.sky_ring[b1], self.transmittance,
-            self.blend_amount, self._light_dir(self.frame_data),
-            self.config.sun_disk_scale, deband=deband)
+        with span("composite"):
+            return composite(
+                eyedirs.to(device=self.device, dtype=torch.float32),
+                self.cloud_ring[self.ring.texture_to_blend_from],
+                self.cloud_ring[self.ring.texture_to_blend_to],
+                self.sky_ring[b0], self.sky_ring[b1], self.transmittance,
+                self.blend_amount, self._light_dir(self.frame_data),
+                self.config.sun_disk_scale, deband=deband)
 
     def _display_pair_tables(self):
         """The cycle's 8-channel display-pair textures, built on first
@@ -1060,9 +1086,10 @@ class CloudSkyEngine:
         them."""
         if self._display_pair is None:
             b0, b1 = self.ring.sky_back_textures
-            self._display_pair = _build_display_pair(
-                self.cloud_ring, self.ring.texture_to_blend_from,
-                self.ring.texture_to_blend_to, self.sky_ring, b0, b1)
+            with span("display_pair.build"):
+                self._display_pair = _build_display_pair(
+                    self.cloud_ring, self.ring.texture_to_blend_from,
+                    self.ring.texture_to_blend_to, self.sky_ring, b0, b1)
         return self._display_pair
 
     def _render_frame_fused(self, eyedirs, deband: bool) -> torch.Tensor:
@@ -1079,10 +1106,11 @@ class CloudSkyEngine:
         bucket, so it has no warmer."""
         cloud_pair, sky_pair = self._display_pair_tables()
         self._write_tile()
-        return composite_display(
-            eyedirs.to(device=self.device, dtype=torch.float32), cloud_pair,
-            sky_pair, self.transmittance, self._light_dir(self.frame_data),
-            self.config.sun_disk_scale, self._blend_amount, deband=deband)
+        with span("composite_display"):
+            return composite_display(
+                eyedirs.to(device=self.device, dtype=torch.float32), cloud_pair,
+                sky_pair, self.transmittance, self._light_dir(self.frame_data),
+                self.config.sun_disk_scale, self._blend_amount, deband=deband)
 
     def render_frame(self, eyedirs, now: Optional[float] = None,
                      amortized: bool = True, fused: Optional[bool] = None,

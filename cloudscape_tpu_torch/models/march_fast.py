@@ -79,6 +79,7 @@ from cloudscape_tpu_torch.ops.brick import (
 from cloudscape_tpu_torch.ops.compact import compact
 from cloudscape_tpu_torch.ops.segscan import segscan
 from cloudscape_tpu_torch.parallel.sharding import axis_size, ppermute
+from cloudscape_tpu_torch.utils.profiling import span
 
 Volume = Union[Texture3D, TinyVolume3D]
 
@@ -536,24 +537,26 @@ def _march_core_dense(above, ndir, ss, p0, phase, params: MarchParams,
     pre → erosion (masked to pre > 0) → cone-cache lookup (masked to t > 0),
     in chunks of `chunk` rays, then the phase-3 accumulation."""
     n = ndir.shape[0]
-    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=ndir.device)
-    t = torch.empty((n, steps), dtype=torch.float32, device=ndir.device)
-    cd = torch.empty_like(t)
-    hf = torch.empty_like(t)
-    for r0 in range(0, n, chunk):
-        sl = slice(r0, r0 + chunk)
-        px, py, pz = _sample_xyz(p0[sl], ndir[sl], ss[sl, None] * i_step[None, :])
-        weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
-        pre, hf_c = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
-        t_c = torch.where(pre > 0.0, _density_finish_xyz(
-            pre, hf_c, px, py, pz, 0.0, params, bp), 0.0)
-        qx, qz, qh = _cone_cache_coords_xyz(px, py, pz, cone_cache.extent)
-        cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
-        # In-place writes of this chunk's rows into the [n, steps] planes.
-        t[sl] = t_c
-        cd[sl] = torch.where(t_c > 0.0, cd_c, 0.0)
-        hf[sl] = hf_c
-    return _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
+    with span("dense.passes"):
+        i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=ndir.device)
+        t = torch.empty((n, steps), dtype=torch.float32, device=ndir.device)
+        cd = torch.empty_like(t)
+        hf = torch.empty_like(t)
+        for r0 in range(0, n, chunk):
+            sl = slice(r0, r0 + chunk)
+            px, py, pz = _sample_xyz(p0[sl], ndir[sl], ss[sl, None] * i_step[None, :])
+            weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
+            pre, hf_c = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
+            t_c = torch.where(pre > 0.0, _density_finish_xyz(
+                pre, hf_c, px, py, pz, 0.0, params, bp), 0.0)
+            qx, qz, qh = _cone_cache_coords_xyz(px, py, pz, cone_cache.extent)
+            cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
+            # In-place writes of this chunk's rows into the [n, steps] planes.
+            t[sl] = t_c
+            cd[sl] = torch.where(t_c > 0.0, cd_c, 0.0)
+            hf[sl] = hf_c
+    with span("dense.accumulate"):
+        return _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
 
 
 def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
@@ -566,11 +569,12 @@ def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,
     shape = dirs.shape[:-1]
     flat = dirs.reshape(-1, 3)
     n = flat.shape[0]
-    atmos = ambient_colors(params, sky_lut_img)
     if cone_cache is None:
         cone_cache = build_cone_cache(params, bp, light_steps, res=cone_res,
                                       chunk=min(chunk, max(n, 1)))
-    above, ndir, ss, p0, phase, _ = _ray_setup(flat, params, steps)
+    with span("dense.setup"):
+        atmos = ambient_colors(params, sky_lut_img)
+        above, ndir, ss, p0, phase, _ = _ray_setup(flat, params, steps)
     out = _march_core_dense(above, ndir, ss, p0, phase, params, bp, atmos,
                             steps, min(chunk, max(n, 1)), cone_cache)
     return out.reshape(shape + (4,))
@@ -1193,9 +1197,10 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         out[0, 0] = probe
         return out
 
-    prio, occ_cells, meta = _cull_prepass(
-        above, ndir, ss, p0, params, bp, steps, P, chunk, cull_shape,
-        ray_stride, cell_margin, axis_name)
+    with span("v3.prepass"):
+        prio, occ_cells, meta = _cull_prepass(
+            above, ndir, ss, p0, params, bp, steps, P, chunk, cull_shape,
+            ray_stride, cell_margin, axis_name)
     if debug_stage == 1:
         return _dbg(prio, occ_cells)
 
@@ -1203,61 +1208,63 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
                                          ray_keep_frac, P, hot_keep_frac)
     cull = ray_keep_frac is not None and ray_keep_frac < 1.0
     if cull:
-        ray_cap = n_kept
-        chunk = min(chunk, ray_cap)
-        ridx = _select_top_rays(prio, ray_cap, n)
-        if debug_stage == 2:
-            return _dbg(ridx, occ_cells)
-        valid_r = ridx < n
-        safe_r = torch.clamp(ridx, max=n - 1).to(torch.int64)
-        g_r = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)[safe_r]
-        p0, ndir, ss, phase = g_r[:, 0:3], g_r[:, 3:6], g_r[:, 6], g_r[:, 7]
-        above = above[safe_r] & valid_r
-        ray_ids = safe_r
-        n = ray_cap
+        with span("v3.select"):
+            ray_cap = n_kept
+            chunk = min(chunk, ray_cap)
+            ridx = _select_top_rays(prio, ray_cap, n)
+            if debug_stage == 2:
+                return _dbg(ridx, occ_cells)
+            valid_r = ridx < n
+            safe_r = torch.clamp(ridx, max=n - 1).to(torch.int64)
+            g_r = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)[safe_r]
+            p0, ndir, ss, phase = g_r[:, 0:3], g_r[:, 3:6], g_r[:, 6], g_r[:, 7]
+            above = above[safe_r] & valid_r
+            ray_ids = safe_r
+            n = ray_cap
     else:
         ray_ids = None
 
-    # Per-(kept-)ray live-cell rows from the prepass's coarse grid.
-    if meta is not None:
-        gh, gw, stride = meta
-        W = cull_shape[1]
-        if ray_ids is None:
-            if stride == 1:
-                occ_rows = occ_cells
+    with span("v3.live_compact"):
+        # Per-(kept-)ray live-cell rows from the prepass's coarse grid.
+        if meta is not None:
+            gh, gw, stride = meta
+            W = cull_shape[1]
+            if ray_ids is None:
+                if stride == 1:
+                    occ_rows = occ_cells
+                else:
+                    occ_rows = occ_cells.reshape(gh, 1, gw, 1, P).expand(
+                        gh, stride, gw, stride, P).reshape(n, P)
             else:
-                occ_rows = occ_cells.reshape(gh, 1, gw, 1, P).expand(
-                    gh, stride, gw, stride, P).reshape(n, P)
+                ci = (ray_ids // W // stride) * gw + (ray_ids % W) // stride
+                occ_rows = occ_cells[ci]
+        elif ray_ids is None:
+            occ_rows = occ_cells
         else:
-            ci = (ray_ids // W // stride) * gw + (ray_ids % W) // stride
-            occ_rows = occ_cells[ci]
-    elif ray_ids is None:
-        occ_rows = occ_cells
-    else:
-        occ_rows = occ_cells[ray_ids]
-    live = occ_rows & above[:, None]  # [n, P]
-    total_cells = n * P
+            occ_rows = occ_cells[ray_ids]
+        live = occ_rows & above[:, None]  # [n, P]
+        total_cells = n * P
 
-    # ---- Live-cell compaction (K2).
-    cidx = _compact_mask(live.reshape(-1), cap_c, total_cells)
-    valid_c = cidx < total_cells
-    ray_i = torch.clamp(cidx // P, max=n - 1).to(torch.int64)
-    cell_k = (cidx % P).to(torch.float32)
+        # ---- Live-cell compaction (K2).
+        cidx = _compact_mask(live.reshape(-1), cap_c, total_cells)
+        valid_c = cidx < total_cells
+        ray_i = torch.clamp(cidx // P, max=n - 1).to(torch.int64)
+        cell_k = (cidx % P).to(torch.float32)
 
-    # Per-ray geometry in one 8-wide row (p0 xyz, ndir xyz, ss, phase),
-    # gathered once per cell.
-    geom = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)
-    g = geom[ray_i]
+        # Per-ray geometry in one 8-wide row (p0 xyz, ndir xyz, ss, phase),
+        # gathered once per cell.
+        geom = torch.cat([p0, ndir, ss[:, None], phase[:, None]], dim=1)
+        g = geom[ray_i]
 
-    def lane_positions(gg, ck):
-        """Sample positions of each cell's spc steps, lane-major: lane l's
-        block is a [cells] slice, in the order the JAX march lays them."""
-        return [torch.cat([gg[:, axis] + gg[:, 3 + axis]
-                           * (gg[:, 6] * (ck * spc + float(l + 1)))
-                           for l in range(spc)])
-                for axis in range(3)]
+        def lane_positions(gg, ck):
+            """Sample positions of each cell's spc steps, lane-major: lane l's
+            block is a [cells] slice, in the order the JAX march lays them."""
+            return [torch.cat([gg[:, axis] + gg[:, 3 + axis]
+                               * (gg[:, 6] * (ck * spc + float(l + 1)))
+                               for l in range(spc)])
+                    for axis in range(3)]
 
-    sx, sy, sz = lane_positions(g, cell_k)
+        sx, sy, sz = lane_positions(g, cell_k)
     if debug_stage == 3:
         return _dbg(sx, sy, sz)
     pass_len = chunk * P  # samples per pass chunk (a prepass chunk's count)
@@ -1266,32 +1273,33 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         w = _weather_rb_xy(bp, bx, bz, params.weather_pos)
         return w[..., 0], w[..., 1]
 
-    if debug_stage == 4:
-        return _dbg(*_map_rows(weather_chunk, pass_len, sx, sz))
-
     def pre_chunk(bx, by_, bz):
         w = _weather_rb_xy(bp, bx, bz, params.weather_pos)
         return _density_pre_xyz(bx, by_, bz, w, 0.0, params, bp)
 
-    pre_s, hf_s = _map_rows(pre_chunk, pass_len, sx, sy, sz)
-    pre_s = pre_s.reshape(spc, cap_c)
+    with span("v3.pre"):
+        if debug_stage == 4:
+            return _dbg(*_map_rows(weather_chunk, pass_len, sx, sz))
+        pre_s, hf_s = _map_rows(pre_chunk, pass_len, sx, sy, sz)
+        pre_s = pre_s.reshape(spc, cap_c)
     if debug_stage == 5:
         return _dbg(pre_s, hf_s)
 
     # ---- Hot-cell compaction (K2): `pre > 0` is exact occupancy, so
     # erosion and the cone lookup run only on cells with an occupied sample.
-    hot = torch.any(pre_s > 0.0, dim=0) & valid_c  # [cap_c]
-    hidx = _compact_mask(hot, cap_h, cap_c)
-    hsafe = torch.clamp(hidx, max=cap_c - 1).to(torch.int64)
-    valid_h = hidx < cap_c
-    cidx_h = torch.where(valid_h, cidx[hsafe], total_cells)
-    ray_h = torch.clamp(cidx_h // P, max=n - 1).to(torch.int64)
-    cell_h = (cidx_h % P).to(torch.float32)
-    g_h = geom[ray_h]
-    hx, hy, hz = lane_positions(g_h, cell_h)
-    pre_h = pre_s[:, hsafe].reshape(-1)
-    hf_h = m.height_fraction(torch.sqrt(hx * hx + hy * hy + hz * hz),
-                             SKY_B_RADIUS, SKY_T_RADIUS)
+    with span("v3.hot_compact"):
+        hot = torch.any(pre_s > 0.0, dim=0) & valid_c  # [cap_c]
+        hidx = _compact_mask(hot, cap_h, cap_c)
+        hsafe = torch.clamp(hidx, max=cap_c - 1).to(torch.int64)
+        valid_h = hidx < cap_c
+        cidx_h = torch.where(valid_h, cidx[hsafe], total_cells)
+        ray_h = torch.clamp(cidx_h // P, max=n - 1).to(torch.int64)
+        cell_h = (cidx_h % P).to(torch.float32)
+        g_h = geom[ray_h]
+        hx, hy, hz = lane_positions(g_h, cell_h)
+        pre_h = pre_s[:, hsafe].reshape(-1)
+        hf_h = m.height_fraction(torch.sqrt(hx * hx + hy * hy + hz * hz),
+                                 SKY_B_RADIUS, SKY_T_RADIUS)
     if debug_stage == 6:
         return _dbg(pre_h, hf_h, hx)
 
@@ -1299,61 +1307,62 @@ def _march_core3(above, ndir, ss, p0, phase, params: MarchParams,
         return torch.where(bpre > 0.0, _density_finish_xyz(
             bpre, bhf, bx, by_, bz, 0.0, params, bp), 0.0)
 
-    if debug_stage == 7:
-        return _dbg(_map_rows(erosion_chunk, pass_len, pre_h, hf_h, hx, hy, hz))
-
     def erosion_cone_chunk(bpre, bhf, bx, by_, bz):
         t_c = erosion_chunk(bpre, bhf, bx, by_, bz)
         qx, qz, qh = _cone_cache_coords_xyz(bx, by_, bz, cone_cache.extent)
         cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
         return t_c, torch.where(t_c > 0.0, cd_c, 0.0)
 
-    t_h, cd_h = _map_rows(erosion_cone_chunk, pass_len, pre_h, hf_h, hx, hy, hz)
+    with span("v3.erosion_cone"):
+        if debug_stage == 7:
+            return _dbg(_map_rows(erosion_chunk, pass_len, pre_h, hf_h, hx, hy, hz))
+        t_h, cd_h = _map_rows(erosion_cone_chunk, pass_len, pre_h, hf_h, hx, hy, hz)
     if debug_stage == 8:
         return _dbg(t_h, cd_h)
 
-    if accum == "segmented":
-        out = _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n,
-                                    spc, params, atmos, LSS)
-        if debug_stage == 9:
-            return _dbg(out)
-    elif accum == "planes":
-        # Per-lane scatters of the hot list into flat [n·steps] planes; dead
-        # samples stay 0 (radiance ∝ t and 1 − dt = 0). Fill rows point at
-        # total + l, in the spc spare slots sliced off after.
-        total = n * steps
-        base_h = torch.where(valid_h, ray_h * steps + (cidx_h % P) * spc, total)
+    with span("v3.accumulate"):
+        if accum == "segmented":
+            out = _accumulate_segmented(t_h, cd_h, hf_h, g_h, ray_h, valid_h, n,
+                                        spc, params, atmos, LSS)
+            if debug_stage == 9:
+                return _dbg(out)
+        elif accum == "planes":
+            # Per-lane scatters of the hot list into flat [n·steps] planes;
+            # dead samples stay 0 (radiance ∝ t and 1 − dt = 0). Fill rows
+            # point at total + l, in the spc spare slots sliced off after.
+            total = n * steps
+            base_h = torch.where(valid_h, ray_h * steps + (cidx_h % P) * spc, total)
 
-        def scatter_plane(vals):
-            vals = vals.reshape(spc, cap_h)
-            buf = torch.zeros((total + spc,), dtype=torch.float32, device=dev)
-            for l in range(spc):
-                buf[base_h + l] = vals[l]
-            return buf[:total].reshape(n, steps)
+            def scatter_plane(vals):
+                vals = vals.reshape(spc, cap_h)
+                buf = torch.zeros((total + spc,), dtype=torch.float32, device=dev)
+                for l in range(spc):
+                    buf[base_h + l] = vals[l]
+                return buf[:total].reshape(n, steps)
 
-        t = scatter_plane(t_h)
-        cd = scatter_plane(cd_h)
-        # hf plane: a dense recompute (positions + height fraction, no
-        # gathers), the same float ops as the gathered passes.
-        i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+            t = scatter_plane(t_h)
+            cd = scatter_plane(cd_h)
+            # hf plane: a dense recompute (positions + height fraction, no
+            # gathers), the same float ops as the gathered passes.
+            i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
 
-        def hf_chunk(p0c, ndirc, ssc):
-            px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
-            return m.height_fraction(torch.sqrt(px * px + py * py + pz * pz),
-                                     SKY_B_RADIUS, SKY_T_RADIUS)
+            def hf_chunk(p0c, ndirc, ssc):
+                px, py, pz = _sample_xyz(p0c, ndirc, ssc[:, None] * i_step[None, :])
+                return m.height_fraction(torch.sqrt(px * px + py * py + pz * pz),
+                                         SKY_B_RADIUS, SKY_T_RADIUS)
 
-        hf = _map_rows(hf_chunk, chunk, p0, ndir, ss)
-        if debug_stage == 9:
-            return _dbg(t, cd, hf)
-        out = _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
-    else:
-        raise ValueError(f"unknown accum {accum!r}")
-    if cull:
-        # Kept rays back to their places; fills (ridx = n_out) land in the
-        # spare last row.
-        buf = torch.zeros((n_out + 1, 4), dtype=torch.float32, device=dev)
-        buf[ridx.to(torch.int64)] = out
-        out = buf[:n_out]
+            hf = _map_rows(hf_chunk, chunk, p0, ndir, ss)
+            if debug_stage == 9:
+                return _dbg(t, cd, hf)
+            out = _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
+        else:
+            raise ValueError(f"unknown accum {accum!r}")
+        if cull:
+            # Kept rays back to their places; fills (ridx = n_out) land in
+            # the spare last row.
+            buf = torch.zeros((n_out + 1, 4), dtype=torch.float32, device=dev)
+            buf[ridx.to(torch.int64)] = out
+            out = buf[:n_out]
     return out
 
 

@@ -16,24 +16,30 @@ differs from the march's `t / max(1e-7, t)` only for 0 < t < 1e-7, where a
 sample contributes ≤ ~1e-5 of a radiance unit (accum_pallas.py:24-28).
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-`csrc/accum.cu` or raises. `launches` counts kernel launches.
+`csrc/accum.cu` or raises. `launches` counts kernel launches and `sizes`
+them by element count.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
 from cloudscape_tpu_torch.ops import _cuda
 
 launches = 0
+# The launches by their element count, samples (n · steps) → launches.
+sizes = collections.Counter()
 
 
-def _count_launch() -> None:
-    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
-    threads)."""
+def _count_launch(n: int) -> None:
+    """Add one to `launches` and to `sizes[n]`, under `_cuda.COUNT_LOCK`
+    (shards launch from threads)."""
     global launches
     with _cuda.COUNT_LOCK:
         launches += 1
+        sizes[n] += 1
 
 
 def accumulate_reference(A, cd3, hf, phase, above, scal):
@@ -110,5 +116,5 @@ def accumulate(A, cd3, hf, phase, above, scal):
             lanes_per_ray(steps), int(vector_loads(steps, A, cd3, hf)),
             _cuda.stream_handle(A.device))
     _cuda.check(rc, "accumulate")
-    _count_launch()
+    _count_launch(A.numel())
     return out

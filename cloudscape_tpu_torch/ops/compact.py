@@ -10,24 +10,30 @@ is bitwise equal to. For a flat mask of any length n it returns
                          only when `with_rank` asks for it (else None).
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-`csrc/compact.cu` or raises. `launches` counts kernel launches.
+`csrc/compact.cu` or raises. `launches` counts kernel launches and `sizes`
+them by element count.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
 from cloudscape_tpu_torch.ops import _cuda
 
 launches = 0
+# The launches by their element count, mask elements → launches.
+sizes = collections.Counter()
 
 
-def _count_launch() -> None:
-    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
-    threads)."""
+def _count_launch(n: int) -> None:
+    """Add one to `launches` and to `sizes[n]`, under `_cuda.COUNT_LOCK`
+    (shards launch from threads)."""
     global launches
     with _cuda.COUNT_LOCK:
         launches += 1
+        sizes[n] += 1
 
 # The launch of csrc/compact.cu: blocks of 256 threads, as many on one SM
 # as its launch bounds promise, the fewest 16-byte words a block takes
@@ -95,5 +101,5 @@ def compact(mask, capacity: int, total: int, with_rank: bool = True):
             idx.data_ptr(), rank.data_ptr() if with_rank else None,
             counts.data_ptr(), blocks, _cuda.stream_handle(dev))
     _cuda.check(rc, "compact")
-    _count_launch()
+    _count_launch(n)
     return idx, rank

@@ -10,24 +10,29 @@ the `seg_sum` monoid that the JAX march runs off the TPU. For f32 values
 
 A CPU tensor takes the plain version; a CUDA tensor launches
 `csrc/segscan.cu` (one launch per call, whatever k) or raises.
-`launches` counts kernel launches.
+`launches` counts kernel launches and `sizes` them by element count.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
 from cloudscape_tpu_torch.ops import _cuda
 
 launches = 0
+# The launches by their element count, values (rows · n) → launches.
+sizes = collections.Counter()
 
 
-def _count_launch() -> None:
-    """Add one to `launches`, under `_cuda.COUNT_LOCK` (shards launch from
-    threads)."""
+def _count_launch(n: int) -> None:
+    """Add one to `launches` and to `sizes[n]`, under `_cuda.COUNT_LOCK`
+    (shards launch from threads)."""
     global launches
     with _cuda.COUNT_LOCK:
         launches += 1
+        sizes[n] += 1
 
 # The launch of csrc/segscan.cu: blocks of 256 threads, as many on one SM
 # as its launch bounds promise, each scanning rounds of BLOCK_ROUND
@@ -108,5 +113,5 @@ def segscan(values, heads):
             values.data_ptr(), heads.data_ptr(), rows, n, rounds, blocks, stash,
             out.data_ptr(), scratch.data_ptr(), scratch_len, _cuda.stream_handle(dev))
     _cuda.check(rc, "segscan")
-    _count_launch()
+    _count_launch(values.numel())
     return out

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from cloudscape_tpu_torch import bench
+from cloudscape_tpu_torch.utils.profiling import device_activities
 
 # Timed calls per stage size, after one warm call; the sizes of a stage
 # take turns, so a drift of the host's speed moves them alike.
@@ -110,13 +111,12 @@ def _traced(fn, dev, walls, enqueues) -> dict:
     (torch.profiler)."""
     out = dict(ms=statistics.median(walls), enqueue_ms=statistics.median(enqueues))
     if dev.type == "cuda":
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             bench.sync(dev)
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev = device_activities(prof.events())
         out.update(launches=len(ev),
                    device_ms=sum(e.time_range.elapsed_us() for e in ev) / 1e3)
     return out

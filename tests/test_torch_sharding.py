@@ -526,12 +526,16 @@ def test_collective_timeout_fails_the_call():
 
 @pytest.mark.parametrize("module", [accum, compact, segscan, noise_kernel])
 def test_launch_counts_are_exact_from_threads(module):
-    """Each wrapper's launch count takes every increment from 8 threads (a
-    bare `launches += 1` can lose some once shards launch from threads):
-    8 threads × 5,000 increments with a short switch interval."""
+    """Each wrapper's launch count (and K1–K3's launches by size) takes
+    every increment from 8 threads (a bare `launches += 1` can lose some
+    once shards launch from threads): 8 threads × 5,000 increments with a
+    short switch interval."""
     threads, reps = 8, 5000
     key = "base" if module is noise_kernel else None
+    # K1–K3 count each launch's element count; this one no launch has.
+    size = 7
     before = module.launches[key] if key else module.launches
+    sized = 0 if key else module.sizes[size]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -540,7 +544,7 @@ def test_launch_counts_are_exact_from_threads(module):
                 if key:
                     module._count_launch(key)
                 else:
-                    module._count_launch()
+                    module._count_launch(size)
 
         ts = [threading.Thread(target=work) for _ in range(threads)]
         for t in ts:
@@ -552,3 +556,5 @@ def test_launch_counts_are_exact_from_threads(module):
         sys.setswitchinterval(interval)
     after = module.launches[key] if key else module.launches
     assert after - before == threads * reps
+    if not key:
+        assert module.sizes[size] - sized == threads * reps

@@ -47,9 +47,9 @@ def tick(eng, eyedirs, now, torch):
 
 
 def device_events(prof):
-    from torch.autograd import DeviceType
+    from cloudscape_tpu_torch.utils.profiling import device_activities
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return device_activities(prof.events())
 
 
 def main() -> int:
