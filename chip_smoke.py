@@ -10,7 +10,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
 3. K1 (accumulate) against its plain version at the serving tile's shape
    [9216, 128] and at the shapes of K1_CASES (planes off 16-B alignment and
    102 or 30 steps, which take the scalar loads; 100 steps; one ray; a
-   partly empty last block; 64, 16 and 256 steps), atol 2e-5, with empty
+   partly empty last block; 64, 16 and 256 steps; [65536, 128], a pass
+   chunk of `update_cycle`'s batched dense march), atol 2e-5, with empty
    and below-horizon rays exactly 0 (phase 9 adds config 4's [kept rays,
    64]);
 4. K2 (compact) against its plain version, bitwise, with and without rank,
@@ -48,7 +49,10 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    tiny ones through K9), the same pack in bfloat16, its weather texture,
    its cone cache and the display pair textures of its fused tick, at
    [587, 511] planes (299,957 samples, no multiple of a block) with texel
-   centres and edges: a texture kernel within TEXTURE_TOL relative of its
+   centres and edges (the weather, the cone cache, large mip 0 and the
+   4³ large mip 5 again at [65536, 128], the planes of a pass chunk of
+   `update_cycle`'s batched dense march): a texture kernel within
+   TEXTURE_TOL relative of its
    plain version, K9 bitwise, the brick kernels within SAMPLE_TOL · max(1,
    |plain|); three runs bitwise equal, a strided and a transposed view of
    the planes giving the same bits;
@@ -60,6 +64,12 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    of both signs), each bitwise; then the v3
    march of a V3_SMALL² octahedral map on the card ≥ V3_SMALL_DB from the
    same call on the CPU;
+   5c. `update_cycle` on two deep copies of the phase-5 engine, one with
+   the batched dense march (`_march_tiles_dense`) and one with the
+   per-tile loop (`_update_tile` a tile): the rest of the current cycle
+   (a partial batch), then a whole cycle after the rotation, each ring
+   bitwise the loop's, with K1 launched once per BATCH_DENSE_CHUNK rays of
+   the batch and the batch's peak allocation printed;
 6. K3 (segscan) against its plain version, atol 2e-4, 1-D and batched
    ([k, n]: k rows over one row of heads): at the phase-5 engine's v3
    hot-list capacity (random heads, one segment over every block, every
@@ -620,6 +630,7 @@ K1_CASES = (
     (4097, 64, 0, "64 steps, two rays per warp, odd count"),
     (333, 16, 0, "16 steps, eight rays per warp"),
     (257, 256, 0, "two 128-step windows"),
+    (65536, 128, 0, "a pass chunk of update_cycle's batched dense march"),
 )
 
 
@@ -1360,6 +1371,11 @@ LIBRARY_TOL = 1e-3
 # The checks' planes: [SAMPLE_ROWS, SAMPLE_COLS] samples (a [rays, steps]
 # plane, 299,957 samples, no multiple of the kernels' 256-thread blocks).
 SAMPLE_ROWS, SAMPLE_COLS = 587, 511
+# The planes of a pass chunk of `update_cycle`'s batched dense march
+# (BATCH_DENSE_CHUNK rays × 128 steps, 8,388,608 samples), and the tables
+# that phase 5b checks again at that shape.
+BATCH_ROWS, BATCH_COLS = 65536, 128
+BATCH_TABLES = ("weather", "cone cache", "large mip 0", "large mip 5")
 # The samplers' names in the kernels line: K7 and K8 on channel-last
 # textures (the engine's tables), K9, then K7 and K8 on the JAX package's
 # brick tables (the public `sample_brick*` API, off the engine's path).
@@ -1439,15 +1455,16 @@ def brick_table(tex):
     return build(tex.texels, tuple(s + 1 for s in stride), stride, wrap=tex.wrap)
 
 
-def sample_planes(dev, k: int, lo: float, hi: float, seed: int):
-    """k coordinate planes [SAMPLE_ROWS, SAMPLE_COLS], uniform in [lo, hi],
-    with texel-centre and edge values in their first row."""
+def sample_planes(dev, k: int, lo: float, hi: float, seed: int,
+                  shape=(SAMPLE_ROWS, SAMPLE_COLS)):
+    """k coordinate planes of `shape` (at least 72 columns), uniform in
+    [lo, hi], with texel-centre and edge values in their first row."""
     import torch
 
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(k):
-        q = rng.uniform(lo, hi, (SAMPLE_ROWS, SAMPLE_COLS)).astype(np.float32)
+        q = rng.uniform(lo, hi, shape).astype(np.float32)
         q[0, :64] = (np.arange(64, dtype=np.float32) + 0.5) / 64.0
         q[0, 64:72] = (0.0, 1.0, -1e-9, 1.0 + 1e-7, -0.25, 1.25, 0.5 / 64, 1 - 0.5 / 64)
         out.append(torch.from_numpy(q).to(dev))
@@ -1523,14 +1540,19 @@ def run_sampler_checks(dev, eng) -> list:
     for seed, (name, tab) in enumerate(tables):
         clamp = getattr(tab, "wrap", "repeat") == "clamp"
         k = sampler_fns(sampler_of(tab))[2]
-        qs = sample_planes(dev, k, *((-0.25, 1.25) if clamp else (-1.5, 2.5)), seed)
-        if is_texture(tab):
-            checked = check_texture(name, tab, qs)
-        else:
-            err, abs_err, _ = check_sampler(name, tab, qs)
-            checked = [(sampler_of(tab), table_kind(tab), err, abs_err)]
-        rows += [dict(table=name, kind=kind, kernel=kname, err=err, abs_err=abs_err)
-                 for kname, kind, err, abs_err in checked]
+        shapes = [(name, (SAMPLE_ROWS, SAMPLE_COLS))]
+        if name in BATCH_TABLES:
+            shapes.append((f"{name} at [{BATCH_ROWS}, {BATCH_COLS}]", (BATCH_ROWS, BATCH_COLS)))
+        for what, shape in shapes:
+            qs = sample_planes(dev, k, *((-0.25, 1.25) if clamp else (-1.5, 2.5)), seed,
+                               shape=shape)
+            if is_texture(tab):
+                checked = check_texture(what, tab, qs)
+            else:
+                err, abs_err, _ = check_sampler(what, tab, qs)
+                checked = [(sampler_of(tab), table_kind(tab), err, abs_err)]
+            rows += [dict(table=what, kind=kind, kernel=kname, err=err, abs_err=abs_err)
+                     for kname, kind, err, abs_err in checked]
     return rows
 
 
@@ -3737,6 +3759,58 @@ def run_bench() -> dict:
     return launches
 
 
+def check_cycle_batch(eng, now: float) -> list:
+    """Phase 5c: `update_cycle` on two deep copies of the phase-5 engine,
+    one through the batched dense march and one through the per-tile loop
+    (`_update_tile` a tile, as before the batch): the rest of the current
+    cycle, then a whole cycle after the rotation. Each call's rings must be
+    bitwise alike, and the batch must launch K1 once per BATCH_DENSE_CHUNK
+    of its rays. Returns a row per call: tiles, K1 launches, both calls'
+    CUDA-event ms and the batched call's peak allocation."""
+    import copy
+
+    import torch
+
+    from cloudscape_tpu_torch import engine as engine_mod
+    from cloudscape_tpu_torch.ops import accum
+
+    batched, looped = copy.deepcopy(eng), copy.deepcopy(eng)
+    region = eng.perf.update_region_size
+    cols = eng.perf.texture_size // region
+
+    def per_tile(tex_idx, start_tile, count):
+        for k in range(count):
+            row, col = divmod(start_tile + k, cols)
+            looped._update_tile(tex_idx, col * region, row * region)
+
+    looped._march_tiles_dense = per_tile
+    rows = []
+    for call in range(2):
+        frames = batched.perf.frames_to_update
+        want_tiles = frames if batched.ring.frame >= frames else frames - batched.ring.frame
+        tiles0, k1_0 = engine_mod.batched_tiles, accum.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms_b = events_ms(lambda: batched.update_cycle(now=now + call), 1)[0]
+        peak = torch.cuda.max_memory_allocated() - base
+        tiles, k1 = engine_mod.batched_tiles - tiles0, accum.launches - k1_0
+        ms_l = events_ms(lambda: looped.update_cycle(now=now + call), 1)[0]
+        what = f"update_cycle call {call + 1} ({want_tiles} tiles)"
+        require(tiles == want_tiles, f"{what}: the batch marched {tiles} tiles")
+        chunks = -(-tiles * region * region // engine_mod.BATCH_DENSE_CHUNK)
+        require(k1 == chunks, f"{what}: K1 launched {k1} times, not {chunks}")
+        require(batched.ring.frame == looped.ring.frame == frames,
+                f"{what}: frames {batched.ring.frame} and {looped.ring.frame}")
+        require(float(looped.cloud_ring[looped.ring.texture_to_update][..., 3].max()) > 0,
+                f"{what}: no clouds in the tiles compared")
+        require(bitwise_equal(batched.cloud_ring, looped.cloud_ring),
+                f"{what}: the batched ring differs from the per-tile loop's")
+        rows.append(dict(tiles=tiles, k1=k1, batched_ms=ms_b, looped_ms=ms_l,
+                         peak_bytes=peak))
+    return rows
+
+
 def main() -> int:
     # One card: pinned before torch starts CUDA.
     os.environ["CUDA_VISIBLE_DEVICES"] = \
@@ -3838,6 +3912,14 @@ def main() -> int:
           f"{vs['cloud_frac']:.4f}; K7–K9 launches (cone build + march) "
           f"{vs['launches']}", flush=True)
     stamp("5b")
+
+    for i, row in enumerate(check_cycle_batch(eng, now=(TICKS + 1) / 60.0)):
+        print(f"update_cycle call {i + 1} on the phase-5 engine: {row['tiles']} tiles "
+              f"batched, K1 x{row['k1']}, ring bitwise the per-tile loop's; "
+              f"{row['batched_ms']:.2f} ms batched vs {row['looped_ms']:.2f} ms a tile at "
+              f"a time (CUDA events, one call each), batch peak allocation "
+              f"{row['peak_bytes']} B above its start ({card})", flush=True)
+    stamp("5c")
 
     from cloudscape_tpu_torch.models.march_fast import v3_capacities
 

@@ -76,6 +76,10 @@ from cloudscape_tpu_torch.utils.profiling import span
 # fast3 tiles without a cull bucket take the dense march below this many
 # rays and the staged v2 march above (the JAX engine's threshold).
 V3_TILE_MIN_RAYS = 65536
+# Rays a pass chunk of `update_cycle`'s batched dense march (8.4 M samples
+# at 128 steps): a 768² cycle's 589,824 rays are 9 chunks. Chunking changes
+# no sample's value.
+BATCH_DENSE_CHUNK = 65536
 # fast3's per-tile live-cell capacity buckets for the v3 tile arm (tile
 # cull); a tile above the last one takes the 1.0 bucket (dense arm).
 V3_TILE_CELL_BUCKETS = (0.25, 0.375, 0.5, 0.65, 0.8)
@@ -83,6 +87,17 @@ V3_TILE_CELL_BUCKETS = (0.25, 0.375, 0.5, 0.65, 0.8)
 # (`cone_capacity`), so the port uses the same value.
 _CONE_CHUNK = 65536
 _KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
+# Tiles marched through `update_cycle`'s batched dense march
+# (`_march_tiles_dense`), counted under `_cuda.COUNT_LOCK` as the kernel
+# wrappers count their `launches`.
+batched_tiles = 0
+
+
+def _count_batched(tiles: int) -> None:
+    """Add `tiles` to `batched_tiles`, under `_cuda.COUNT_LOCK`."""
+    global batched_tiles
+    with _cuda.COUNT_LOCK:
+        batched_tiles += tiles
 
 
 def _probe_kernels(device) -> None:
@@ -975,10 +990,42 @@ class CloudSkyEngine:
         else:
             self._update_tile(self.ring.texture_to_update, x0, y0, prio_map, rk)
 
+    def _march_tiles_dense(self, tex_idx: int, start_tile: int, count: int) -> None:
+        """The dense arm for `count` tiles from `start_tile` (row-major tile
+        order) in one `march_tile_dense` call, chunked by BATCH_DENSE_CHUNK
+        rays: the same rays, steps, cone cache and sky-LUT slot as one
+        `_update_tile` a tile, so the same bits (the march is per ray and
+        sample). The directions are the whole map's, permuted to tile order,
+        and the tiles go back into the ring slot by one indexed write. The
+        span `cycle.dense`."""
+        region = self.perf.update_region_size
+        size = self.perf.texture_size
+        cols = size // region
+        bricks, cone_cache = self._noise_arg
+        with span("cycle.dense"):
+            dirs = texel_directions(size, device=self.device).view(
+                cols, region, cols, region, 3).permute(0, 2, 1, 3, 4).reshape(
+                cols * cols, region, region, 3)[start_tile:start_tile + count]
+            tiles = march_tile_dense(
+                dirs, self._march_params, bricks,
+                self.sky_ring[self.ring.cloud_kernel_sky_slot],
+                steps=self.perf.march_steps, light_steps=self.perf.light_steps,
+                chunk=BATCH_DENSE_CHUNK, cone_cache=cone_cache)
+            # One in-place index_put into the ring slot, through its
+            # tile-order view.
+            by_tile = self.cloud_ring[tex_idx].view(
+                cols, region, cols, region, 4).permute(0, 2, 1, 3, 4)
+            k = torch.arange(start_tile, start_tile + count, device=self.device)
+            by_tile[k // cols, k % cols] = tiles
+        _count_batched(count)
+
     def _update_tiles_batch(self) -> None:
         """Render every remaining tile of the current cycle (unculled, as the
         JAX engine's batch) and advance the cursor/frame state to the cycle
-        end."""
+        end. Where each tile would take the dense arm (fast3, region² below
+        V3_TILE_MIN_RAYS) the tiles march in one call
+        (`_march_tiles_dense`); every other kernel, one `_update_tile` a
+        tile."""
         n_frames = self.perf.frames_to_update
         region = self.perf.update_region_size
         tiles_per_row = self.perf.texture_size // region
@@ -988,11 +1035,15 @@ class CloudSkyEngine:
         if remaining <= 0:
             return
         with span("cycle.tiles"):
-            for k in range(remaining):
-                tile = start_tile + k
-                self._update_tile(self.ring.texture_to_update,
-                                  (tile % tiles_per_row) * region,
-                                  (tile // tiles_per_row) * region)
+            if self.kernel == "fast3" and region * region < V3_TILE_MIN_RAYS:
+                self._march_tiles_dense(self.ring.texture_to_update, start_tile,
+                                        remaining)
+            else:
+                for k in range(remaining):
+                    tile = start_tile + k
+                    self._update_tile(self.ring.texture_to_update,
+                                      (tile % tiles_per_row) * region,
+                                      (tile // tiles_per_row) * region)
         self.ring.update_position = (0, 0)
         self.ring.frame = n_frames
         self._blend_amount = 1.0

@@ -535,28 +535,27 @@ def _march_core_dense(above, ndir, ss, p0, phase, params: MarchParams,
                       cone_cache: ConeCache):
     """Staged march evaluated densely on every (ray, step) sample: weather →
     pre → erosion (masked to pre > 0) → cone-cache lookup (masked to t > 0),
-    in chunks of `chunk` rays, then the phase-3 accumulation."""
+    then the phase-3 accumulation, a chunk of `chunk` rays at a time. Both
+    phases are per ray, so the planes live one chunk at a time and the
+    output does not depend on `chunk`."""
     n = ndir.shape[0]
-    with span("dense.passes"):
-        i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=ndir.device)
-        t = torch.empty((n, steps), dtype=torch.float32, device=ndir.device)
-        cd = torch.empty_like(t)
-        hf = torch.empty_like(t)
-        for r0 in range(0, n, chunk):
-            sl = slice(r0, r0 + chunk)
+    i_step = torch.arange(1, steps + 1, dtype=torch.float32, device=ndir.device)
+    outs = []
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, r0 + chunk)
+        with span("dense.passes"):
             px, py, pz = _sample_xyz(p0[sl], ndir[sl], ss[sl, None] * i_step[None, :])
             weather = _weather_rb_xy(bp, px, pz, params.weather_pos)
-            pre, hf_c = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
-            t_c = torch.where(pre > 0.0, _density_finish_xyz(
-                pre, hf_c, px, py, pz, 0.0, params, bp), 0.0)
+            pre, hf = _density_pre_xyz(px, py, pz, weather, 0.0, params, bp)
+            t = torch.where(pre > 0.0, _density_finish_xyz(
+                pre, hf, px, py, pz, 0.0, params, bp), 0.0)
             qx, qz, qh = _cone_cache_coords_xyz(px, py, pz, cone_cache.extent)
-            cd_c = sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0]
-            # In-place writes of this chunk's rows into the [n, steps] planes.
-            t[sl] = t_c
-            cd[sl] = torch.where(t_c > 0.0, cd_c, 0.0)
-            hf[sl] = hf_c
-    with span("dense.accumulate"):
-        return _accumulate_phase3(t, cd, hf, ss, phase, above, params, atmos, LSS)
+            cd = torch.where(t > 0.0, sample_tex3_xyz(cone_cache.table, qx, qz, qh)[..., 0],
+                             0.0)
+        with span("dense.accumulate"):
+            outs.append(_accumulate_phase3(t, cd, hf, ss[sl], phase[sl], above[sl],
+                                           params, atmos, LSS))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def march_tile_dense(dirs, params: MarchParams, bp: BrickPack, sky_lut_img,

@@ -183,7 +183,9 @@ def test_ticks_record_tile_composite_and_prebake_spans(warm):
 
 def test_update_cycle_records_cone_cull_and_dense_tiles(warm):
     """`update_cycle` at a boundary: the synchronous cone and cull builds
-    inside the snapshot, then one `tile.dense` per remaining tile."""
+    inside the snapshot, then the remaining tiles' one batched dense march,
+    `cycle.dense`, with its setup, passes and accumulation once each (one
+    pass chunk at this size)."""
     eng = copy.deepcopy(warm[0])
     eng.update_cycle(now=1.0)  # the rest of the cycle: no boundary yet
     with _cpu_profile():
@@ -193,10 +195,11 @@ def test_update_cycle_records_cone_cull_and_dense_tiles(warm):
     assert stats["cull.build"]["count"] == 1 and stats["cull.build"]["parent"] == "engine.snapshot"
     assert stats["engine.snapshot"]["parent"] == "engine.rotate"
     assert stats["cycle.tiles"]["count"] == 1
-    assert stats["tile.dense"]["count"] == FRAMES
-    assert stats["tile.dense"]["parent"] == "cycle.tiles"
+    assert stats["cycle.dense"]["count"] == 1
+    assert stats["cycle.dense"]["parent"] == "cycle.tiles"
+    assert "tile.dense" not in stats
     for name in ("dense.setup", "dense.passes", "dense.accumulate"):
-        assert stats[name]["count"] == FRAMES and stats[name]["parent"] == "tile.dense"
+        assert stats[name]["count"] == 1 and stats[name]["parent"] == "cycle.dense"
     assert not [k for k in stats if k.startswith(("prebake.", "v3."))]
 
 
@@ -241,6 +244,7 @@ READERS = {
     "prebake_ms.serve": ("prebake.cone", "prebake.sky_band"),
     "cone_build_ms.cycle": ("cone.build",),
     "tile_dense_ms.cycle": ("tile.dense",),
+    "cycle_dense_ms.cycle": ("cycle.dense",),
 }
 
 
