@@ -11,7 +11,9 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    [9216, 128] and at the shapes of K1_CASES (planes off 16-B alignment and
    102 or 30 steps, which take the scalar loads; 100 steps; one ray; a
    partly empty last block; 64, 16 and 256 steps; [65536, 128], a pass
-   chunk of `update_cycle`'s batched dense march), atol 2e-5, with empty
+   chunk of `update_cycle`'s batched dense march; [16384, 128], the dense
+   march's pass chunk of a tile of 16,384 rays or more; [147456, 128], a
+   384² tile's v2 march at frames_to_update 4), atol 2e-5, with empty
    and below-horizon rays exactly 0 (phase 9 adds config 4's [kept rays,
    64]);
 4. K2 (compact) against its plain version, bitwise, with and without rank,
@@ -187,6 +189,18 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    three slice sizes and fitted to a call and a unit cost, then 70
    labelled ticks across a boundary; every sky-band tick must launch K10
    exactly once, no other tick K10, and K10's plain version never run;
+   11i. (after 11h) frames_to_update 4 on phase 11b's scene
+   (`run_short_cycle`): the warm start, then three cycles of fused ticks
+   by CUDA events, labelled by their grouped prebake steps and their 384²
+   tile's arm; no synchronous bake and no dropped step, each rotation takes
+   the pending cycle's cone cache and buckets, the cone bitwise
+   `_build_cone` of the same snapshot; the warm start's K2 calls (its v2
+   tiles' 18,874,368-sample compactions among them) held bitwise against
+   their plain version and its first K1 call (a v2 tile's [147456, 128])
+   against K1's plain version; one more tick, the first with a v3 tile,
+   its K2 and K3 calls (the v3 march of 147,456 rays in 16,384-ray
+   chunks, and the bake steps') recorded and held as phase 11b holds its
+   tile's;
    11c. a `kernel="fast"` engine (every tile through the exact brick
    march) at PerfConfig() on the phase-5 scene: warm start, 10
    render_frame ticks of the phase-5 camera that launch K2, frames finite,
@@ -631,6 +645,8 @@ K1_CASES = (
     (333, 16, 0, "16 steps, eight rays per warp"),
     (257, 256, 0, "two 128-step windows"),
     (65536, 128, 0, "a pass chunk of update_cycle's batched dense march"),
+    (16384, 128, 0, "the dense march's pass chunk of a tile of 16,384 rays or more"),
+    (147456, 128, 0, "a 384² tile's v2 march (frames_to_update 4)"),
 )
 
 
@@ -1272,6 +1288,47 @@ def record_kernels(fn):
         return fn(), compactions, scans
     finally:
         march_fast.compact, march_fast.segscan = real_c, real_s
+
+
+def record_accumulate(fn, limit: int = 1):
+    """Run fn() with the first `limit` K1 calls of `models/march_fast.py`
+    recorded as (inputs, output); returns (fn's result, the calls)."""
+    from cloudscape_tpu_torch.models import march_fast
+
+    calls, real = [], march_fast.accumulate
+
+    def rec(*args):
+        out = real(*args)
+        if len(calls) < limit:
+            calls.append((tuple(a.clone() for a in args), out.clone()))
+        return out
+
+    march_fast.accumulate = rec
+    try:
+        return fn(), calls
+    finally:
+        march_fast.accumulate = real
+
+
+def check_recorded_accumulate(what: str, calls) -> float:
+    """K1's recorded calls against its plain version on the same inputs,
+    within phase 3's 2e-5 of the larger of 1 and the output's peak (a
+    path's radiance can pass 1); returns the largest abs error."""
+    import torch
+
+    from cloudscape_tpu_torch.ops import accum
+
+    err = 0.0
+    for i, (args, got) in enumerate(calls):
+        want = accum.accumulate_reference(*args)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        tol = 2e-5 * max(1.0, float(want.abs().max()))
+        require(bool(torch.isfinite(got).all()) and e <= tol,
+                f"K1 [{args[0].shape[0]},{args[0].shape[1]}] ({what}, call {i}): "
+                f"max abs err {e} > {tol:.3g} or not finite")
+        err = max(err, e)
+    return err
 
 
 def zero_counts() -> None:
@@ -2995,6 +3052,102 @@ def run_probe(dev) -> dict:
     return rec
 
 
+# Phase 11i's cycles of 4 ticks after the warm start.
+SHORT_CYCLES = 3
+
+
+def run_short_cycle(dev) -> dict:
+    """Phase 11i: the upstream's fastest refresh, frames_to_update 4, on
+    phase 11b's scene (fast3 `tile_cull`, 768², 128 steps, cone cache
+    CONE_RES, the fused `render_frame` of a 1280x720 view): the warm start,
+    then SHORT_CYCLES cycles of ticks timed by CUDA events, each labelled by
+    its prebake steps (`probe_prebake.stage_of`: three ticks of grouped
+    steps a cycle) and its 384² tile's arm (skip, v3 bucket, or v2 for a
+    1.0 bucket: a tile of V3_TILE_MIN_RAYS rays or more). No rotation may
+    build synchronously and no bake step may be dropped (`engine.sync_bakes`,
+    `engine.dropped_bake_steps`); each rotation must take the pending
+    cycle's cone cache and buckets, and the cone table must be bitwise
+    `_build_cone` of the same snapshot; frames finite, nonnegative and not
+    black. The kernels at these shapes: the warm start's K2 calls and its
+    first K1 call (its tiles take v2: 147,456 rays, no bucket) are recorded
+    and held against their plain versions, and so are the K2 and K3 calls
+    of one more tick, the first whose tile takes v3 (its time is not
+    kept: the recording copies every input)."""
+    import torch
+
+    from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState, probe_prebake
+    from cloudscape_tpu_torch import engine as tengine
+    from cloudscape_tpu_torch.engine import V3_TILE_MIN_RAYS, CloudSkyEngine
+
+    eye = camera_dirs(1280, 720, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = CloudSkyEngine(
+        perf=PerfConfig(texture_size=768, frames_to_update=4, march_steps=128),
+        config=CloudConfig(cloud_coverage=0.35, sun_disk_scale=2.0, wind_speed=10.0,
+                           ground_color=(0.27, 0.19, 0.027, 1.0)),
+        sun=SunState(direction=(0.3, 0.4, -0.85)), kernel="fast3",
+        cone_res=CONE_RES, tile_cull=True, device=dev)
+    require(eng.can_run, "the f4 engine failed its validation")
+    (_, warm_k2, _), warm_k1 = record_accumulate(  # the warm start
+        lambda: record_kernels(lambda: eng.render_frame(eye, now=0.0)))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    region = eng.perf.update_region_size
+    steps = eng.perf.march_steps
+    require(any(c[0].shape[0] == region * region * steps for c in warm_k2),
+            "the f4 warm start compacted no v2 tile's samples")
+    require([tuple(a[0].shape) for a, _ in warm_k1] == [(region * region, steps)],
+            f"the f4 warm start's first K1 call is not a {region}² tile's")
+    check_recorded("the f4 warm start", warm_k2)
+    k1_err = check_recorded_accumulate("an f4 warm-start v2 tile", warm_k1)
+    del warm_k2, warm_k1
+    sync0, dropped0 = tengine.sync_bakes, tengine.dropped_bake_steps
+    rows, frame = [], None
+    for i in range(1, 1 + 4 * SHORT_CYCLES):
+        stage = probe_prebake.stage_of(eng)
+        pend = eng._pending
+
+        def tick():
+            nonlocal frame
+            frame = eng.render_frame(eye, now=i / 60.0)
+
+        (ms,) = events_ms(tick, 1)
+        bucket = eng._tile_buckets[eng.ring.frame - 1]
+        arm = tile_arm(bucket)
+        if arm == "dense" and region * region >= V3_TILE_MIN_RAYS:
+            arm = "v2"
+        rows.append(dict(tick=i, stage=stage, arm=arm, bucket=bucket, ms=ms))
+        if stage == "boundary":
+            require(eng._cone_cache is pend.cone and eng._tile_buckets is pend.buckets,
+                    f"tick {i}: the rotation did not take the pending cycle's bake")
+            cone = eng._build_cone(pend.march_params)
+            require(bitwise_equal(cone.table.texels, pend.cone.table.texels),
+                    f"tick {i}: the prebaked cone table differs from _build_cone's")
+        require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
+                f"tick {i}: the f4 frame is not finite and nonnegative")
+    require(float(frame.mean()) > 1e-3, "the f4 frame is black")
+    v3_calls = None
+    for i in range(1 + 4 * SHORT_CYCLES, 5 + 4 * SHORT_CYCLES):
+        _, comps, scans = record_kernels(lambda: eng.render_frame(eye, now=i / 60.0))
+        if tile_arm(eng._tile_buckets[eng.ring.frame - 1]) == "v3":
+            v3_calls = comps, scans
+            break
+    require(v3_calls is not None and v3_calls[1],
+            "no f4 tick after the timed ones marched a v3 tile")
+    k3_err = check_recorded("an f4 v3 tick", *v3_calls)
+    n_k2, n_k3 = len(v3_calls[0]), len(v3_calls[1])
+    del v3_calls
+    sync, dropped = tengine.sync_bakes - sync0, tengine.dropped_bake_steps - dropped0
+    require(sync == 0 and dropped == 0,
+            f"f4 ticks built {sync} times synchronously and dropped {dropped} bake steps")
+    require(sum(r["stage"] == "boundary" for r in rows) == SHORT_CYCLES,
+            "the f4 ticks did not rotate once a cycle")
+    return dict(warm_s=warm_s, rows=rows, region=region,
+                groups=probe_prebake.schedule(eng)["groups"], k1_err=k1_err,
+                k3_err=k3_err, v3_k2=n_k2, v3_k3=n_k3)
+
+
 # bench/sweep.py's config 5 (`bench/sweep.py:183-259`): hemisphere rays,
 # adaptive steps, coarse probes a ray and row bands.
 C5_WIDTH, C5_HEIGHT, C5_STEPS, C5_COARSE, C5_BANDS = 2048, 1024, 128, 32, 4
@@ -4127,6 +4280,17 @@ def main() -> int:
           f"{sum(t['stage'] == 'sky_band' for t in pr['ticks'])} sky-band tick(s), one "
           f"K10 launch each and no plain call ({card})", flush=True)
     stamp("11h")
+    sc = run_short_cycle(dev)
+    print(f"f4 engine (fast3 tile cull, 768²/4/128, cone {CONE_RES}, {sc['region']}² "
+          f"tiles, fused render_frame 1280x720): start {sc['warm_s']:.2f} s; prebake "
+          f"ticks {sc['groups']}; no synchronous bake, no dropped step, each "
+          f"rotation's cone bitwise _build_cone's; warm start K2 bitwise, its v2 "
+          f"tile's K1 max_abs_err {sc['k1_err']:.3g}; a v3 tick's K2 x{sc['v3_k2']} "
+          f"bitwise, K3 x{sc['v3_k3']} max_abs_err {sc['k3_err']:.3g} ({card})",
+          flush=True)
+    print("f4 ticks: " + "; ".join(f"{r['tick']} {r['stage']} {r['arm']} ({r['bucket']}) "
+                                   f"{r['ms']:.2f} ms" for r in sc["rows"]), flush=True)
+    stamp("11i")
 
     fe = run_fast_engine(dev)
     tm = fe["tick_ms"]

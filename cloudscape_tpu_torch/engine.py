@@ -91,6 +91,13 @@ _KERNEL_MODES = ("fast3", "fast2", "hier", "fast", "reference")
 # (`_march_tiles_dense`), counted under `_cuda.COUNT_LOCK` as the kernel
 # wrappers count their `launches`.
 batched_tiles = 0
+# Rotations that found the pending bake unfinished and built the snapshot's
+# cone cache, sky LUT and tile-cull map synchronously (`engine.sync_bake`:
+# the first snapshot, after `restore` or `set_performance`, and every
+# `update_cycle` rotation), and the bake steps such rotations threw away,
+# counted under `_cuda.COUNT_LOCK`.
+sync_bakes = 0
+dropped_bake_steps = 0
 
 
 def _count_batched(tiles: int) -> None:
@@ -98,6 +105,40 @@ def _count_batched(tiles: int) -> None:
     global batched_tiles
     with _cuda.COUNT_LOCK:
         batched_tiles += tiles
+
+
+def _count_sync_bake(dropped_steps: int) -> None:
+    """Count one synchronous bake and the bake steps it threw away, under
+    `_cuda.COUNT_LOCK`."""
+    global sync_bakes, dropped_bake_steps
+    with _cuda.COUNT_LOCK:
+        sync_bakes += 1
+        dropped_bake_steps += dropped_steps
+
+
+def _group_steps(costs, ticks: int) -> tuple:
+    """Contiguous groups of steps with the given costs, at most `ticks` of
+    them, whose heaviest group is as light as it can be: the least cap (a
+    sum of consecutive costs, at least the dearest step) at which filling
+    each group in order up to the cap takes `ticks` groups or fewer, then
+    that filling. Returns each group's end (exclusive step index)."""
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + c)
+    n = len(costs)
+
+    def fill(cap):
+        ends, start = [], 0
+        for i in range(1, n + 1):
+            if prefix[i] - prefix[start] > cap:
+                ends.append(i - 1)
+                start = i - 1
+        return ends + [n]
+
+    dearest = max(prefix[i + 1] - prefix[i] for i in range(n))
+    caps = sorted({prefix[j] - prefix[i] for i in range(n) for j in range(i + 1, n + 1)})
+    cap = next(c for c in caps if c >= dearest and len(fill(c)) <= ticks)
+    return tuple(fill(cap))
 
 
 def _probe_kernels(device) -> None:
@@ -294,11 +335,14 @@ def _build_display_pair(cloud_ring, cfrom: int, cto: int, sky_ring, b0: int,
 @dataclasses.dataclass
 class _PendingCycle:
     """The NEXT cycle's state, frozen one rotation ahead and baked across the
-    current cycle's ticks, one stage step per tick (`_advance_prebake`):
-    occupancy slices → occupancy finalize (kernel K2) → cone-march slices →
-    wrap → sky-LUT row bands (kernel K10) → (tile cull) cull
-    prepass slices → cull finalize → the tile fractions' host read. `fresh`
-    skips the boundary tick itself."""
+    current cycle's ticks (`_advance_prebake`) in stage steps: occupancy
+    slices → occupancy finalize (kernel K2) → cone-march slices → wrap →
+    sky-LUT row bands (kernel K10) → (tile cull) cull prepass slices → cull
+    finalize → the tile fractions' host read. One step a tick where the
+    plan fits the cycle, else the tick's group of consecutive steps
+    (`_derive_prebake_schedule`); either way the bake is complete before
+    the next rotation, which makes this snapshot active. `fresh` skips the
+    boundary tick itself; `steps_done` counts the steps taken."""
 
     frame_data: FrameData
     march_params: MarchParams
@@ -317,6 +361,7 @@ class _PendingCycle:
     tile_cell: Any = None             # device tile live-cell fractions
     buckets: Optional[List[float]] = None
     fresh: bool = True                # created this tick — skip one advance
+    steps_done: int = 0               # stage steps baked so far
 
 
 class CloudSkyEngine:
@@ -580,12 +625,23 @@ class CloudSkyEngine:
         fit the per-tick budget, `_BAKE_TICK_MS` to start with: (budget −
         per call) / per unit, at least one unit, so a stage whose call
         costs most of a tick is not split into ticks that each pay it.
-        When the step count does not fit in frames_to_update ticks the
-        budget grows until it does (`_bake_budget_ms` keeps the last,
-        `_bake_ticks` the ticks the bake then takes);
-        when even that fails, the pending bake is not ready at the boundary
-        and the synchronous build runs. With tile cull the prepass is
-        sliced over the stride-subsampled texel grid (`_dirs_sub`)."""
+        When the step count (with the boundary tick and a tick of slack)
+        does not fit in frames_to_update ticks the budget grows until it
+        does (`_bake_budget_ms` keeps the last, `_bake_ticks` the ticks the
+        bake then takes), one step a tick: `_bake_group_ends`, each tick's
+        end in `_bake_steps`, is 1, 2, 3, ...
+
+        A plan that still does not fit (frames_to_update 4: ten ticks at
+        the least) groups its consecutive steps into the frames_to_update
+        − 1 ticks after the boundary, the heaviest tick as light as the
+        steps' modelled costs allow (`_group_steps`; the finalizes, wrap and
+        host read cost nothing in the model): `_bake_group_ends` holds each
+        tick's end in `_bake_steps`, `_bake_budget_ms` the heaviest tick's
+        modelled cost and `_bake_ticks` the boundary plus the bake's ticks.
+        Every plan completes the bake before the next rotation, so the
+        synchronous build runs only where no bake was pending or it was
+        never advanced (`_refresh_frame_data`). With tile cull the prepass
+        is sliced over the stride-subsampled texel grid (`_dirs_sub`)."""
         c = self._BAKE_COSTS
         n = int(np.prod(self.cone_res))
         self._cone_capacity = cone_capacity(n, 0.45, _CONE_CHUNK)
@@ -627,6 +683,21 @@ class CloudSkyEngine:
             sizes["occ"], sizes["cone"], sizes["sky"]
         self._n_cull = counts.get("cull", 0)
         self._cull_slice = sizes.get("cull", 0)
+        steps = ([("occupancy", "occ")] * self._n_occ + [("finalize", None)]
+                 + [("cone", "cone")] * self._n_cone_slices + [("wrap", None)]
+                 + [("sky_band", "sky")] * self._n_sky)
+        if self.tile_cull:
+            steps += ([("cull", "cull")] * self._n_cull
+                      + [("cull_finalize", None), ("cull_read", None)])
+        # The bake's steps in order, each taken once (`_prebake_stage`).
+        self._bake_steps = tuple(name for name, _ in steps)
+        self._bake_group_ends = tuple(range(1, len(steps) + 1))
+        if total > self.perf.frames_to_update:
+            costs = [c[st][0] + sizes[st] * c[st][1] if st else 0.0 for _, st in steps]
+            ends = _group_steps(costs, self.perf.frames_to_update - 1)
+            self._bake_group_ends = ends
+            self._bake_budget_ms = max(sum(costs[a:b]) for a, b in zip((0,) + ends, ends))
+            self._bake_ticks = 1 + len(ends)
 
     def _build_cone(self, params: MarchParams) -> ConeCache:
         with span("cone.build"):
@@ -635,12 +706,16 @@ class CloudSkyEngine:
 
     def _refresh_frame_data(self, now: float) -> None:
         """`_update_per_frame_data` (`cloud_sky.gd:165-187`) minus the LUT
-        render. With cone_prebake the snapshot pipeline is one cycle deep:
-        the snapshot frozen at this rotation becomes active at the next, its
-        cone cache, sky LUT and tile-cull map baked across this cycle's
-        ticks; when the pending bake is not ready they are built
-        synchronously. The unstaged kernels take the snapshot at once and
-        build no cone cache."""
+        render. With cone_prebake the snapshot pipeline is one cycle deep at
+        every frames_to_update: the snapshot frozen at this rotation becomes
+        active at the next, its cone cache, sky LUT and tile-cull map baked
+        across this cycle's ticks. Where the pending bake is not ready (no
+        bake pending, or ticks never advanced it: the first snapshot, after
+        `restore` or `set_performance`, and `update_cycle`) they are built
+        synchronously for this snapshot, inside the span
+        `engine.sync_bake`, counted in `sync_bakes` with the pending steps
+        thrown away in `dropped_bake_steps`. The unstaged kernels take the
+        snapshot at once and build no cone cache."""
         with span("engine.snapshot"):
             self._v3_policy_cache = None  # per snapshot (render_full_hemisphere)
             if not self.cone_prebake:
@@ -671,12 +746,14 @@ class CloudSkyEngine:
                     self._prio_map = pend.prio
                     self._tile_buckets = pend.buckets
             else:
-                self._picked_sky = None
-                self.frame_data = copy.deepcopy(head)
-                self._march_params = self.frame_data.to_march_params(self.device)
-                self._cone_cache = self._build_cone(self._march_params)
-                if self.tile_cull:
-                    self._refresh_tile_cull()
+                with span("engine.sync_bake"):
+                    _count_sync_bake(0 if pend is None else pend.steps_done)
+                    self._picked_sky = None
+                    self.frame_data = copy.deepcopy(head)
+                    self._march_params = self.frame_data.to_march_params(self.device)
+                    self._cone_cache = self._build_cone(self._march_params)
+                    if self.tile_cull:
+                        self._refresh_tile_cull()
             fd = copy.deepcopy(head)
             self._pending = _PendingCycle(
                 frame_data=fd, march_params=fd.to_march_params(self.device),
@@ -684,44 +761,54 @@ class CloudSkyEngine:
                                 dtype=torch.float32, device=self.device))
 
     def _prebake_stage(self) -> Optional[str]:
-        """The stage step the next `_advance_prebake` takes, in the bake's
-        order: "fresh" (the tick that made the pending cycle, which bakes
-        nothing), "occupancy", "finalize", "cone", "wrap", "sky_band",
-        then with tile cull "cull", "cull_finalize" and "cull_read"; None
-        when there is no pending bake or it is done."""
+        """The (first) stage step the next `_advance_prebake` takes: "fresh"
+        (the tick that made the pending cycle, which bakes nothing), else
+        the next of the schedule's `_bake_steps`, in the bake's order
+        "occupancy", "finalize", "cone", "wrap", "sky_band", then with tile
+        cull "cull", "cull_finalize" and "cull_read"; None when there is no
+        pending bake or it is done."""
         pend = self._pending
         if pend is None or not self.cone_prebake:
             return None
         if pend.fresh:
             return "fresh"
-        if pend.cone is None:
-            if pend.idx is None:
-                return "occupancy" if pend.occ_done < self._n_occ else "finalize"
-            return "cone" if pend.slices_done < self._n_cone_slices else "wrap"
-        if pend.sky is None:
-            return "sky_band"
-        if self.tile_cull and pend.buckets is None:
-            if pend.prio is None:
-                return "cull" if pend.cull_done < self._n_cull else "cull_finalize"
-            return "cull_read"
-        return None
+        steps = self._bake_steps
+        return steps[pend.steps_done] if pend.steps_done < len(steps) else None
 
-    def _advance_prebake(self) -> None:
-        """One stage step of the pending cycle's bake per tick
-        (`_prebake_stage`), each step but "fresh" a span named
-        `prebake.<stage>`."""
+    def _prebake_stages(self) -> List[str]:
+        """The stage steps the next `_advance_prebake` takes, in order: from
+        the step `_prebake_stage` names to the end of its tick's group
+        (`_bake_group_ends`; one step where the plan fits the cycle);
+        ["fresh"] on the tick that made the pending cycle; [] when there is
+        no pending bake or it is done."""
         stage = self._prebake_stage()
         if stage is None:
-            return
+            return []
         if stage == "fresh":
+            return [stage]
+        done = self._pending.steps_done
+        end = next(e for e in self._bake_group_ends if e > done)
+        return list(self._bake_steps[done:end])
+
+    def _advance_prebake(self) -> None:
+        """The tick's stage steps of the pending cycle's bake
+        (`_prebake_stages`): on a tick that bakes, the span `bake.tick`
+        around them and a span `prebake.<stage>` around each."""
+        stages = self._prebake_stages()
+        if not stages:
+            return
+        if stages == ["fresh"]:
             self._pending.fresh = False
             return
-        with span("prebake." + stage):
-            self._bake_step(stage)
+        with span("bake.tick"):
+            for stage in stages:
+                with span("prebake." + stage):
+                    self._bake_step(stage)
 
     def _bake_step(self, stage: str) -> None:
         """The pending cycle's bake step `stage` (not "fresh")."""
         pend = self._pending
+        pend.steps_done += 1
         n = int(np.prod(self.cone_res))
         params = pend.march_params
         if stage == "occupancy":

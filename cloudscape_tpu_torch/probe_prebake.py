@@ -68,11 +68,13 @@ CULL_SHARES = (1 / 8, 1 / 2, 1)
 def stage_of(eng) -> str:
     """The prebake stage the next `update_sky` (or `render_frame`) runs:
     "boundary" where it rotates the rings (the new pending cycle bakes
-    nothing that tick), else the engine's own `_prebake_stage`, "steady"
-    where it bakes nothing."""
+    nothing that tick), else the engine's own `_prebake_stages`, several
+    joined by "+" in order where the schedule groups steps into the tick
+    (frames_to_update 4: "occupancy+finalize"), "steady" where it bakes
+    nothing."""
     if eng.ring.frame >= eng.perf.frames_to_update:
         return "boundary"
-    return eng._prebake_stage() or "steady"
+    return "+".join(eng._prebake_stages()) or "steady"
 
 
 def fit(sizes, ms) -> tuple[float, float]:
@@ -86,13 +88,16 @@ def fit(sizes, ms) -> tuple[float, float]:
 
 
 def schedule(eng) -> dict:
-    """The engine's prebake schedule: slice sizes, ticks per stage, the
-    budget it settled on and the ticks it takes."""
+    """The engine's prebake schedule: slice sizes, steps per stage, the
+    budget it settled on, the ticks it takes and each tick's steps (one a
+    tick where the plan fits the cycle)."""
+    ends = eng._bake_group_ends
     return {"occ": [eng._occ_slice, eng._n_occ],
             "cone": [eng._cone_slice, eng._n_cone_slices],
             "sky": [eng._sky_rows, eng._n_sky],
             "cull": [eng._cull_slice, eng._n_cull],
-            "budget_ms": eng._bake_budget_ms, "ticks": eng._bake_ticks}
+            "budget_ms": eng._bake_budget_ms, "ticks": eng._bake_ticks,
+            "groups": [list(eng._bake_steps[a:b]) for a, b in zip((0,) + ends, ends)]}
 
 
 def _call_ms(fn, dev) -> tuple[float, float]:

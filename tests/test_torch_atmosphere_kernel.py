@@ -13,7 +13,8 @@ versions, and the prebake schedule the card's costs give the engine.
   in the bands its costs imply; a stage whose call costs more than the
   budget is not split into ticks that each pay it.
 - `python -m cloudscape_tpu_torch.probe_prebake`'s `run` at a tiny size.
-- `stage_of` (the engine's `_prebake_stage`) over one cycle, and
+- `stage_of` (the engine's `_prebake_stage`) over one cycle, at 16
+  frames and at 4, where a tick takes several steps, and
   chip_smoke.py's instruction and MUFU counts of K10–K11 on a SASS listing.
 - The kernels' launch geometry (`launch_geometry`, `thread_work`): every
   texel of every band the schedule can pick, and of K11's LUT, taken by one
@@ -204,6 +205,55 @@ def test_prebake_stage_names_each_step(tile_cull):
             + (["cull"] * eng._n_cull + ["cull_finalize", "cull_read"]
                if tile_cull else []))
     assert stages == want + ["steady"] * (len(stages) - len(want))
+    pend = eng._pending
+    assert probe_prebake.stage_of(eng) == "boundary"
+    eng.update_sky(now + 1 / 60)
+    assert eng._cone_cache is pend.cone
+    assert any(torch.equal(img, pend.sky) for img in eng.sky_ring)
+    assert not tile_cull or eng._tile_buckets is pend.buckets
+
+
+# The f4 case's ticks after its boundary: every stage costs 2 ms whole
+# (the test's costs), so the three ticks after the boundary can take no
+# less than two stages each with tile cull, one each without.
+F4_TICKS = {True: ["occupancy+finalize+cone+wrap", "sky_band+cull+cull_finalize+cull_read",
+                   "steady"],
+            False: ["occupancy+finalize", "cone+wrap", "sky_band"]}
+
+
+@pytest.mark.parametrize("tile_cull", [True, False])
+def test_prebake_stage_names_each_step_of_a_short_cycle(tile_cull):
+    """`stage_of` over an f4 cycle at the same tiny size and costs: the
+    steps cannot have a tick each, so each stage is one step and a tick
+    that takes several names them in order (F4_TICKS), the bake done before
+    the next boundary, which takes the baked cone cache, sky LUT and
+    buckets."""
+    from cloudscape_tpu_torch import CloudConfig, SunState
+
+    noise = procedural_noise_pack(0, 16, 16, 64, device="cpu")
+    eng = CloudSkyEngine(perf=PerfConfig(texture_size=64, frames_to_update=4,
+                                         march_steps=16),
+                         config=CloudConfig(cloud_coverage=0.35),
+                         sun=SunState(direction=(0.3, 0.25, -0.9)), noise=noise,
+                         kernel="fast3", cone_res=(4, 32, 32), tile_cull=tile_cull,
+                         device="cpu")
+    units = {"occ": 4 * 32 * 32, "cone": eng._cone_capacity, "sky": 100,
+             "cull": max(eng._n_sub, 1)}
+    eng._BAKE_COSTS = {st: (0.0, 2.0 / u) for st, u in units.items()}
+    eng._BAKE_TICK_MS = 1.0
+    eng._derive_prebake_schedule()
+    assert max(eng._n_occ, eng._n_cone_slices, eng._n_sky, eng._n_cull) == 1
+    now = 0.0
+    eng.update_sky(now)  # the warm start
+    while probe_prebake.stage_of(eng) != "boundary":
+        now += 1 / 60
+        eng.update_sky(now)
+    stages = []
+    for _ in range(4):
+        stages.append(probe_prebake.stage_of(eng))
+        now += 1 / 60
+        eng.update_sky(now)
+    assert stages == ["boundary"] + F4_TICKS[tile_cull]
     pend = eng._pending
     assert probe_prebake.stage_of(eng) == "boundary"
     eng.update_sky(now + 1 / 60)

@@ -170,6 +170,8 @@ def test_ticks_record_tile_composite_and_prebake_spans(warm):
     assert got_arms == arms and sum(arms.values()) == FRAMES
     assert "v3" in arms and "skip" in arms
     assert got_stages == stages and {"occupancy", "cone", "sky_band", "cull_read"} <= set(stages)
+    assert stats["bake.tick"]["count"] == sum(stages.values())  # one step a tick here
+    assert stats["prebake.cone"]["parent"] == "bake.tick"
     assert stats["composite_display"]["count"] == FRAMES
     assert stats["tick.begin"]["count"] == FRAMES
     assert stats["engine.rotate"]["count"] == 1
@@ -183,7 +185,8 @@ def test_ticks_record_tile_composite_and_prebake_spans(warm):
 
 def test_update_cycle_records_cone_cull_and_dense_tiles(warm):
     """`update_cycle` at a boundary: the synchronous cone and cull builds
-    inside the snapshot, then the remaining tiles' one batched dense march,
+    inside the snapshot's `engine.sync_bake` (no ticks baked its pending
+    cycle), then the remaining tiles' one batched dense march,
     `cycle.dense`, with its setup, passes and accumulation once each (one
     pass chunk at this size)."""
     eng = copy.deepcopy(warm[0])
@@ -191,8 +194,10 @@ def test_update_cycle_records_cone_cull_and_dense_tiles(warm):
     with _cpu_profile():
         eng.update_cycle(now=2.0)
     stats = span_stats()
-    assert stats["cone.build"]["count"] == 1 and stats["cone.build"]["parent"] == "engine.snapshot"
-    assert stats["cull.build"]["count"] == 1 and stats["cull.build"]["parent"] == "engine.snapshot"
+    assert stats["cone.build"]["count"] == 1 and stats["cone.build"]["parent"] == "engine.sync_bake"
+    assert stats["cull.build"]["count"] == 1 and stats["cull.build"]["parent"] == "engine.sync_bake"
+    assert stats["engine.sync_bake"]["count"] == 1
+    assert stats["engine.sync_bake"]["parent"] == "engine.snapshot"
     assert stats["engine.snapshot"]["parent"] == "engine.rotate"
     assert stats["cycle.tiles"]["count"] == 1
     assert stats["cycle.dense"]["count"] == 1
@@ -200,7 +205,7 @@ def test_update_cycle_records_cone_cull_and_dense_tiles(warm):
     assert "tile.dense" not in stats
     for name in ("dense.setup", "dense.passes", "dense.accumulate"):
         assert stats[name]["count"] == 1 and stats[name]["parent"] == "cycle.dense"
-    assert not [k for k in stats if k.startswith(("prebake.", "v3."))]
+    assert not [k for k in stats if k.startswith(("prebake.", "bake.", "v3."))]
 
 
 def test_mesh_shards_open_their_own_tile_spans(warm):
@@ -245,6 +250,7 @@ READERS = {
     "cone_build_ms.cycle": ("cone.build",),
     "tile_dense_ms.cycle": ("tile.dense",),
     "cycle_dense_ms.cycle": ("cycle.dense",),
+    "prebake_tick_ms.serve": ("bake.tick",),
 }
 
 
@@ -279,3 +285,31 @@ def test_readers_return_none_without_the_recorder(monkeypatch):
     monkeypatch.delattr(profiling, "span_stats")
     for metric in READERS:
         assert run.reader(metric, ROOT)({"trace": object()}) is None
+
+
+def test_sync_bake_share_reader(monkeypatch):
+    """`sync_bake_share.serve`: `engine.sync_bake` spans over `engine.rotate`
+    spans; 0.0 where rotations were traced and none built synchronously;
+    None without a trace, without a traced rotation, or for a program
+    without the span (no `engine.sync_bakes` counter)."""
+    from cloudscape_tpu_torch import engine
+    from skybench import run
+
+    read = run.reader("sync_bake_share.serve", ROOT)
+    layer = {"trace": object()}
+    assert read({}) is None and read(layer) is None
+    with _cpu_profile():
+        for _ in range(4):
+            with span("engine.rotate"):
+                pass
+    assert read(layer) == 0.0 and read({}) is None
+    with _cpu_profile():
+        with span("engine.rotate"):
+            with span("engine.sync_bake"):
+                pass
+    assert read(layer) == pytest.approx(1 / 5)
+    monkeypatch.delattr(engine, "sync_bakes")
+    assert read(layer) is None
+    monkeypatch.undo()
+    monkeypatch.delattr(profiling, "span_stats")
+    assert read(layer) is None
