@@ -175,8 +175,14 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    max, hitch (max / median), hitch_p95, the bucket histogram and the
    median tick per arm (skip / v3 bucket / dense 1.0) beside phase 5's
    median. The kernel counts are zeroed before its construction: K4–K6
-   once each, K1 in the phase, K2 and K3 within the timed ticks, and at
-   least one timed tick in a v3 bucket, K7–K9 in the phase; frames
+   once each, K1 in the phase, at least one timed tick in a v3 bucket,
+   each v3 tick one graph replay (`engine.v3_graph_replays`), K7–K9 in
+   the phase. A replay launches through no wrapper, so each bucket the
+   window replayed is replayed once more under the profiler: its device
+   trace must be the eager call's of that bucket on the same inputs,
+   activity by activity, K2 and K3 among them, and match that call's
+   wrapper counts; the window's counts for phase 13 add that call's for
+   each replay of its bucket; frames
    finite, nonnegative and not black, every skip tile in the ring exactly
    0. Then every tile of the cycle is marched again by its arm (those the
    ticks wrote must equal the ring's) and the culled map is held at ≥
@@ -308,7 +314,8 @@ engine's path, under their own names), and as the last line {"ok": true,
 The kernels line's launch counts are read around the path each kernel
 serves: K1 and K2 around phase 5, K3 around phases 7 and 8, K4–K6 around
 phase 5's engine construction and config 4's pack, K7–K11 around phase 5;
-`launches_tile_cull` around phase 11b; `launches_config5` by each call of
+`launches_tile_cull` around phase 11b (the wrappers' launches: its v3
+tiles' graph replays launch through none); `launches_config5` by each call of
 config 5's path in phase 9b (the pack, the cone cache, the two policies,
 each row's warm call: zeroed just before the call, read just after); and
 `launches_hier_engine` around phase 11e (the counts zeroed before each);
@@ -317,7 +324,9 @@ sharded call and the mesh engine read around the call, the single-card
 references left out) and `launches_mesh_ticks` by its 70 mesh ticks. Phase
 8c counts each stage's call on its own (zeroed just before it), after phase
 8's counts are read. `launches_per_pass` counts one pass: phase 5, phase
-7's first render_full_hemisphere and phase 11b's timed window, without the
+7's first render_full_hemisphere and phase 11b's timed window (its graph
+replays counted as the eager call of their bucket, whose device trace
+each replay's matched), without the
 one launch of K1–K3 and of each sampler kernel of phase 5's validation
 probe (a tiny input, not a pass's shape). `launches_bench` is phase 14's
 (zeroed just before the bench, read just after the sweep). Every engine
@@ -1386,6 +1395,60 @@ def sizes_since(before: dict) -> dict:
     """The K1–K3 and sampler launches by size since `before` (a
     `read_sizes()`)."""
     return {k: v - before[k] for k, v in read_sizes().items()}
+
+
+def traced_kernels(fn):
+    """(fn's result, the card's activities of that one call by name, and its
+    hand-written kernels' launches by their name in the kernels line), from
+    a torch.profiler trace of the card alone. A CUDA graph's replay is on
+    it node by node. A trace can lose its earliest records, so idle
+    margins and four marker kernels open it and one closes it; a trace
+    that does not start and end with a marker is taken again (fn is
+    called again) with margins four times as long (up to 0.8 s), five
+    times at most."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cloudscape_tpu_torch.utils.profiling import device_activities
+
+    margin = TRACE_MARGIN_S
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            out = fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        events = sorted(device_activities(prof.events()), key=lambda e: e.time_range.start)
+        if events and "spin_kernel" in events[0].name and "spin_kernel" in events[-1].name:
+            break
+        margin = min(4 * margin, 0.8)
+    else:
+        require(False, "traced_kernels: every trace lost its opening markers")
+    names = collections.Counter(e.name for e in events if "spin_kernel" not in e.name)
+    ours = collections.Counter()
+    for name, n in names.items():
+        m = re.search(r"(?:^|[\s:])(\w+)[<(]", name)
+        for k in read_counts():
+            if m and m.group(1) in KERNEL_NAMES[k]:
+                ours[k] += n
+    return out, names, ours
+
+
+def split_copies(names):
+    """(the copies and fills among a trace's activities by name, a Counter
+    of the others): a copy is "Memcpy ..." where a stream runs it and a
+    kernel "memcpy..." where a CUDA graph's copy node does."""
+    import collections
+
+    copies = sum(n for k, n in names.items() if k.lower().startswith(("memcpy", "memset")))
+    return copies, collections.Counter(
+        {k: n for k, n in names.items() if not k.lower().startswith(("memcpy", "memset"))})
 
 
 def counted(fn):
@@ -2832,9 +2895,12 @@ def run_tile_cull(dev):
     again and the culled map is held against the dense march, and the
     first v3 tile's K2 and K3 calls are recorded and held against their
     plain versions (for phase 13's rows)."""
+    import collections
+
     import torch
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
+    from cloudscape_tpu_torch import engine as engine_mod
     from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile, _prepass_steps
     from cloudscape_tpu_torch.models.march_fast import march_bricks_v3, march_tile_dense
     from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
@@ -2862,7 +2928,9 @@ def run_tile_cull(dev):
     n_frames = eng.perf.frames_to_update
     k_warm = (accum.launches, compact.launches, segscan.launches)
     s_warm = read_counts()
+    r_warm = engine_mod.v3_graph_replays
     ticks, pickups, done_buckets, frame = [], 0, None, None
+    v3_window = collections.Counter()  # the window's v3 tiles by cell bucket
 
     def window():
         nonlocal pickups, done_buckets, frame
@@ -2886,8 +2954,9 @@ def run_tile_cull(dev):
                         "the boundary did not pick up the prebaked buckets")
                 pickups += 1
             # The tick rendered tile frame - 1 of the row-major sweep.
-            ticks.append((tile_arm(eng._tile_buckets[eng.ring.frame - 1]),
-                          start.elapsed_time(end), wall_ms))
+            bucket = eng._tile_buckets[eng.ring.frame - 1]
+            ticks.append((tile_arm(bucket), start.elapsed_time(end), wall_ms))
+            v3_window[bucket] += tile_arm(bucket) == "v3"
 
     # The samples the window's sampler launches were given (phase 13's
     # samples per pass).
@@ -2904,12 +2973,54 @@ def run_tile_cull(dev):
                  atmo={k: counts[k] for k in ATMO_KERNELS})
     samples = {k: counts[k] - s_warm[k] for k in SAMPLERS}
     atmo_window = {k: counts[k] - s_warm[k] for k in ATMO_KERNELS}
+    # Those are the wrappers' launches; the window's v3 tiles were graph
+    # replays, which launch through no wrapper (`tile_graphs.py`). Each
+    # bucket's graph is replayed once more under the profiler, and the
+    # eager arm's call of that bucket on the same inputs is traced and
+    # counted: the replay's device trace must be the eager call's, activity
+    # by activity, with K2 and K3 on it, and the eager call's wrapper counts
+    # its kernels on the trace. The window's launches, samples and sizes
+    # for phase 13 then add, for each replay, those of the eager call.
+    replays = engine_mod.v3_graph_replays - r_warm
+    require(replays == sum(v3_window.values()),
+            f"{replays} graph replays in the window's {sum(v3_window.values())} v3 ticks")
+    graphs, replay_kernels = eng._v3_graphs, {}
+    for b, n in sorted(v3_window.items()):
+        if not n:
+            continue
+        _, replay_names, replay_ours = traced_kernels(lambda b=b: graphs.replay(b))
+        _, eager_names, _ = traced_kernels(lambda b=b: (zero_counts(), graphs.eager(b)))
+        one = read_counts()
+        # A graph's copy nodes run as kernels named memcpy*: the copies
+        # are held by their number.
+        (replay_copies, replay_rest), (eager_copies, eager_rest) = (
+            split_copies(replay_names), split_copies(eager_names))
+        require(replay_rest == eager_rest and replay_copies == eager_copies,
+                f"bucket {b}: the replay's device trace {dict(replay_rest - eager_rest)} "
+                f"more, {dict(eager_rest - replay_rest)} fewer than the eager call's, "
+                f"{replay_copies} copies against {eager_copies}")
+        require(replay_ours["compact"] > 0 and replay_ours["segscan"] > 0,
+                f"bucket {b}: the replay ran K2 {replay_ours['compact']}, K3 "
+                f"{replay_ours['segscan']} times")
+        require(all(replay_ours[k] == v for k, v in one.items()),
+                f"bucket {b}: the replay's kernels {dict(replay_ours)}, the eager "
+                f"call's wrapper counts {one}")
+        replay_kernels[b] = dict(replay_ours)
+        k1, k2, k3 = k1 + n * one["accumulate"], k2 + n * one["compact"], \
+            k3 + n * one["segscan"]
+        for k in SAMPLERS:
+            samples[k] += n * one[k]
+        for k in ATMO_KERNELS:
+            atmo_window[k] += n * one[k]
+        for k, v in read_samples().items():
+            window_samples[k] += n * v
+        for k, z in read_sizes().items():
+            window_sizes[k].update({size: n * m for size, m in z.items()})
     require(all(phase["samples"][k] > built[k] for k in MAIN_SAMPLERS),
             f"the tile-cull phase launched K7–K9 {phase['samples']}, its "
             f"validation {built}")
     require(pickups == 1, f"{pickups} boundaries in the timed window, not 1")
     require(any(a == "v3" for a, _, _ in ticks), "no timed tick took a v3 bucket")
-    require(k2 > 0 and k3 > 0, f"the timed ticks launched K2 {k2}, K3 {k3} times")
     require(all(v == 1 for v in phase["noise"].values()),
             f"the engine's pack did not launch K4–K6 once each: {phase['noise']}")
     require(phase["k1"] > 0, "the tile-cull phase launched no K1")
@@ -3017,7 +3128,8 @@ def run_tile_cull(dev):
         histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
         k1=k1, k2=k2, k3=k3, samples=samples, window_samples=window_samples,
         window_sizes=window_sizes, atmo_window=atmo_window,
-        phase=phase, v3_tiles=len(arms["v3"]),
+        phase=phase, v3_tiles=len(arms["v3"]), graph_replays=replays,
+        replay_kernels=replay_kernels,
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
         frame_mean=float(frame.mean()), tile_stages=tile_stages)
@@ -3072,12 +3184,17 @@ def run_short_cycle(dev) -> dict:
     first K1 call (its tiles take v2: 147,456 rays, no bucket) are recorded
     and held against their plain versions, and so are the K2 and K3 calls
     of one more tick, the first whose tile takes v3 (its time is not
-    kept: the recording copies every input)."""
+    kept: the recording copies every input; the engine's v3 tile graphs
+    are set aside for those ticks, since a replay calls no kernel wrapper).
+    Before that, each timed v3 tick must be one graph replay, and the v3
+    tiles the last cycle's ticks replayed (147,456 rays in 9 chunks) are
+    marched again by the eager arm and must equal the ring's, bitwise."""
     import torch
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState, probe_prebake
     from cloudscape_tpu_torch import engine as tengine
-    from cloudscape_tpu_torch.engine import V3_TILE_MIN_RAYS, CloudSkyEngine
+    from cloudscape_tpu_torch.engine import V3_TILE_MIN_RAYS, CloudSkyEngine, _march_tile
+    from cloudscape_tpu_torch.ops.octmap import texel_directions
 
     eye = camera_dirs(1280, 720, dev)
     torch.cuda.synchronize()
@@ -3103,6 +3220,7 @@ def run_short_cycle(dev) -> dict:
     k1_err = check_recorded_accumulate("an f4 warm-start v2 tile", warm_k1)
     del warm_k2, warm_k1
     sync0, dropped0 = tengine.sync_bakes, tengine.dropped_bake_steps
+    replays0 = tengine.v3_graph_replays
     rows, frame = [], None
     for i in range(1, 1 + 4 * SHORT_CYCLES):
         stage = probe_prebake.stage_of(eng)
@@ -3127,12 +3245,33 @@ def run_short_cycle(dev) -> dict:
         require(bool(torch.isfinite(frame).all()) and float(frame.min()) >= 0.0,
                 f"tick {i}: the f4 frame is not finite and nonnegative")
     require(float(frame.mean()) > 1e-3, "the f4 frame is black")
+    replays = tengine.v3_graph_replays - replays0
+    v3_ticks = sum(r["arm"] == "v3" for r in rows)
+    require(replays == v3_ticks, f"{replays} graph replays in {v3_ticks} f4 v3 ticks")
+    tpr, tex = eng.perf.texture_size // region, eng.ring.texture_to_update
+    sky = eng.sky_ring[eng.ring.cloud_kernel_sky_slot]
+    replayed = [k for k in range(eng.ring.frame) if tile_arm(eng._tile_buckets[k]) == "v3"]
+    require(replayed, "the last f4 cycle's ticks replayed no v3 tile")
+    for k in replayed:
+        y0, x0 = (k // tpr) * region, (k % tpr) * region
+        tile = _march_tile(
+            texel_directions(eng.perf.texture_size, x0=x0, y0=y0, width=region,
+                             height=region, device=dev),
+            eng._march_params, eng._noise_arg, sky, region=region, steps=steps,
+            light_steps=eng.perf.light_steps, kernel="fast3",
+            ray_keep_frac=eng._tile_buckets[k])
+        require(torch.equal(tile, eng.cloud_ring[tex, y0:y0 + region, x0:x0 + region]),
+                f"f4 tile {k} (bucket {eng._tile_buckets[k]}) marched eagerly differs "
+                f"from its replay")
+    del tile
     v3_calls = None
+    graphs, eng._v3_graphs = eng._v3_graphs, None
     for i in range(1 + 4 * SHORT_CYCLES, 5 + 4 * SHORT_CYCLES):
         _, comps, scans = record_kernels(lambda: eng.render_frame(eye, now=i / 60.0))
         if tile_arm(eng._tile_buckets[eng.ring.frame - 1]) == "v3":
             v3_calls = comps, scans
             break
+    eng._v3_graphs = graphs
     require(v3_calls is not None and v3_calls[1],
             "no f4 tick after the timed ones marched a v3 tile")
     k3_err = check_recorded("an f4 v3 tick", *v3_calls)
@@ -3145,7 +3284,7 @@ def run_short_cycle(dev) -> dict:
             "the f4 ticks did not rotate once a cycle")
     return dict(warm_s=warm_s, rows=rows, region=region,
                 groups=probe_prebake.schedule(eng)["groups"], k1_err=k1_err,
-                k3_err=k3_err, v3_k2=n_k2, v3_k3=n_k3)
+                k3_err=k3_err, v3_k2=n_k2, v3_k3=n_k3, replays_checked=len(replayed))
 
 
 # bench/sweep.py's config 5 (`bench/sweep.py:183-259`): hemisphere rays,
@@ -4258,7 +4397,10 @@ def main() -> int:
           f"{statistics.median(c['wall_ms']):.2f} ms); median per arm: {arms}; "
           f"phase 5 median {statistics.median(ms):.2f} ms ({card})", flush=True)
     print(f"tile-cull buckets (this cycle): {c['histogram']}; timed window K1 "
-          f"x{c['k1']}, K2 x{c['k2']}, K3 x{c['k3']}; one v3 tile (bucket "
+          f"x{c['k1']}, K2 x{c['k2']}, K3 x{c['k3']} (the wrappers' launches and "
+          f"{c['graph_replays']} graph replays of v3 tiles, each counted as the "
+          f"eager call of its bucket whose device trace it matched; one replay's "
+          f"kernels by bucket, from its trace: {c['replay_kernels']}); one v3 tile (bucket "
           f"{c['v3_bucket']}) launches K2 x{len(c['compactions'])}, K3 "
           f"x{len(c['scans'])} (K2 bitwise, K3 max_abs_err {c['k3_err']:.3g} "
           f"against their plain versions); the culled cycle "
@@ -4284,7 +4426,9 @@ def main() -> int:
     print(f"f4 engine (fast3 tile cull, 768²/4/128, cone {CONE_RES}, {sc['region']}² "
           f"tiles, fused render_frame 1280x720): start {sc['warm_s']:.2f} s; prebake "
           f"ticks {sc['groups']}; no synchronous bake, no dropped step, each "
-          f"rotation's cone bitwise _build_cone's; warm start K2 bitwise, its v2 "
+          f"rotation's cone bitwise _build_cone's; every v3 tick a graph replay, "
+          f"{sc['replays_checked']} replayed tiles bitwise the eager arm's; warm "
+          f"start K2 bitwise, its v2 "
           f"tile's K1 max_abs_err {sc['k1_err']:.3g}; a v3 tick's K2 x{sc['v3_k2']} "
           f"bitwise, K3 x{sc['v3_k3']} max_abs_err {sc['k3_err']:.3g} ({card})",
           flush=True)

@@ -71,6 +71,7 @@ from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
                                                     replicate, shard_map)
 from cloudscape_tpu_torch.temporal import FrameData, RingState
+from cloudscape_tpu_torch.tile_graphs import V3TileGraphs
 from cloudscape_tpu_torch.utils.profiling import span
 
 # fast3 tiles without a cull bucket take the dense march below this many
@@ -98,6 +99,11 @@ batched_tiles = 0
 # counted under `_cuda.COUNT_LOCK`.
 sync_bakes = 0
 dropped_bake_steps = 0
+# The v3 tile graphs a card engine captured (one per cell bucket and tile
+# shape) and the v3 tiles it marched by replaying one (`V3TileGraphs`),
+# counted under `_cuda.COUNT_LOCK`.
+v3_graph_captures = 0
+v3_graph_replays = 0
 
 
 def _count_batched(tiles: int) -> None:
@@ -114,6 +120,15 @@ def _count_sync_bake(dropped_steps: int) -> None:
     with _cuda.COUNT_LOCK:
         sync_bakes += 1
         dropped_bake_steps += dropped_steps
+
+
+def _count_v3_graphs(captures: int, replays: int) -> None:
+    """Add to `v3_graph_captures` and `v3_graph_replays`, under
+    `_cuda.COUNT_LOCK`."""
+    global v3_graph_captures, v3_graph_replays
+    with _cuda.COUNT_LOCK:
+        v3_graph_captures += captures
+        v3_graph_replays += replays
 
 
 def _group_steps(costs, ticks: int) -> tuple:
@@ -234,6 +249,29 @@ def _prepass_steps(steps: int) -> int:
     return ps
 
 
+def _takes_v3(kernel: str, ray_keep_frac: Optional[float], dirs) -> bool:
+    """Whether `_march_tile` marches a tile by fast3's v3 arm: a fast3 [H, W]
+    tile whose cull bucket lies strictly between 0 and 1."""
+    return (kernel == "fast3" and ray_keep_frac is not None
+            and 0.0 < ray_keep_frac < 1.0 and dirs.dim() == 3)
+
+
+def _march_tile_v3(dirs, params: MarchParams, bricks, cone_cache, sky_img,
+                   cell_bucket: float, *, steps: int, light_steps: int,
+                   axis_name: Optional[str] = None):
+    """fast3's v3 tile arm: the v3 cell-gated march of a [H, W] tile at its
+    live-cell bucket, hot bucket 0.5, ray stride 2, cell margin 0.1 and no
+    ray select. The eager arm of `_march_tile` and the graphs the engine
+    replays (`V3TileGraphs`) both call it."""
+    n = int(np.prod(dirs.shape[:-1]))
+    return march_bricks_v3(
+        dirs, params, bricks, sky_img, steps=steps, light_steps=light_steps,
+        chunk=min(n, 16384), cell_keep_frac=float(cell_bucket), hot_keep_frac=0.5,
+        cone_cache=cone_cache, ray_keep_frac=None,
+        prepass_steps=_prepass_steps(steps), ray_stride=2, cell_margin=0.1,
+        axis_name=axis_name)
+
+
 def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
                 steps: int, light_steps: int, kernel: str,
                 ray_keep_frac: Optional[float] = None, cull_prio=None,
@@ -293,17 +331,12 @@ def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
                 cell_keep_frac=1.0, hot_keep_frac=1.0, ray_keep_frac=None,
                 cone_cache=cone_cache, prepass_steps=_prepass_steps(steps),
                 ray_stride=1)
+    if _takes_v3(kernel, ray_keep_frac, dirs):
+        with span("tile.v3"):
+            return _march_tile_v3(dirs, params, bricks, cone_cache, sky_img,
+                                  ray_keep_frac, steps=steps,
+                                  light_steps=light_steps, axis_name=axis_name)
     if kernel == "fast3":
-        if ray_keep_frac is not None and 0.0 < ray_keep_frac < 1.0 \
-                and dirs.dim() == 3:
-            with span("tile.v3"):
-                return march_bricks_v3(
-                    dirs, params, bricks, sky_img, steps=steps,
-                    light_steps=light_steps, chunk=min(n, 16384),
-                    cell_keep_frac=float(ray_keep_frac), hot_keep_frac=0.5,
-                    cone_cache=cone_cache, ray_keep_frac=None,
-                    prepass_steps=_prepass_steps(steps), ray_stride=2,
-                    cell_margin=0.1, axis_name=axis_name)
         if n < V3_TILE_MIN_RAYS:
             with span("tile.dense"):
                 return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
@@ -461,6 +494,11 @@ class CloudSkyEngine:
             BrickPack.from_noise(self.noise)
         self._cone_cache: Optional[ConeCache] = None
         self._v3_policy_cache = None
+        # The v3 tile arm's CUDA graphs (`_march_tile_v3_graph`): a card
+        # engine without a mesh whose fast3 tiles can take the v3 arm.
+        self._v3_graphs = V3TileGraphs(self.device, _march_tile_v3) \
+            if (self.device.type == "cuda" and mesh is None and kernel == "fast3"
+                and self.tile_cull) else None
 
         # Baked once at load, like `transmittance_lut.gd:51-78`.
         self.transmittance = atmosphere.transmittance_lut(device=self.device)
@@ -930,8 +968,9 @@ class CloudSkyEngine:
     def _refresh_tile_cull(self) -> None:
         """The synchronous tile-cull build for the active snapshot. The JAX
         engine then warms one XLA executable per bucket
-        (`_warm_tile_cull_variants`); the port compiles nothing per bucket,
-        so it has no warmer."""
+        (`_warm_tile_cull_variants`); the port compiles nothing here, and
+        captures its v3 tile graphs at the first v3 tile of a tick
+        (`_march_tile_v3_graph`)."""
         self._prio_map, self._tile_buckets = \
             self._compute_tile_cull(self._march_params)
 
@@ -995,16 +1034,43 @@ class CloudSkyEngine:
         region = self.perf.update_region_size
         dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
                                 width=region, height=region, device=self.device)
-        cull_prio = None
-        if prio_map is not None and ray_keep_frac is not None:
-            cull_prio = prio_map[y0:y0 + region, x0:x0 + region]
-        tile = _march_tile(
-            dirs, self._march_params, self._noise_arg,
-            self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
-            steps=self.perf.march_steps, light_steps=self.perf.light_steps,
-            kernel=self.kernel, ray_keep_frac=ray_keep_frac,
-            cull_prio=cull_prio)
+        if self._v3_graphs is not None and _takes_v3(self.kernel, ray_keep_frac, dirs):
+            tile = self._march_tile_v3_graph(dirs, ray_keep_frac)
+        else:
+            cull_prio = None
+            if prio_map is not None and ray_keep_frac is not None:
+                cull_prio = prio_map[y0:y0 + region, x0:x0 + region]
+            tile = _march_tile(
+                dirs, self._march_params, self._noise_arg,
+                self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
+                steps=self.perf.march_steps, light_steps=self.perf.light_steps,
+                kernel=self.kernel, ray_keep_frac=ray_keep_frac,
+                cull_prio=cull_prio)
         self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
+
+    def _march_tile_v3_graph(self, dirs, bucket: float):
+        """The v3 arm of `_march_tile` for a card engine's tile, by replaying
+        the CUDA graph of its cell bucket (`V3TileGraphs`): the tick's
+        directions, sky-LUT slot, and the snapshot's parameters and cone
+        table copied into the graphs' inputs, then one graph launch; the
+        eager arm's tile, bitwise. The first such tile of a shape captures
+        every bucket of V3_TILE_CELL_BUCKETS (the counterpart of the JAX
+        engine's `_warm_fused_variants`), so no capture falls in a later
+        tick. The span `tile.v3` around the copies, any captures and the
+        replay, the span `v3.replay` around the replay (a replay opens no
+        `v3.*` stage span); counted in `v3_graph_captures` and
+        `v3_graph_replays`."""
+        graphs = self._v3_graphs
+        bricks, cone_cache = self._noise_arg
+        with span("tile.v3"):
+            graphs.load(dirs, self._march_params, bricks, cone_cache,
+                        self.sky_ring[self.ring.cloud_kernel_sky_slot],
+                        steps=self.perf.march_steps, light_steps=self.perf.light_steps)
+            captures = graphs.capture(V3_TILE_CELL_BUCKETS + (bucket,))
+            with span("v3.replay"):
+                tile = graphs.replay(bucket)
+        _count_v3_graphs(captures, 1)
+        return tile
 
     def _mesh_noise(self) -> list:
         """The noise argument replicated over the mesh, one per shard
@@ -1240,8 +1306,9 @@ class CloudSkyEngine:
         makes two bilinear fetches (from and to) per texture per pixel.
 
         The JAX engine compiles the fused executable for every bucket ahead
-        of the cycle (`_warm_fused_variants`); the port compiles nothing per
-        bucket, so it has no warmer."""
+        of the cycle (`_warm_fused_variants`); the port's counterpart is the
+        capture of a CUDA graph of the v3 tile arm for every cell bucket,
+        on a card engine's first v3 tile (`_march_tile_v3_graph`)."""
         cloud_pair, sky_pair = self._display_pair_tables()
         self._write_tile()
         with span("composite_display"):

@@ -37,6 +37,25 @@ RANDOM_VECTORS = (
 )
 
 _PI_C = m.PI_CLOUDS
+# cos 45° as `ambient_colors` rounds it: 1 / sqrt(2) in float32, on the host.
+_SQRT_HALF = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(2.0)))
+# The marches' constant vectors, one float32 tensor per (values, device),
+# made on first use (`device_constant`).
+_CONSTANTS = {}
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """The float32 tensor of `values` (a tuple, or a tuple of tuples) on
+    `device`, made once per device and shared: `torch.tensor(values,
+    dtype=torch.float32, device=device)`, the same bits, without a copy
+    from the host on every call (a copy that would wait on the stream, and
+    that a CUDA graph cannot capture). Callers only read it."""
+    key = (values, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS.setdefault(key, torch.tensor(values, dtype=torch.float32,
+                                                    device=device))
+    return t
 
 
 def sky_lut_lookup(sky_lut_img, ray_dir):
@@ -54,14 +73,13 @@ def ambient_colors(params, sky_lut_img):
     """The three per-dispatch LUT-derived colors (`clouds.glsl:162-167`),
     constant across rays: (sun, ambient, ground), each [3]."""
     dev = sky_lut_img.device
-    sqrt_half = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(2.0)))
     atmosphere_sun = (sky_lut_lookup(sky_lut_img, params.light_direction)
                       * 0.1 * params.light_energy * params.light_color)
-    amb = sky_lut_lookup(sky_lut_img, torch.tensor(
-        [sqrt_half, sqrt_half, 0.0], dtype=torch.float32, device=dev)) * 0.05
+    amb = sky_lut_lookup(sky_lut_img, device_constant(
+        (_SQRT_HALF, _SQRT_HALF, 0.0), dev)) * 0.05
     atmosphere_ambient = 0.5 * (amb + m.norm3(amb))
-    gnd = sky_lut_lookup(sky_lut_img, torch.tensor(
-        [sqrt_half, -sqrt_half, 0.0], dtype=torch.float32, device=dev)) * 5.0 * 0.05
+    gnd = sky_lut_lookup(sky_lut_img, device_constant(
+        (_SQRT_HALF, -_SQRT_HALF, 0.0), dev)) * 5.0 * 0.05
     atmosphere_ground = 0.5 * (gnd + params.ground_color * m.norm3(gnd))
     return atmosphere_sun, atmosphere_ambient, atmosphere_ground
 

@@ -61,7 +61,8 @@ import torch
 
 from cloudscape_tpu_torch.config import GROUND_RADIUS, SKY_B_RADIUS, SKY_T_RADIUS
 from cloudscape_tpu_torch.models.density import MarchParams, NoisePack
-from cloudscape_tpu_torch.models.march import RANDOM_VECTORS, ambient_colors
+from cloudscape_tpu_torch.models.march import (RANDOM_VECTORS, ambient_colors,
+                                               device_constant)
 from cloudscape_tpu_torch.ops import math as m
 from cloudscape_tpu_torch.ops.accum import accumulate
 from cloudscape_tpu_torch.ops.brick import (
@@ -211,9 +212,9 @@ def _ray_setup(dirs, params: MarchParams, steps: int):
     horizon are redirected straight up (their output is zeroed later)."""
     dev = dirs.device
     above = dirs[..., 1] > 0.0
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    up = device_constant((0.0, 1.0, 0.0), dev)
     ndir = torch.where(above[..., None], dirs, up)
-    cam = torch.tensor([0.0, GROUND_RADIUS, 0.0], dtype=torch.float32, device=dev)
+    cam = device_constant((0.0, GROUND_RADIUS, 0.0), dev)
     cam_b = cam.expand(ndir.shape)
     start = cam + ndir * m.intersect_sphere_far(cam_b, ndir, SKY_B_RADIUS)[..., None]
     end = cam + ndir * m.intersect_sphere_far(cam_b, ndir, SKY_T_RADIUS)[..., None]
@@ -239,8 +240,7 @@ def _light_offsets(ldir, light_steps: int):
     """Cumulative cone offsets (`clouds.glsl:187`): after j steps the light
     sample sits at p + Σ_{k≤j} (ldir + RANDOM_VECTORS[k]·k)·lss; plus the
     distant sample's offset and lss."""
-    rv = torch.tensor(RANDOM_VECTORS[:light_steps], dtype=torch.float32,
-                      device=ldir.device)
+    rv = device_constant(RANDOM_VECTORS[:light_steps], ldir.device)
     k = torch.arange(light_steps, dtype=torch.float32, device=ldir.device)
     offsets = torch.cumsum((ldir[None, :] + rv * k[:, None]) * LSS, dim=0)
     return offsets, ldir * (18.0 * LSS), LSS

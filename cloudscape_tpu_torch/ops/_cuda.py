@@ -39,6 +39,12 @@ _LIB = None
 # mesh's shards call them from threads of their own (`parallel/sharding.py`),
 # so a bare `launches += 1` could lose a count.
 COUNT_LOCK = threading.Lock()
+# True while a CUDA graph is captured (`tile_graphs.V3TileGraphs.capture`,
+# on the thread of a card engine without a mesh): a wrapper's call then
+# records its kernel into the graph and launches nothing, so it counts
+# nothing. A graph's replay launches its kernels through no wrapper, so the
+# counts are the launches the wrappers made.
+capturing = False
 
 
 def _nvcc() -> str:

@@ -52,6 +52,8 @@ def thread_work(geometry, texels: int, steps: int, block: int, thread: int):
 def _count_launch(name: str) -> None:
     """Add one to `launches[name]`, under `_cuda.COUNT_LOCK` (shards launch
     from threads)."""
+    if _cuda.capturing:
+        return
     with _cuda.COUNT_LOCK:
         launches[name] += 1
 

@@ -463,6 +463,8 @@ def _launch(name: str, table, values: int, geom, channels: int, planes):
         rc = getattr(_cuda.lib(), f"cs_sample_{name}")(*args, _cuda.stream_handle(dev))
     del held
     _cuda.check(rc, f"sample_{name}")
+    if _cuda.capturing:
+        return out
     with _cuda.COUNT_LOCK:
         launches[name] += 1
         samples[name] += args[-1]

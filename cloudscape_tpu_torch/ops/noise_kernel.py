@@ -25,6 +25,8 @@ launches = {"base": 0, "detail": 0, "weather": 0}
 def _count_launch(name: str) -> None:
     """Add one to `launches[name]`, under `_cuda.COUNT_LOCK` (shards launch
     from threads)."""
+    if _cuda.capturing:
+        return
     with _cuda.COUNT_LOCK:
         launches[name] += 1
 

@@ -47,10 +47,16 @@ def sample2d(tex, uv, wrap: str = "repeat"):
     iy0 = _wrap_idx(iy0, h, wrap)
 
     flat = tex.reshape(-1, c)
-    c00 = flat[iy0 * w + ix0]
-    c10 = flat[iy0 * w + ix1]
-    c01 = flat[iy1 * w + ix0]
-    c11 = flat[iy1 * w + ix1]
+
+    def fetch(i):
+        # Through a 1-D index: a 0-d index (one uv) would be read back to
+        # the host, a wait that no CUDA graph can capture.
+        return flat[i.reshape(-1)].reshape(i.shape + (c,))
+
+    c00 = fetch(iy0 * w + ix0)
+    c10 = fetch(iy0 * w + ix1)
+    c01 = fetch(iy1 * w + ix0)
+    c11 = fetch(iy1 * w + ix1)
     top = c00 + (c10 - c00) * fx
     bot = c01 + (c11 - c01) * fx
     return top + (bot - top) * fy

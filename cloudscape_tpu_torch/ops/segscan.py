@@ -30,6 +30,8 @@ def _count_launch(n: int) -> None:
     """Add one to `launches` and to `sizes[n]`, under `_cuda.COUNT_LOCK`
     (shards launch from threads)."""
     global launches
+    if _cuda.capturing:
+        return
     with _cuda.COUNT_LOCK:
         launches += 1
         sizes[n] += 1

@@ -251,10 +251,13 @@ READERS = {
     "tile_dense_ms.cycle": ("tile.dense",),
     "cycle_dense_ms.cycle": ("cycle.dense",),
     "prebake_tick_ms.serve": ("bake.tick",),
+    "v3_graph_share.serve": ("tile.v3", "v3.replay"),
 }
+# Readers of a share of spans rather than a mean (tested on their own below).
+SHARES = {"v3_graph_share.serve"}
 
 
-@pytest.mark.parametrize("metric", sorted(READERS))
+@pytest.mark.parametrize("metric", sorted(set(READERS) - SHARES))
 def test_span_readers(metric):
     """Each new per-layer metric: None for a layer without a trace, else the
     mean ms of its spans (pooled over its names), other spans ignored."""
@@ -309,6 +312,40 @@ def test_sync_bake_share_reader(monkeypatch):
                 pass
     assert read(layer) == pytest.approx(1 / 5)
     monkeypatch.delattr(engine, "sync_bakes")
+    assert read(layer) is None
+    monkeypatch.undo()
+    monkeypatch.delattr(profiling, "span_stats")
+    assert read(layer) is None
+
+
+def test_v3_graph_share_reader(monkeypatch):
+    """`v3_graph_share.serve`: `v3.replay` spans over `tile.v3` spans; 1.0
+    where every traced v3 tile replayed a graph, 0.0 where none did; None
+    without a trace, without a traced v3 tile, or for a program without the
+    span (no `engine.v3_graph_replays` counter)."""
+    from cloudscape_tpu_torch import engine
+    from skybench import run
+
+    read = run.reader("v3_graph_share.serve", ROOT)
+    layer = {"trace": object()}
+    assert read({}) is None and read(layer) is None
+    with _cpu_profile():
+        for _ in range(3):
+            with span("tile.v3"):
+                with span("v3.replay"):
+                    pass
+    assert read(layer) == 1.0 and read({}) is None
+    with _cpu_profile():
+        with span("tile.v3"):
+            with span("v3.prepass"):
+                pass
+    assert read(layer) == pytest.approx(3 / 4)
+    reset_spans()
+    with _cpu_profile():
+        with span("tile.v3"):
+            pass
+    assert read(layer) == 0.0
+    monkeypatch.delattr(engine, "v3_graph_replays")
     assert read(layer) is None
     monkeypatch.undo()
     monkeypatch.delattr(profiling, "span_stats")
