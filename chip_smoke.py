@@ -2882,11 +2882,6 @@ CULL_WARM_TICKS, CULL_TIMED_TICKS = 65, 70
 TILE_CULL_DB = 35.0
 
 
-def tile_arm(bucket: float) -> str:
-    """The fast3 tile arm a tile-cull bucket takes."""
-    return "skip" if bucket == 0.0 else ("dense" if bucket >= 1.0 else "v3")
-
-
 def run_tile_cull(dev):
     """Phase 11b: the fast3 tile-cull engine at bench.py's serving point,
     through the fused `render_frame`. The kernel counts are zeroed before
@@ -2901,7 +2896,8 @@ def run_tile_cull(dev):
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch import engine as engine_mod
-    from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile, _prepass_steps
+    from cloudscape_tpu_torch.engine import (CloudSkyEngine, _march_tile, _prepass_steps,
+                                             tile_arm)
     from cloudscape_tpu_torch.models.march_fast import march_bricks_v3, march_tile_dense
     from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
     from cloudscape_tpu_torch.ops.octmap import texel_directions
@@ -2919,6 +2915,7 @@ def run_tile_cull(dev):
         cone_res=CONE_RES, tile_cull=True, device=dev)
     require(eng.can_run, "the tile-cull engine failed its validation")
     built = read_counts()  # the validation probe's launches
+    rays = eng.perf.update_region_size ** 2
     eng.render_frame(eye, now=0.0)  # the warm start
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -2955,8 +2952,9 @@ def run_tile_cull(dev):
                 pickups += 1
             # The tick rendered tile frame - 1 of the row-major sweep.
             bucket = eng._tile_buckets[eng.ring.frame - 1]
-            ticks.append((tile_arm(bucket), start.elapsed_time(end), wall_ms))
-            v3_window[bucket] += tile_arm(bucket) == "v3"
+            arm = tile_arm("fast3", bucket, rays)
+            ticks.append((arm, start.elapsed_time(end), wall_ms))
+            v3_window[bucket] += arm == "v3"
 
     # The samples the window's sampler launches were given (phase 13's
     # samples per pass).
@@ -3053,7 +3051,8 @@ def run_tile_cull(dev):
     # cone cache, which is what the unculled engine renders for tiles this
     # size. The first v3 tile's K2 and K3 calls are recorded and held
     # against their plain versions (phase 13 times them).
-    v3_tiles = [j for j, b in enumerate(eng._tile_buckets) if tile_arm(b) == "v3"]
+    v3_tiles = [j for j, b in enumerate(eng._tile_buckets)
+                if tile_arm("fast3", b, rays) == "v3"]
     require(v3_tiles, "this cycle's buckets hold no v3 tile")
     size, tex = eng.perf.texture_size, eng.ring.texture_to_update
     sky = eng.sky_ring[eng.ring.cloud_kernel_sky_slot]
@@ -3065,12 +3064,13 @@ def run_tile_cull(dev):
 
         def march_one():
             return _march_tile(
+                tile_arm("fast3", b, rays),
                 texel_directions(size, x0=x0, y0=y0, width=region, height=region,
                                  device=dev),
                 eng._march_params, eng._noise_arg, sky,
                 region=region, steps=eng.perf.march_steps,
                 light_steps=eng.perf.light_steps, kernel="fast3",
-                ray_keep_frac=b if b < 1.0 else None)
+                bucket=b if b < 1.0 else None)
 
         if k == v3_tiles[0]:
             tile, compactions, scans = record_kernels(march_one)
@@ -3083,8 +3083,8 @@ def run_tile_cull(dev):
     k3_err = check_recorded("a phase-11b v3 tile", compactions, scans)
 
     # Phase 8c's serving tile: the first v3 tile of the cycle stage by stage,
-    # called with the arguments the engine's v3 arm passes (`_march_tile`,
-    # kernel "fast3" with a bucket: no ray cull, so no stage 2), against
+    # called with the arguments the engine's v3 arm passes (`_march_tile`'s
+    # "v3" arm: no ray cull, so no stage 2), against
     # that arm's own call and its launches.
     k0 = v3_tiles[0]
     b0, ty, tx = eng._tile_buckets[k0], (k0 // tpr) * region, (k0 % tpr) * region
@@ -3092,8 +3092,8 @@ def run_tile_cull(dev):
                                  device=dev)
     steps = eng.perf.march_steps
     arm_tile, arm_launches = counted(lambda: _march_tile(
-        tile_dirs, eng._march_params, eng._noise_arg, sky, region=region, steps=steps,
-        light_steps=eng.perf.light_steps, kernel="fast3", ray_keep_frac=b0))
+        "v3", tile_dirs, eng._march_params, eng._noise_arg, sky, region=region,
+        steps=steps, light_steps=eng.perf.light_steps, kernel="fast3", bucket=b0))
     require(torch.equal(arm_tile, culled[ty:ty + region, tx:tx + region]),
             "the v3 tile marched again differs")
 
@@ -3174,8 +3174,8 @@ def run_short_cycle(dev) -> dict:
     CONE_RES, the fused `render_frame` of a 1280x720 view): the warm start,
     then SHORT_CYCLES cycles of ticks timed by CUDA events, each labelled by
     its prebake steps (`probe_prebake.stage_of`: three ticks of grouped
-    steps a cycle) and its 384² tile's arm (skip, v3 bucket, or v2 for a
-    1.0 bucket: a tile of V3_TILE_MIN_RAYS rays or more). No rotation may
+    steps a cycle) and its 384² tile's arm (`tile_arm`: skip, v3 bucket,
+    or v2 for a 1.0 bucket: a tile of V3_TILE_MIN_RAYS rays or more). No rotation may
     build synchronously and no bake step may be dropped (`engine.sync_bakes`,
     `engine.dropped_bake_steps`); each rotation must take the pending
     cycle's cone cache and buckets, and the cone table must be bitwise
@@ -3193,7 +3193,7 @@ def run_short_cycle(dev) -> dict:
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState, probe_prebake
     from cloudscape_tpu_torch import engine as tengine
-    from cloudscape_tpu_torch.engine import V3_TILE_MIN_RAYS, CloudSkyEngine, _march_tile
+    from cloudscape_tpu_torch.engine import CloudSkyEngine, _march_tile, tile_arm
     from cloudscape_tpu_torch.ops.octmap import texel_directions
 
     eye = camera_dirs(1280, 720, dev)
@@ -3232,9 +3232,7 @@ def run_short_cycle(dev) -> dict:
 
         (ms,) = events_ms(tick, 1)
         bucket = eng._tile_buckets[eng.ring.frame - 1]
-        arm = tile_arm(bucket)
-        if arm == "dense" and region * region >= V3_TILE_MIN_RAYS:
-            arm = "v2"
+        arm = tile_arm("fast3", bucket, region * region)
         rows.append(dict(tick=i, stage=stage, arm=arm, bucket=bucket, ms=ms))
         if stage == "boundary":
             require(eng._cone_cache is pend.cone and eng._tile_buckets is pend.buckets,
@@ -3250,16 +3248,17 @@ def run_short_cycle(dev) -> dict:
     require(replays == v3_ticks, f"{replays} graph replays in {v3_ticks} f4 v3 ticks")
     tpr, tex = eng.perf.texture_size // region, eng.ring.texture_to_update
     sky = eng.sky_ring[eng.ring.cloud_kernel_sky_slot]
-    replayed = [k for k in range(eng.ring.frame) if tile_arm(eng._tile_buckets[k]) == "v3"]
+    replayed = [k for k in range(eng.ring.frame)
+                if tile_arm("fast3", eng._tile_buckets[k], region * region) == "v3"]
     require(replayed, "the last f4 cycle's ticks replayed no v3 tile")
     for k in replayed:
         y0, x0 = (k // tpr) * region, (k % tpr) * region
         tile = _march_tile(
-            texel_directions(eng.perf.texture_size, x0=x0, y0=y0, width=region,
-                             height=region, device=dev),
+            "v3", texel_directions(eng.perf.texture_size, x0=x0, y0=y0, width=region,
+                                   height=region, device=dev),
             eng._march_params, eng._noise_arg, sky, region=region, steps=steps,
             light_steps=eng.perf.light_steps, kernel="fast3",
-            ray_keep_frac=eng._tile_buckets[k])
+            bucket=eng._tile_buckets[k])
         require(torch.equal(tile, eng.cloud_ring[tex, y0:y0 + region, x0:x0 + region]),
                 f"f4 tile {k} (bucket {eng._tile_buckets[k]}) marched eagerly differs "
                 f"from its replay")
@@ -3268,7 +3267,8 @@ def run_short_cycle(dev) -> dict:
     graphs, eng._v3_graphs = eng._v3_graphs, None
     for i in range(1 + 4 * SHORT_CYCLES, 5 + 4 * SHORT_CYCLES):
         _, comps, scans = record_kernels(lambda: eng.render_frame(eye, now=i / 60.0))
-        if tile_arm(eng._tile_buckets[eng.ring.frame - 1]) == "v3":
+        if tile_arm("fast3", eng._tile_buckets[eng.ring.frame - 1],
+                    region * region) == "v3":
             v3_calls = comps, scans
             break
     eng._v3_graphs = graphs
@@ -3553,7 +3553,7 @@ def run_mesh(dev):
     import torch
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
-    from cloudscape_tpu_torch.engine import CloudSkyEngine
+    from cloudscape_tpu_torch.engine import CloudSkyEngine, tile_arm
     from cloudscape_tpu_torch.models import atmosphere
     from cloudscape_tpu_torch.models.march import march
     from cloudscape_tpu_torch.models.march_fast import (
@@ -3739,14 +3739,14 @@ def run_mesh(dev):
                 f"tick {i}: the mesh engine's buckets differ from the twin's")
         k = eng.ring.frame - 1  # the tile this tick wrote
         b = eng._tile_buckets[k]
-        arms.append(tile_arm(b))
+        arms.append(tile_arm("fast3", b, region * region))
         y0, x0 = (k // tpr) * region, (k % tpr) * region
         tex = eng.ring.texture_to_update
         a = eng.cloud_ring[tex, y0:y0 + region, x0:x0 + region]
         t = twin.cloud_ring[tex, y0:y0 + region, x0:x0 + region]
         if b >= 1.0 or b == 0.0:
             diff = float((a - t).abs().max())
-            require(diff <= 1e-6, f"tick {i}: {tile_arm(b)} tile {k} differs from "
+            require(diff <= 1e-6, f"tick {i}: {arms[-1]} tile {k} differs from "
                     f"the twin's by {diff:.3g}")
             dense_diff = max(dense_diff, diff)
     require(boundaries == 1, f"{boundaries} boundaries in the mesh ticks, not 1")
@@ -3767,7 +3767,8 @@ def run_mesh(dev):
             f"mesh engine vs twin rings {out['ring_db']:.2f} dB < {MESH_RING_DB}")
     # A v3 tile of the cycle at capacity 1.0: on the shards as on one card
     # (no shard can overflow), but for K3's sums over other ranges.
-    k = next(j for j, b in enumerate(twin._tile_buckets) if tile_arm(b) == "v3")
+    k = next(j for j, b in enumerate(twin._tile_buckets)
+             if tile_arm("fast3", b, region * region) == "v3")
     out["v3_tile"] = k
     tile_dirs = texel_directions(size, x0=(k % tpr) * region, y0=(k // tpr) * region,
                                  width=region, height=region, device=dev)
@@ -4023,6 +4024,7 @@ def run_bench() -> dict:
     import torch
 
     from cloudscape_tpu_torch import bench, sweep
+    from cloudscape_tpu_torch.engine import tile_arm
 
     zero_counts()
     rec = bench.run()
@@ -4035,7 +4037,8 @@ def run_bench() -> dict:
     require(rec["finite"] and rec["per_tile_finite"], "the bench rendered non-finite values")
     for key in ("quality_db_vs_exact", "quality_db_vs_exact_high_coverage"):
         require(rec[key] >= BENCH_DB, f"the bench's {key} {rec[key]:.2f} dB < {BENCH_DB}")
-    require(any(tile_arm(float(b)) == "v3" for b in rec["tile_bucket_hist"]),
+    require(any(tile_arm("fast3", float(b), 96 * 96) == "v3"  # bench.py's 96² tiles
+                for b in rec["tile_bucket_hist"]),
             f"the bench's serving cycle has no v3 bucket: {rec['tile_bucket_hist']}")
     require(rec["per_tile_device_ms"] > 0.0,
             f"the bench's per_tile_device_ms is {rec['per_tile_device_ms']}")
@@ -4163,8 +4166,9 @@ def main() -> int:
     probe_samples, probe_sizes = read_samples(), read_sizes()
     probe = {k: probe[k]
              for k in ("accumulate", "compact", "segscan") + SAMPLERS + ATMO_KERNELS}
-    require(all(v == 1 for v in probe.values()),
-            f"the validation probe did not launch K1–K3, K7–K11 once each: {probe}")
+    require(all(v == (0 if k in SAMPLERS[3:] else 1) for k, v in probe.items()),
+            f"the validation probe did not launch K1–K3, K7–K11 once each and the "
+            f"brick kernels not at all: {probe}")
     print(f"validation probe (every engine construction): launches {probe}", flush=True)
     stamp("1-4")
 

@@ -20,7 +20,7 @@ It prints ONE JSON line with `bench.py`'s keys, plus `per_tile_arm_ms`.
   `PerfConfig(768, 64, 128)`, coverage 0.35, the fused `render_frame` of a
   1280×720 view; one warm-start frame, 65 warm ticks, then 70 timed ticks
   across a cycle boundary. `per_tile_arm_ms` is the median timed tick of
-  each tile arm the cycle took (skip, v3 bucket, dense 1.0).
+  each tile arm the cycle took (`engine.tile_arm`).
 
 Timing is device-complete: every timed call is followed by
 `torch.cuda.synchronize()` and timed by the host's `time.perf_counter`.
@@ -296,11 +296,6 @@ def run(device="cuda", *, width: int = WIDTH, height: int = HEIGHT,
     return rec
 
 
-def tile_arm(bucket: float) -> str:
-    """The fast3 tile arm a tile-cull bucket takes."""
-    return "skip" if bucket == 0.0 else ("dense" if bucket >= 1.0 else "v3")
-
-
 def serving_engine(dev, sun, noise, cone_res=CONE_RES, texture_size: int = 768,
                    frames: int = 64, tile_steps: int = 128):
     """bench.py's serving engine: fast3 `tile_cull` at `PerfConfig(texture_size,
@@ -325,6 +320,8 @@ def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
                       frames: int, tile_steps: int, timed_ticks: int, view) -> None:
     """The amortized operating point at the reference's shipped defaults;
     fills rec in place, so a failure leaves the headline intact."""
+    from cloudscape_tpu_torch.engine import tile_arm
+
     eng = serving_engine(dev, sun, noise, cone_res, texture_size, frames, tile_steps)
     eye = torch.from_numpy(view_dirs(*view)).to(dev)
     rec["per_tile_kernel"] = eng.kernel
@@ -340,7 +337,8 @@ def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
         ms, _ = timed_ms(lambda: eng.render_frame(eye, now=i / 60.0), dev)
         tile_times.append(ms)
         # The tick marched tile frame - 1 of the cycle's row-major sweep.
-        arms.append(tile_arm(eng._tile_buckets[eng.ring.frame - 1]))
+        arms.append(tile_arm(eng.kernel, eng._tile_buckets[eng.ring.frame - 1],
+                             eng.perf.update_region_size ** 2))
     per_tile_ms = statistics.median(tile_times)
     per_tile_max_ms = max(tile_times)
     p95 = sorted(tile_times)[int(len(tile_times) * 0.95)]
@@ -357,7 +355,7 @@ def _per_tile_metrics(rec: dict, dev, sun, noise, cone_res, texture_size: int,
     rec["tile_all_ms"] = tile_times
     rec["per_tile_arm_ms"] = {
         a: statistics.median(t for t, b in zip(tile_times, arms) if b == a)
-        for a in ("skip", "v3", "dense") if a in arms}
+        for a in sorted(set(arms))}
     buckets = list(eng._tile_buckets or [1.0] * frames)
     rec["tile_bucket_hist"] = {str(b): buckets.count(b) for b in sorted(set(buckets))}
 

@@ -157,11 +157,12 @@ def _group_steps(costs, ticks: int) -> tuple:
 
 
 def _probe_kernels(device) -> None:
-    """Build the kernel library and launch each of its engine kernels (K1
-    accumulate, K2 compact, K3 segscan, the samplers K7–K9, K7 and K8 on a
-    texture and on a brick table, the atmosphere LUTs K11 and K10) once on
-    a tiny input on `device`; raises on a failed build or launch, or an
-    output of the wrong shape or not finite. The comparisons with the plain
+    """Build the kernel library and launch each kernel the engine runs (K1
+    accumulate, K2 compact, K3 segscan, the samplers K7 and K8 on a
+    texture and K9 on a tiny table, the atmosphere LUTs K11 and K10) once
+    on a tiny input on `device`; raises on a failed build or launch, or an
+    output of the wrong shape or not finite. The brick-row samplers serve
+    no engine path and are not probed. The comparisons with the plain
     versions are the tests' and chip_smoke's."""
     _cuda.lib()
     f32 = dict(dtype=torch.float32, device=device)
@@ -178,8 +179,6 @@ def _probe_kernels(device) -> None:
     vol = torch.linspace(0.0, 1.0, 4 * 4 * 4 * 2, **f32).reshape(4, 4, 4, 2)
     samples = (brick.sample_tex3_xyz(brick.build_texture3(vol), q, q, q),
                brick.sample_tex2_xy(brick.build_texture2(vol[0]), q, q),
-               brick.sample_brick3_xyz(brick.build_brick3(vol), q, q, q),
-               brick.sample_brick2_xy(brick.build_brick2(vol[0]), q, q),
                brick.sample_tiny3_xyz(brick.build_tiny3(vol), q, q, q))
     tlut = atmosphere.transmittance_lut(16, 4, device=device)
     sky = atmosphere.sky_lut_rows(tlut, (0.3, 0.5, -0.8), 1, rows=2, width=8, height=4)
@@ -249,11 +248,46 @@ def _prepass_steps(steps: int) -> int:
     return ps
 
 
-def _takes_v3(kernel: str, ray_keep_frac: Optional[float], dirs) -> bool:
-    """Whether `_march_tile` marches a tile by fast3's v3 arm: a fast3 [H, W]
-    tile whose cull bucket lies strictly between 0 and 1."""
-    return (kernel == "fast3" and ray_keep_frac is not None
-            and 0.0 < ray_keep_frac < 1.0 and dirs.dim() == 3)
+def tile_arm(kernel: str, bucket: Optional[float], n_rays: int) -> str:
+    """The arm that marches a tile of `n_rays` rays (a mesh shard's own) for
+    `kernel` at its tile-cull bucket (None without tile cull): the engine's
+    one decision, which `_march_tile` dispatches on and whose name its span
+    takes (`tile.<arm>`).
+
+    ===========  ============================================================
+    skip         a 0.0 bucket: no march, the tile written as zeros
+    reference    "reference": the scan march `march` on the NoisePack
+    exact        "fast": the exact brick march `march_bricks`, capacity 0.5
+                 of the samples (generous for small tiles, not a guarantee:
+                 a thin overcast scene can keep more, and the excess loses
+                 its sun term), chunk min(region², 16384)
+    hier         "hier": `march_hierarchical_v3`, every capacity bucket 1.0,
+                 no ray select, ray stride 1 (the engine's buckets are
+                 measured on the standard lattice and would undercount the
+                 windows' live cells; only the 0.0 skip applies)
+    v3           fast3 with a bucket strictly between 0 and 1, its live-cell
+                 capacity: `_march_tile_v3`
+    dense        fast3 without a cull bucket (or at 1.0) below
+                 V3_TILE_MIN_RAYS rays: `march_tile_dense`
+    v2           every other fast3 tile, and fast2: `march_bricks_v2`,
+                 capacity 0.5; fast2's bucket below 1.0 is its kept-ray
+                 fraction, ranked by the tile's window of the priority map
+    ===========  ============================================================
+    """
+    if bucket == 0.0:
+        return "skip"
+    if kernel == "reference":
+        return "reference"
+    if kernel == "fast":
+        return "exact"
+    if kernel == "hier":
+        return "hier"
+    if kernel == "fast3":
+        if bucket is not None and 0.0 < bucket < 1.0:
+            return "v3"
+        if n_rays < V3_TILE_MIN_RAYS:
+            return "dense"
+    return "v2"
 
 
 def _march_tile_v3(dirs, params: MarchParams, bricks, cone_cache, sky_img,
@@ -272,82 +306,51 @@ def _march_tile_v3(dirs, params: MarchParams, bricks, cone_cache, sky_img,
         axis_name=axis_name)
 
 
-def _march_tile(dirs, params: MarchParams, noise, sky_img, *, region: int,
+def _march_tile(arm: str, dirs, params: MarchParams, noise, sky_img, *, region: int,
                 steps: int, light_steps: int, kernel: str,
-                ray_keep_frac: Optional[float] = None, cull_prio=None,
+                bucket: Optional[float] = None, cull_prio=None,
                 axis_name: Optional[str] = None):
-    """The tile march of every kernel; noise is the engine's `_noise_arg`.
-
-    "reference" runs the scan march on the NoisePack. "fast" runs the exact
-    brick march on the BrickPack, its compaction capacity 0.5 of the
-    samples (generous for small tiles, not a guarantee: an optically thin
-    overcast scene can keep more samples active, and the excess loses its
-    sun term). The staged kernels take a (BrickPack, ConeCache) pair:
-    without a cull bucket, "fast3" marches tiles below V3_TILE_MIN_RAYS
-    rays densely and larger ones through the staged v2 march, and "fast2"
-    takes the v2 march for every tile. "hier" takes the hierarchical
-    window-lattice v3 march (`march_hierarchical_v3`) with every capacity
-    bucket 1.0 and no ray select (the engine's buckets are measured on the
-    standard lattice and would undercount the windows' live cells), ray
-    stride 1, coarse_steps min(32, max(8, steps / 4)). The whole-map render
-    of fast, fast2 and reference is this march over the map, as in the JAX
-    engine: fast and fast2 chunk its rays by min(region², 16384), and
-    reference marches the whole map in one call. The v2 capacity is the
-    JAX engine's 0.5 of the samples.
-
-    With tile cull, ray_keep_frac is the tile's bucket strictly between 0
-    and 1 (the engine writes 0.0 tiles as zeros and marches 1.0 tiles
-    without one). For fast3 it is the tile's live-CELL capacity: the v3
-    cell-gated march at that cell bucket, hot bucket 0.5, ray stride 2,
-    cell margin 0.1 and no ray select. For fast2 it is the kept-ray
-    fraction, ranked by `cull_prio`, the tile's window of the cycle's
-    priority map. "hier" takes fast2's buckets and ignores all but the 0.0
-    skip, which the engine handles.
-
-    axis_name (a mesh engine's shard, inside `shard_map`): dirs' rows are
-    sharded over that mesh axis, and fast3's v3 arm exchanges its prepass
-    dilations' boundary rows with the neighbouring shards. The other arms
-    are per-ray math on the shard's rows (hier's window probe and fast2's
-    ray ranking see only the shard's rows, as in JAX).
-
-    Each call is one span named by the arm it takes: `tile.reference`,
-    `tile.exact`, `tile.hier`, `tile.v3`, `tile.dense` or `tile.v2`."""
-    if kernel == "reference":
-        with span("tile.reference"):
+    """March a tile (or the whole map) by `arm`, `tile_arm`'s choice (not
+    "skip"), in the span `tile.<arm>`. noise is the engine's `_noise_arg`.
+    bucket: the tile's cull bucket strictly between 0 and 1, or None; the
+    v3 arm's cell bucket and fast2's kept-ray fraction for the v2 arm,
+    whose ranking reads cull_prio. region: the edge the exact arm and
+    fast2's v2 arm chunk by (min(region², 16384); `kernel` is read for that
+    alone), a mesh shard's row count on a shard. axis_name (inside
+    `shard_map`): dirs' rows are sharded over that mesh axis, and the v3
+    arm exchanges its prepass dilations' boundary rows with the
+    neighbouring shards; the other arms are per-ray math on the shard's
+    rows."""
+    n = int(np.prod(dirs.shape[:-1]))
+    with span("tile." + arm):
+        if arm == "reference":
             return march(dirs, params, noise, sky_img, steps=steps,
                          light_steps=light_steps)
-    if kernel == "fast":
-        with span("tile.exact"):
+        if arm == "exact":
             return march_bricks(dirs, params, noise, sky_img, steps=steps,
                                 light_steps=light_steps,
                                 chunk=min(region * region, 16384), capacity_frac=0.5)
-    bricks, cone_cache = noise
-    n = int(np.prod(dirs.shape[:-1]))
-    if kernel == "hier":
-        with span("tile.hier"):
+        bricks, cone_cache = noise
+        if arm == "hier":
             return march_hierarchical_v3(
                 dirs, params, bricks, sky_img, steps=steps, light_steps=light_steps,
                 chunk=min(n, 16384), coarse_steps=min(32, max(8, steps // 4)),
                 cell_keep_frac=1.0, hot_keep_frac=1.0, ray_keep_frac=None,
                 cone_cache=cone_cache, prepass_steps=_prepass_steps(steps),
                 ray_stride=1)
-    if _takes_v3(kernel, ray_keep_frac, dirs):
-        with span("tile.v3"):
-            return _march_tile_v3(dirs, params, bricks, cone_cache, sky_img,
-                                  ray_keep_frac, steps=steps,
-                                  light_steps=light_steps, axis_name=axis_name)
-    if kernel == "fast3":
-        if n < V3_TILE_MIN_RAYS:
-            with span("tile.dense"):
-                return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
-                                        light_steps=light_steps,
-                                        chunk=min(n, 16384), cone_cache=cone_cache)
-    chunk = min(region * region if kernel == "fast2" else n, 16384)
-    with span("tile.v2"):
+        if arm == "v3":
+            return _march_tile_v3(dirs, params, bricks, cone_cache, sky_img, bucket,
+                                  steps=steps, light_steps=light_steps,
+                                  axis_name=axis_name)
+        if arm == "dense":
+            return march_tile_dense(dirs, params, bricks, sky_img, steps=steps,
+                                    light_steps=light_steps, chunk=min(n, 16384),
+                                    cone_cache=cone_cache)
+        chunk = min(region * region if kernel == "fast2" else n, 16384)
         return march_bricks_v2(dirs, params, bricks, sky_img, steps=steps,
                                light_steps=light_steps, chunk=chunk,
                                capacity_frac=0.5, cone_cache=cone_cache,
-                               ray_keep_frac=ray_keep_frac, cull_prio=cull_prio)
+                               ray_keep_frac=bucket, cull_prio=cull_prio)
 
 
 def _build_display_pair(cloud_ring, cfrom: int, cto: int, sky_ring, b0: int,
@@ -453,7 +456,7 @@ class CloudSkyEngine:
 
         mesh: an optional `parallel.sharding.Mesh` (`make_mesh`): each
         tick's tile is marched with its rows sharded over the mesh, one
-        thread per shard (`_update_tile_mesh`), the rings and every other
+        thread per shard (`_update_tile`), the rings and every other
         state staying on `device`. The tile edge must be a multiple of the
         mesh size. The warm start, `update_cycle` and
         `render_full_hemisphere` stay unsharded, and `render_frame` takes
@@ -495,10 +498,10 @@ class CloudSkyEngine:
         self._cone_cache: Optional[ConeCache] = None
         self._v3_policy_cache = None
         # The v3 tile arm's CUDA graphs (`_march_tile_v3_graph`): a card
-        # engine without a mesh whose fast3 tiles can take the v3 arm.
+        # engine without a mesh whose culled tiles can take the v3 arm.
         self._v3_graphs = V3TileGraphs(self.device, _march_tile_v3) \
-            if (self.device.type == "cuda" and mesh is None and kernel == "fast3"
-                and self.tile_cull) else None
+            if (self.device.type == "cuda" and mesh is None and self.tile_cull
+                and tile_arm(kernel, V3_TILE_CELL_BUCKETS[0], 0) == "v3") else None
 
         # Baked once at load, like `transmittance_lut.gd:51-78`.
         self.transmittance = atmosphere.transmittance_lut(device=self.device)
@@ -974,21 +977,6 @@ class CloudSkyEngine:
         self._prio_map, self._tile_buckets = \
             self._compute_tile_cull(self._march_params)
 
-    def _tile_cull_args(self, x0: int, y0: int):
-        """(prio_map, ray_keep_frac) of the tile at (x0, y0): (None, None)
-        without culling or for a 1.0 bucket; (None, 0.0) for a tile that is
-        provably empty sky (skip the march and write zeros)."""
-        if not self.tile_cull or self._tile_buckets is None:
-            return None, None
-        region = self.perf.update_region_size
-        tiles_per_row = self.perf.texture_size // region
-        b = self._tile_buckets[(y0 // region) * tiles_per_row + (x0 // region)]
-        if b >= 1.0:
-            return None, None
-        if b == 0.0:
-            return None, 0.0
-        return self._prio_map, b
-
     @property
     def _noise_arg(self):
         """The `noise` argument of `_march_tile` for this engine's kernel."""
@@ -1025,27 +1013,61 @@ class CloudSkyEngine:
                 self.ring.advance_sky_lut()
             self._picked_sky = None
 
-    def _update_tile(self, tex_idx: int, x0: int, y0: int, prio_map=None,
-                     ray_keep_frac: Optional[float] = None) -> None:
+    def _update_tile(self, tex_idx: int, x0: int, y0: int,
+                     bucket: Optional[float] = None, mesh=None) -> None:
         """Render one region² tile into cloud_ring[tex_idx] at (x0, y0) — the
-        reference's per-frame compute dispatch (`cloud_sky.gd:234-248`). A
-        cull bucket (ray_keep_frac) slices the tile's window of prio_map
-        for fast2's ray ranking."""
+        reference's per-frame compute dispatch (`cloud_sky.gd:234-248`) —
+        by the arm `tile_arm` picks for its cull bucket (None: unculled):
+        zeros for "skip" (`_clear_tile`), else the march, by replaying the
+        v3 arm's graph on a card engine that has them
+        (`_march_tile_v3_graph`), with the rows sharded over `mesh` when
+        given, or by `_march_tile`. A bucket below 1.0 slices the tile's
+        window of the cycle's priority map for fast2's ray ranking.
+
+        mesh (the tick's tile of a mesh engine, as the JAX engine's sharded
+        tile update): `shard_map`, one thread per shard.
+        The parameters, the noise argument and the sky LUT are replicated;
+        the window is sharded with the rays, so each shard culls its own
+        rows (fast2's ray threshold is then per shard: close to, not equal
+        to, the unsharded tile). Each shard takes the arm of its own rays,
+        with its rows as the region and the mesh axis bound, so the v3 arm
+        exchanges its prepass halo rows. The tile comes back on the mesh's
+        first device. Either way it is written into the ring in place."""
         region = self.perf.update_region_size
-        dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
-                                width=region, height=region, device=self.device)
-        if self._v3_graphs is not None and _takes_v3(self.kernel, ray_keep_frac, dirs):
-            tile = self._march_tile_v3_graph(dirs, ray_keep_frac)
+        rays = region * region if mesh is None else region * region // mesh.size
+        arm = tile_arm(self.kernel, bucket, rays)
+        if arm == "skip":
+            self._clear_tile(tex_idx, x0, y0)
+            return
+        if bucket is not None and bucket >= 1.0:
+            bucket = None  # the 1.0 bucket marches unculled
+        dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0, width=region,
+                                height=region, device=self.device)
+        window = None if bucket is None else \
+            self._prio_map[y0:y0 + region, x0:x0 + region]
+        kw = dict(steps=self.perf.march_steps, light_steps=self.perf.light_steps,
+                  kernel=self.kernel, bucket=bucket)
+        if arm == "v3" and self._v3_graphs is not None:
+            tile = self._march_tile_v3_graph(dirs, bucket)
+        elif mesh is not None:
+            axis = mesh.axis_name
+            noise = self._mesh_noise()
+            params = replicate(self._march_params, mesh.devices)
+            sky = replicate(self.sky_ring[self.ring.cloud_kernel_sky_slot], mesh.devices)
+
+            def shard_fn(d, cp=None):
+                i = axis_index(axis)
+                return _march_tile(arm, d, params[i], noise[i], sky[i],
+                                   region=max(d.shape[0], 1), cull_prio=cp,
+                                   axis_name=axis, **kw)
+
+            args = (dirs,) if window is None else (dirs, window)
+            tile = shard_map(shard_fn, mesh, in_specs=(P(axis),) * len(args),
+                             out_specs=P(axis))(*args)
         else:
-            cull_prio = None
-            if prio_map is not None and ray_keep_frac is not None:
-                cull_prio = prio_map[y0:y0 + region, x0:x0 + region]
-            tile = _march_tile(
-                dirs, self._march_params, self._noise_arg,
-                self.sky_ring[self.ring.cloud_kernel_sky_slot], region=region,
-                steps=self.perf.march_steps, light_steps=self.perf.light_steps,
-                kernel=self.kernel, ray_keep_frac=ray_keep_frac,
-                cull_prio=cull_prio)
+            tile = _march_tile(arm, dirs, self._march_params, self._noise_arg,
+                               self.sky_ring[self.ring.cloud_kernel_sky_slot],
+                               region=region, cull_prio=window, **kw)
         self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
 
     def _march_tile_v3_graph(self, dirs, bucket: float):
@@ -1084,42 +1106,6 @@ class CloudSkyEngine:
                                                replicate(arg, self.mesh.devices))
         return cached[1]
 
-    def _update_tile_mesh(self, tex_idx: int, x0: int, y0: int, prio_map=None,
-                          ray_keep_frac: Optional[float] = None) -> None:
-        """`_update_tile` with the tile's rows sharded over the mesh
-        (`shard_map`, one thread per shard), the counterpart of the JAX
-        engine's `_update_tile_mesh`. The parameters, the noise argument
-        and the sky LUT are replicated; a cull bucket's window of prio_map
-        is sharded with the rays, so each shard culls its own rows (fast2's
-        ray threshold is then per shard: close to, not equal to, the
-        unsharded tile). Each shard marches `_march_tile` with its rows as
-        the region and the mesh axis bound, so fast3's v3 arm exchanges its
-        prepass halo rows. The tile comes back on the mesh's first device
-        and is written into the ring in place."""
-        region = self.perf.update_region_size
-        axis = self.mesh.axis_name
-        dirs = texel_directions(self.perf.texture_size, x0=x0, y0=y0,
-                                width=region, height=region, device=self.device)
-        args = [dirs]
-        if prio_map is not None and ray_keep_frac is not None:
-            args.append(prio_map[y0:y0 + region, x0:x0 + region])
-        noise = self._mesh_noise()
-        params = replicate(self._march_params, self.mesh.devices)
-        sky = replicate(self.sky_ring[self.ring.cloud_kernel_sky_slot],
-                        self.mesh.devices)
-
-        def shard_fn(d, cp=None):
-            i = axis_index(axis)
-            return _march_tile(
-                d, params[i], noise[i], sky[i], region=max(d.shape[0], 1),
-                steps=self.perf.march_steps, light_steps=self.perf.light_steps,
-                kernel=self.kernel, ray_keep_frac=ray_keep_frac, cull_prio=cp,
-                axis_name=axis)
-
-        tile = shard_map(shard_fn, self.mesh, in_specs=(P(axis),) * len(args),
-                         out_specs=P(axis))(*args)
-        self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = tile  # in place
-
     def _clear_tile(self, tex_idx: int, x0: int, y0: int) -> None:
         """The tile-cull 0.0 bucket: a tile whose whole priority window sits
         below the keep margin renders what the march returns for all-culled
@@ -1130,18 +1116,15 @@ class CloudSkyEngine:
             self.cloud_ring[tex_idx, y0:y0 + region, x0:x0 + region] = 0.0  # in place
 
     def _write_tile(self) -> None:
-        """This tick's tile at the cursor, by its cull bucket: zeros for the
-        0.0 bucket (`skip_march`), else the march, sharded over the mesh
-        when the engine has one."""
+        """This tick's tile at the cursor, at its cull bucket (`_update_tile`),
+        sharded over the mesh when the engine has one."""
         x0, y0 = self.ring.update_position
-        prio_map, rk = self._tile_cull_args(x0, y0)
-        if rk == 0.0:
-            self._clear_tile(self.ring.texture_to_update, x0, y0)
-        elif self.mesh is not None:
-            self._update_tile_mesh(self.ring.texture_to_update, x0, y0,
-                                   prio_map, rk)
-        else:
-            self._update_tile(self.ring.texture_to_update, x0, y0, prio_map, rk)
+        bucket = None
+        if self.tile_cull and self._tile_buckets is not None:
+            region = self.perf.update_region_size
+            bucket = self._tile_buckets[(y0 // region) * (self.perf.texture_size // region)
+                                        + x0 // region]
+        self._update_tile(self.ring.texture_to_update, x0, y0, bucket, mesh=self.mesh)
 
     def _march_tiles_dense(self, tex_idx: int, start_tile: int, count: int) -> None:
         """The dense arm for `count` tiles from `start_tile` (row-major tile
@@ -1175,8 +1158,8 @@ class CloudSkyEngine:
     def _update_tiles_batch(self) -> None:
         """Render every remaining tile of the current cycle (unculled, as the
         JAX engine's batch) and advance the cursor/frame state to the cycle
-        end. Where each tile would take the dense arm (fast3, region² below
-        V3_TILE_MIN_RAYS) the tiles march in one call
+        end. Where each tile takes the dense arm (`tile_arm`) the tiles
+        march in one call
         (`_march_tiles_dense`); every other kernel, one `_update_tile` a
         tile."""
         n_frames = self.perf.frames_to_update
@@ -1188,7 +1171,7 @@ class CloudSkyEngine:
         if remaining <= 0:
             return
         with span("cycle.tiles"):
-            if self.kernel == "fast3" and region * region < V3_TILE_MIN_RAYS:
+            if tile_arm(self.kernel, None, region * region) == "dense":
                 self._march_tiles_dense(self.ring.texture_to_update, start_tile,
                                         remaining)
             else:
@@ -1394,6 +1377,7 @@ class CloudSkyEngine:
             return self._render_hier(params, sky_img)
         if self.kernel != "fast3":
             return _march_tile(
+                tile_arm(self.kernel, None, self.perf.texture_size ** 2),
                 texel_directions(self.perf.texture_size, device=self.device),
                 params, self._noise_arg, sky_img,
                 region=self.perf.update_region_size,

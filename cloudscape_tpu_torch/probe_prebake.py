@@ -206,7 +206,8 @@ def stage_costs(eng, dev) -> dict:
 def labelled_ticks(eng, eye, dev, first: int, ticks: int) -> list:
     """Item 3: `ticks` render_frame ticks from `now = first / 60`, each
     {"tick", "stage", "arm", "ms", "sky_launches"}: the prebake stage it
-    ran and the arm of the tile it marched (bench.tile_arm)."""
+    ran and the arm of the tile it marched (`engine.tile_arm`)."""
+    from cloudscape_tpu_torch.engine import tile_arm
     from cloudscape_tpu_torch.ops import atmosphere_kernel
 
     rows = []
@@ -216,7 +217,8 @@ def labelled_ticks(eng, eye, dev, first: int, ticks: int) -> list:
         ms, _ = bench.timed_ms(lambda: eng.render_frame(eye, now=i / 60.0), dev)
         # The tick marched tile frame - 1 of the cycle's row-major sweep.
         rows.append(dict(tick=i, stage=stage, ms=ms,
-                         arm=bench.tile_arm(eng._tile_buckets[eng.ring.frame - 1]),
+                         arm=tile_arm(eng.kernel, eng._tile_buckets[eng.ring.frame - 1],
+                                      eng.perf.update_region_size ** 2),
                          sky_launches=atmosphere_kernel.launches["sky"] - before))
     return rows
 

@@ -297,6 +297,31 @@ def test_fast2_engine_matches_jax(packs):
     assert psnr(got, want) >= 50.0
 
 
+# (kernel, bucket, rays, arm): every kernel unculled at a 96² and a 384²
+# tile, the 0.0 skip, fast3's cell buckets and its 1.0 bucket on both sides
+# of V3_TILE_MIN_RAYS (the 384² tile of frames_to_update 4 takes v2), and
+# the culled fast2 and hier tiles.
+SMALL, LARGE = 96 * 96, 384 * 384
+TILE_ARMS = [
+    ("fast3", None, SMALL, "dense"), ("fast3", None, LARGE, "v2"),
+    ("fast2", None, SMALL, "v2"), ("fast2", None, LARGE, "v2"),
+    ("hier", None, SMALL, "hier"), ("hier", None, LARGE, "hier"),
+    ("fast", None, SMALL, "exact"), ("fast", None, LARGE, "exact"),
+    ("reference", None, SMALL, "reference"), ("reference", None, LARGE, "reference"),
+    ("fast3", 0.0, SMALL, "skip"), ("fast2", 0.0, SMALL, "skip"),
+    ("hier", 0.0, SMALL, "skip"),
+    ("fast3", 0.25, SMALL, "v3"), ("fast3", 0.8, LARGE, "v3"),
+    ("fast3", 1.0, SMALL, "dense"), ("fast3", 1.0, LARGE, "v2"),
+    ("fast2", 0.5, SMALL, "v2"), ("hier", 0.5, SMALL, "hier"),
+]
+
+
+@pytest.mark.parametrize("kernel,bucket,rays,arm", TILE_ARMS)
+def test_tile_arm(kernel, bucket, rays, arm):
+    """`tile_arm`, the engine's one decision of how a tile is marched."""
+    assert tengine.tile_arm(kernel, bucket, rays) == arm
+
+
 def test_fast3_v2_tile_arm_matches_jax(packs, monkeypatch):
     """fast3 tiles at or above V3_TILE_MIN_RAYS take the staged v2 march.
     The threshold is lowered to a 10² tile in both packages (a 40² map,

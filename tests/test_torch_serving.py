@@ -397,6 +397,7 @@ def test_tile_cull_matches_unculled(packs, kernel):
     for y0 in range(0, n, region):
         for x0 in range(0, n, region):
             ra[y0:y0 + region, x0:x0 + region] = tengine._march_tile(
+                tengine.tile_arm(kernel, None, region * region),
                 texel_directions(n, x0=x0, y0=y0, width=region, height=region,
                                  device=DEV),
                 b._march_params, b._noise_arg,
