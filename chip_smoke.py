@@ -89,10 +89,13 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    texel directions with the same cone cache and params (`V3_ENGINE_DB`
    says why not 40), and with every gate off ≥ 100 dB;
    7b. the composite traced on its own, on the phase-5 engine's state at
-   1280×720: the split `composite` (`render_view`) and `composite_display`
-   over the display-pair tables (CUDA-event ms, torch.profiler device ms
-   and device launches a call; the two agree at atol 2e-5 / rtol 1e-5),
-   and `_build_display_pair` (paid once a cycle);
+   1280×720: the split `composite` (`render_view`), `composite_display`
+   over the display-pair tables (kernel K12: one launch, nothing else),
+   its eager chain (`_composite_display_plain` on the card, the composite
+   before K12) and `_build_display_pair` (paid once a cycle): CUDA-event
+   ms, torch.profiler device ms and device launches a call; K12 agrees with
+   the eager chain and the split composite at atol 2e-5 / rtol 1e-5. Each
+   phase-5 tick launches K12 exactly once;
 8. the bench.py headline scene: 1024×512 hemisphere rays × 128 steps,
    coverage 0.35 and 0.7, sun (0.3, 0.4, −0.85), cone (32, 512, 512),
    procedural_noise_pack(0), `v3_auto_policy`, then
@@ -273,7 +276,8 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    inputs;
    K4–K6 at the shipped sizes; K7–K9 on the calls recorded as they ran,
    one per table (the headline render's, its cone build's tiny volumes,
-   the fused composite's display pairs and march_baked's field), each first
+   the composite's display pairs, from phase 7b's eager chain, and
+   march_baked's field), each first
    held against its plain version as phase 5b holds its tables (a texture
    also as brick rows), bound by the coordinates read, the output written
    and the distinct source texels the samples weigh (one bound, whatever
@@ -286,7 +290,9 @@ Phases (any failure raises and exits nonzero; there is no CPU path):
    function, never called by the port); K10 on the schedule's sky band and
    a 5-row band, K11 on the engine's LUT (bound: the frozen work of a
    texel, SERIAL_WORK, at the issue rate or the SFU rate, whichever is
-   slower), and K7's 1-ch 32³ repeat row
+   slower), K12 on phase 7b's 1280×720 call (bound: the directions read,
+   the frame written and the distinct texels of its two pair fetches and
+   the LUT; its plain ms the eager chain's), and K7's 1-ch 32³ repeat row
    printed again as the anchor against earlier runs; K2's library yardstick,
    `torch.nonzero(mask).view(-1)` on the finalize's mask (CUDA events,
    its host synchronisation included). Then the ranking, launches per
@@ -425,6 +431,7 @@ KERNEL_NAMES = {
     "sample_brick2": ("brick2_kernel",),
     "sky_lut": ("sky_kernel",),
     "transmittance_lut": ("transmittance_kernel",),
+    "composite": ("composite_kernel",),
     "grid_sample": ("grid_sampler_2d_kernel", "grid_sampler_3d_kernel"),
     # K9's stream yardstick, torch.addcmul (the L2 flush before each call is
     # a read, cuBLAS's dot, whose kernels none of these names).
@@ -1345,9 +1352,10 @@ def zero_counts() -> None:
     import collections
 
     from cloudscape_tpu_torch.ops import (accum, atmosphere_kernel, brick, compact,
-                                          noise_kernel, segscan)
+                                          composite_kernel, noise_kernel, segscan)
 
     accum.launches = compact.launches = segscan.launches = 0
+    composite_kernel.launches = dict.fromkeys(composite_kernel.launches, 0)
     accum.sizes, compact.sizes, segscan.sizes = (collections.Counter() for _ in range(3))
     noise_kernel.launches = dict.fromkeys(noise_kernel.launches, 0)
     atmosphere_kernel.launches = dict.fromkeys(atmosphere_kernel.launches, 0)
@@ -1359,14 +1367,15 @@ def zero_counts() -> None:
 def read_counts() -> dict:
     """Every kernel's launch count, by its name in the kernels line."""
     from cloudscape_tpu_torch.ops import (accum, atmosphere_kernel, brick, compact,
-                                          noise_kernel, segscan)
+                                          composite_kernel, noise_kernel, segscan)
 
     return dict(accumulate=accum.launches, compact=compact.launches,
                 segscan=segscan.launches,
                 **{f"noise_{k}": v for k, v in noise_kernel.launches.items()},
                 **{f"sample_{k}": v for k, v in brick.launches.items()},
                 sky_lut=atmosphere_kernel.launches["sky"],
-                transmittance_lut=atmosphere_kernel.launches["transmittance"])
+                transmittance_lut=atmosphere_kernel.launches["transmittance"],
+                composite=composite_kernel.launches["composite"])
 
 
 def read_samples() -> dict:
@@ -2529,7 +2538,7 @@ def run_engine(dev, ticks: int):
 
     from cloudscape_tpu_torch import CloudConfig, PerfConfig, SunState
     from cloudscape_tpu_torch.engine import CloudSkyEngine
-    from cloudscape_tpu_torch.ops import accum, compact, noise_kernel
+    from cloudscape_tpu_torch.ops import accum, compact, composite_kernel, noise_kernel
 
     perf = PerfConfig()  # 768², 64 frames, 128 steps, 6 light steps
     eyedirs = camera_dirs(1280, 720, dev)
@@ -2558,11 +2567,15 @@ def run_engine(dev, ticks: int):
             and pend.sky is not None
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        k12 = composite_kernel.launches["composite"]
         start.record()
         frame = eng.render_frame(eyedirs, now=(i + 1) / 60.0)
         end.record()
         torch.cuda.synchronize()
         tick_ms.append(start.elapsed_time(end))
+        require(composite_kernel.launches["composite"] - k12 == 1,
+                f"tick {i + 1} launched K12 "
+                f"{composite_kernel.launches['composite'] - k12} times, not once")
         if prebaked:
             require(eng._cone_cache is pend.cone,
                     "boundary did not pick up the prebake")
@@ -2596,7 +2609,7 @@ def run_engine(dev, ticks: int):
     return eng, dict(warm_s=warm_s, tick_ms=tick_ms, pickups=pickups,
                      k1=k1_launches, k2=k2_launches, noise=noise_launches,
                      samples=samples, sample_sizes=sample_sizes, atmo=atmo,
-                     size_counts=size_counts,
+                     size_counts=size_counts, composite=counts["composite"],
                      cloud_frac=cloud_frac, frame_mean=float(frame.mean()))
 
 
@@ -2968,7 +2981,7 @@ def run_tile_cull(dev):
     phase = dict(k1=accum.launches, k2=compact.launches, k3=segscan.launches,
                  noise=dict(noise_kernel.launches),
                  samples={k: counts[k] for k in SAMPLERS},
-                 atmo={k: counts[k] for k in ATMO_KERNELS})
+                 atmo={k: counts[k] for k in ATMO_KERNELS}, composite=counts["composite"])
     samples = {k: counts[k] - s_warm[k] for k in SAMPLERS}
     atmo_window = {k: counts[k] - s_warm[k] for k in ATMO_KERNELS}
     # Those are the wrappers' launches; the window's v3 tiles were graph
@@ -3128,7 +3141,8 @@ def run_tile_cull(dev):
         histogram={b: eng._tile_buckets.count(b) for b in sorted(set(eng._tile_buckets))},
         k1=k1, k2=k2, k3=k3, samples=samples, window_samples=window_samples,
         window_sizes=window_sizes, atmo_window=atmo_window,
-        phase=phase, v3_tiles=len(arms["v3"]), graph_replays=replays,
+        composite_window=counts["composite"] - s_warm["composite"], phase=phase,
+        v3_tiles=len(arms["v3"]), graph_replays=replays,
         replay_kernels=replay_kernels,
         v3_bucket=eng._tile_buckets[v3_tiles[0]], compactions=compactions,
         scans=scans, k3_err=k3_err, cull_db=cull_db, cloud_frac=cloud_frac,
@@ -3964,45 +3978,80 @@ def trace_calls(fn, reps: int = 10, pad: int = TRACE_PAD):
             len(events) / reps)
 
 
+# K12's bytes at a call (its bound): the directions in and the frame out,
+# 12 B a pixel each, the distinct texels its two pair fetches weigh (those
+# of the eager chain's K8 calls at the same uv, `sample_bytes` less their
+# coordinates and output) and the LUT's 4 texels.
+def composite_bytes(pixels: int, pair_calls, tlut) -> int:
+    texels = sum(sample_bytes(tab, qs) - 4 * (len(qs) + tab.channels) * qs[0].numel()
+                 for _, _, tab, qs in pair_calls)
+    return 24 * pixels + texels + 4 * tlut.shape[-1] * 4
+
+
 def run_composite(eng, eyedirs):
     """Phase 7b: the composite traced on its own, on the phase-5 engine's
-    state at the camera's resolution: the split `composite` (`render_view`)
-    and `composite_display` over the pair tables, CUDA-event ms,
-    profiler device ms and launches a call; and `_build_display_pair`
-    (once a cycle). The two composites agree at atol 2e-5 / rtol 1e-5."""
+    state at the camera's resolution: the split `composite` (`render_view`),
+    `composite_display` over the pair tables (kernel K12, the sun as host
+    floats), its eager chain (`_composite_display_plain` on the card, the
+    form before K12) and `_build_display_pair` (once a cycle): CUDA-event
+    ms, profiler device ms and launches a call. K12 is held against the
+    eager chain and the split composite at atol 2e-5 / rtol 1e-5; the eager
+    chain's K8 calls are recorded for phase 13's display-pair rows, and K12's
+    call for its own."""
     import torch
 
     from cloudscape_tpu_torch.engine import _build_display_pair
-    from cloudscape_tpu_torch.models.compositor import composite_display
+    from cloudscape_tpu_torch.models.compositor import (_composite_display_plain,
+                                                        composite_display)
 
     pair = eng._display_pair_tables()
     b0, b1 = eng.ring.sky_back_textures
+    tlut, scale, blend = eng.transmittance, eng.config.sun_disk_scale, eng.blend_amount
+    sun, sun_on_card = eng._light_floats(eng.frame_data), eng._light_dir(eng.frame_data)
 
     def split():
         return eng.render_view(eyedirs)
 
     def display():
-        return composite_display(eyedirs, *pair, eng.transmittance,
-                                 eng._light_dir(eng.frame_data),
-                                 eng.config.sun_disk_scale, eng.blend_amount)
+        return composite_display(eyedirs, *pair, tlut, sun, scale, blend)
+
+    def eager():
+        return _composite_display_plain(eyedirs, *pair, tlut, sun_on_card, scale, blend)
 
     def build():
         return _build_display_pair(eng.cloud_ring, eng.ring.texture_to_blend_from,
                                    eng.ring.texture_to_blend_to, eng.sky_ring, b0, b1)
 
-    a, (b, calls) = split(), record_samples(display)
+    a = split()
     torch.cuda.synchronize()
-    require(torch.allclose(b, a, atol=2e-5, rtol=1e-5),
-            f"composite_display differs from composite by {float((b - a).abs().max())}")
+    before = read_counts()
+    b = display()
+    torch.cuda.synchronize()
+    k12_counts = {k: v - before[k] for k, v in read_counts().items()}
+    c, calls = record_samples(eager)
+    torch.cuda.synchronize()
+    require(len(calls) == 2 and all(x[0] == "sample_tex2" for x in calls),
+            f"the eager chain made {[x[:2] for x in calls]}, not two K8 pair calls")
+    require(k12_counts["composite"] == 1
+            and sum(v for k, v in k12_counts.items() if k != "composite") == 0,
+            f"composite_display launched {k12_counts}, not K12 once and nothing else")
+    for what, ref in (("its eager chain", c), ("composite", a)):
+        require(torch.allclose(b, ref, atol=2e-5, rtol=1e-5),
+                f"K12 differs from {what} by {float((b - ref).abs().max())}")
     out = {}
     for name, fn in (("composite", split), ("composite_display", display),
-                     ("build_display_pair", build)):
+                     ("composite_display_eager", eager), ("build_display_pair", build)):
         dev_ms, launches = trace_calls(fn)
         out[name] = dict(event_ms=cuda_time_ms(fn), device_ms=dev_ms,
                          launches=launches)
     out["max_abs_diff"] = float((b - a).abs().max())
-    # Phase 13's display-pair row: the fused composite's first K8 call.
-    out["sample_calls"] = [c + ("composite_display",) for c in calls]
+    out["k12_err"] = float((b - c).abs().max())
+    # Phase 13's display-pair rows: the eager chain's K8 calls; and K12's.
+    out["sample_calls"] = [x + ("composite_display",) for x in calls]
+    out["k12"] = dict(
+        fn=display, plain=eager,
+        nbytes=composite_bytes(eyedirs.numel() // 3, calls, tlut),
+        shape=f"{eyedirs.shape[1]}x{eyedirs.shape[0]} (the fused composite)")
     return out
 
 
@@ -4164,10 +4213,10 @@ def main() -> int:
 
     _, probe = counted(lambda: _probe_kernels(dev))
     probe_samples, probe_sizes = read_samples(), read_sizes()
-    probe = {k: probe[k]
-             for k in ("accumulate", "compact", "segscan") + SAMPLERS + ATMO_KERNELS}
+    probe = {k: probe[k] for k in ("accumulate", "compact", "segscan") + SAMPLERS
+             + ATMO_KERNELS + ("composite",)}
     require(all(v == (0 if k in SAMPLERS[3:] else 1) for k, v in probe.items()),
-            f"the validation probe did not launch K1–K3, K7–K11 once each and the "
+            f"the validation probe did not launch K1–K3, K7–K12 once each and the "
             f"brick kernels not at all: {probe}")
     print(f"validation probe (every engine construction): launches {probe}", flush=True)
     stamp("1-4")
@@ -4240,14 +4289,16 @@ def main() -> int:
           f"K1 x{v['k1']}, K2 x{v['k2']}, K3 x{v['k3']}, K7–K9 {v['samples']} per "
           f"call; cloud fraction {v['cloud_frac']:.4f} ({card})", flush=True)
     comp = run_composite(eng, camera_dirs(1280, 720, dev))
-    for cname in ("composite", "composite_display", "build_display_pair"):
+    for cname in ("composite", "composite_display", "composite_display_eager",
+                  "build_display_pair"):
         cr = comp[cname]
         dev_ms = "not measured" if cr["device_ms"] is None else f"{cr['device_ms']:.4f} ms"
         print(f"{cname} (phase-5 engine, 1280x720): {cr['event_ms']:.4f} ms by CUDA "
               f"events, {dev_ms} on the device by torch.profiler, "
               f"{cr['launches']} device launches a call ({card})", flush=True)
-    print(f"composite_display vs composite: max abs diff {comp['max_abs_diff']:.3g}",
-          flush=True)
+    print(f"composite_display (K12) vs composite: max abs diff "
+          f"{comp['max_abs_diff']:.3g}; vs its eager chain {comp['k12_err']:.3g} "
+          f"(atol 2e-5 / rtol 1e-5)", flush=True)
     # Phase 11d's inputs: the phase-5 engine's params, pack and sky image.
     scan_inputs = (eng._march_params, eng.noise, eng._bricks,
                    eng.sky_ring[eng.ring.cloud_kernel_sky_slot].clone())
@@ -4661,6 +4712,14 @@ def main() -> int:
     atmo_pass = {k: r["atmo"][k] - probe[k] + c["atmo_window"][k] for k in ATMO_KERNELS}
     for k in ATMO_KERNELS:
         groups[k] = [(atmo_pass[k], rows[k][0])]
+    # K12: the fused composite of phase 7b, one launch a tick; a pass is
+    # phase 5 without its validation probe and the tile-cull window.
+    k12 = comp["k12"]
+    rows["composite"] = [timed_row(k12["shape"], k12["fn"], KERNEL_NAMES["composite"],
+                                   k12["nbytes"], event_ms=cuda_time_ms(k12["fn"]),
+                                   plain_ms=cuda_time_ms(k12["plain"], reps=3))]
+    k12_pass = r["composite"] - probe["composite"] + c["composite_window"]
+    groups["composite"] = [(k12_pass, rows["composite"][0])]
     nonzero_ms = time_nonzero(k2_mask)
     print(f"K2's library yardstick: torch.nonzero(mask).view(-1) on the "
           f"{K2_N}-cell mask {nonzero_ms:.4f} ms (CUDA events, its host "
@@ -4681,6 +4740,10 @@ def main() -> int:
                                f"us device ({row['library']}; the kernel "
                                f"{row['library_device_us'] / row['device_us']:.2f}x "
                                f"faster by device time)"))
+            if kname == "composite":
+                extra = (f"; events {row['event_ms']:.4f} ms, plain (the eager chain) "
+                         f"{row['plain_ms']:.4f} ms, library none: no PyTorch call "
+                         f"composites the sky")
             if kname in ATMO_KERNELS:
                 extra = (f"; issue term {row['issue_us']:.2f} us, SFU term "
                          f"{row['sfu_us']:.2f} us ("
@@ -4744,6 +4807,11 @@ def main() -> int:
         meta.append((kname, "atmosphere.cu", f"models/atmosphere.py:{line} (no "
                      f"pallas_call: XLA's fusion of the jitted math)", r["atmo"][kname],
                      atmo_pass[kname], c["phase"]["atmo"][kname], atmo[kname][0]))
+    # K12: JAX jits composite_display, no pallas_call. The launches: phase
+    # 5's; max_abs_err: phase 7b's check against the eager chain.
+    meta.append(("composite", "composite.cu", "models/compositor.py:111 (no pallas_call: "
+                 "XLA's fusion of the jitted composite_display)", r["composite"],
+                 k12_pass, c["phase"]["composite"], comp["k12_err"]))
     kernels = []
     for kname, src, tpu, launches, per_pass, cull_launches, err in meta:
         main_row = rows[kname][0]

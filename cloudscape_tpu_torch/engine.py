@@ -65,7 +65,8 @@ from cloudscape_tpu_torch.models.march_fast import (
     wrap_cone_table,
 )
 from cloudscape_tpu_torch.models.packs import procedural_noise_pack
-from cloudscape_tpu_torch.ops import _cuda, accum, brick, compact, segscan
+from cloudscape_tpu_torch.ops import (_cuda, accum, brick, compact, composite_kernel,
+                                      segscan)
 from cloudscape_tpu_torch.ops.brick import build_texture2
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel.sharding import (Mesh, P, axis_index,
@@ -159,9 +160,9 @@ def _group_steps(costs, ticks: int) -> tuple:
 def _probe_kernels(device) -> None:
     """Build the kernel library and launch each kernel the engine runs (K1
     accumulate, K2 compact, K3 segscan, the samplers K7 and K8 on a
-    texture and K9 on a tiny table, the atmosphere LUTs K11 and K10) once
-    on a tiny input on `device`; raises on a failed build or launch, or an
-    output of the wrong shape or not finite. The brick-row samplers serve
+    texture and K9 on a tiny table, the atmosphere LUTs K11 and K10, the
+    composite K12) once on a tiny input on `device`; raises on a failed
+    build or launch, or an output of the wrong shape or not finite. The brick-row samplers serve
     no engine path and are not probed. The comparisons with the plain
     versions are the tests' and chip_smoke's."""
     _cuda.lib()
@@ -182,16 +183,22 @@ def _probe_kernels(device) -> None:
                brick.sample_tiny3_xyz(brick.build_tiny3(vol), q, q, q))
     tlut = atmosphere.transmittance_lut(16, 4, device=device)
     sky = atmosphere.sky_lut_rows(tlut, (0.3, 0.5, -0.8), 1, rows=2, width=8, height=4)
+    pair = brick.build_texture2(vol.reshape(4, 4, 8), wrap="clamp")
+    frame = composite_kernel.composite_display_pair(
+        torch.tensor([[0.0, 1.0, 0.0], [0.6, 0.0, 0.8]], **f32), pair, pair, tlut,
+        (0.3, 0.5, -0.8), 1.0, 0.5)
     if tuple(acc.shape) != (n, 4) or tuple(idx.shape) != (3,) \
             or tuple(scan.shape) != (8,) or any(tuple(s.shape) != (8, 2)
                                                 for s in samples) \
-            or tuple(tlut.shape) != (4, 16, 4) or tuple(sky.shape) != (2, 8, 4):
+            or tuple(tlut.shape) != (4, 16, 4) or tuple(sky.shape) != (2, 8, 4) \
+            or tuple(frame.shape) != (2, 3):
         raise RuntimeError(f"probe shapes {tuple(acc.shape)}, {tuple(idx.shape)}, "
                            f"{tuple(scan.shape)}, "
                            f"{[tuple(s.shape) for s in samples]}, "
-                           f"{tuple(tlut.shape)}, {tuple(sky.shape)}")
+                           f"{tuple(tlut.shape)}, {tuple(sky.shape)}, "
+                           f"{tuple(frame.shape)}")
     if not all(bool(torch.isfinite(t).all())
-               for t in (acc, scan, tlut, sky) + samples):
+               for t in (acc, scan, tlut, sky, frame) + samples):
         raise RuntimeError("a probe's output is not finite")
 
 
@@ -990,6 +997,12 @@ class CloudSkyEngine:
         return torch.from_numpy(np.asarray(frame_data.light_direction,
                                            np.float32)).to(self.device)
 
+    @staticmethod
+    def _light_floats(frame_data: FrameData) -> tuple:
+        """The sun direction as host floats of `_light_dir`'s values: a
+        kernel's launch arguments, which copy nothing to the card."""
+        return tuple(np.asarray(frame_data.light_direction, np.float32).tolist())
+
     def _render_sky_image(self, sun_dir) -> torch.Tensor:
         """One full sky-view LUT through the same row bands the prebake
         renders, so a prebaked image equals a synchronous one."""
@@ -1283,10 +1296,12 @@ class CloudSkyEngine:
         """The fused tick's body: this tick's tile (zeros for a 0.0 cull
         bucket, the JAX engine's `skip_march`), then `composite_display`
         over the display-pair tables, run in order on the current stream.
-        PyTorch has no single dispatch to fuse into; what differs from the
-        split tick is the composite's fetches: one pair row per texture per
-        pixel from tables built once a cycle, where the split `composite`
-        makes two bilinear fetches (from and to) per texture per pixel.
+        What differs from the split tick is the composite: one pair row per
+        texture per pixel from tables built once a cycle, where the split
+        `composite` makes two bilinear fetches (from and to) per texture per
+        pixel; on the card it is one launch of kernel K12, the sun passed as
+        host floats, so the host copies nothing and never waits for the
+        tile.
 
         The JAX engine compiles the fused executable for every bucket ahead
         of the cycle (`_warm_fused_variants`); the port's counterpart is the
@@ -1297,7 +1312,7 @@ class CloudSkyEngine:
         with span("composite_display"):
             return composite_display(
                 eyedirs.to(device=self.device, dtype=torch.float32), cloud_pair,
-                sky_pair, self.transmittance, self._light_dir(self.frame_data),
+                sky_pair, self.transmittance, self._light_floats(self.frame_data),
                 self.config.sun_disk_scale, self._blend_amount, deband=deband)
 
     def render_frame(self, eyedirs, now: Optional[float] = None,

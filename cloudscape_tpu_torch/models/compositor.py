@@ -9,7 +9,8 @@ explicit inputs in place of Godot's `EYEDIR` / `LIGHT0_DIRECTION`.
 Two entry points: `composite` (the split path: two bilinear fetches per
 texture per pixel from the raw ring slots) and `composite_display` (the
 fused serving tick: one fetch per texture per pixel from the cycle's
-8-channel display-pair textures).
+8-channel display-pair textures; over the engine's form, kernel K12 of
+`ops/composite_kernel.py` on the card).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import math
 
 import torch
 
+from cloudscape_tpu_torch.ops import composite_kernel
 from cloudscape_tpu_torch.ops import math as m
 from cloudscape_tpu_torch.ops.brick import (BrickTable2D, Texture2D, sample_brick2,
                                             sample_tex2)
@@ -163,6 +165,13 @@ def _finish(eyedir, clouds, background, deband: bool):
     return out
 
 
+def _is_kernel_form(cloud, sky, tlut) -> bool:
+    """Whether `composite_display`'s tables are the engine's form, which
+    kernel K12 composites: 8-channel clamp pair textures and a raw LUT."""
+    return all(isinstance(t, Texture2D) and t.channels == 8 and t.wrap == "clamp"
+               for t in (cloud, sky)) and isinstance(tlut, torch.Tensor)
+
+
 def composite_display(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
                       sun_disk_scale, blend_amount=0.0, *,
                       deband: bool = False):
@@ -178,8 +187,30 @@ def composite_display(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
       build these; the form is kept for parity with the JAX function,
       which the tests hold it against.
 
-    tlut: the raw transmittance LUT or its table (one fetch a frame)."""
+    tlut: the raw transmittance LUT or its table (one fetch a frame).
+
+    The engine's form (clamp pair Texture2Ds, a raw LUT) goes to kernel K12
+    (`ops/composite_kernel.composite_display_pair`: one launch on the card,
+    `_composite_display_plain` for CPU tensors), which takes the sun as
+    host values (a sequence, an array or a CPU tensor). The other forms,
+    which no engine builds, take `_composite_display_plain` on every
+    device."""
     eyedir = eyedir.to(torch.float32)
+    if _is_kernel_form(cloud_blended, sky_blended, tlut):
+        return composite_kernel.composite_display_pair(
+            eyedir, cloud_blended, sky_blended, tlut, sun_dir, sun_disk_scale,
+            blend_amount, deband=deband)
+    return _composite_display_plain(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
+                                    sun_disk_scale, blend_amount, deband=deband)
+
+
+def _composite_display_plain(eyedir, cloud_blended, sky_blended, tlut, sun_dir,
+                             sun_disk_scale, blend_amount=0.0, *,
+                             deband: bool = False):
+    """`composite_display` in eager PyTorch, on every form: K12's plain
+    version, and the pre-blended and brick-table forms' only one."""
+    eyedir = eyedir.to(torch.float32)
+    sun_dir = torch.as_tensor(sun_dir, dtype=torch.float32, device=eyedir.device)
     clouds = _fetch_clamp(cloud_blended, world_dir_to_uv(_cloud_dir(eyedir)))
     if _is_pair(cloud_blended):
         clouds = clouds[..., 0:4] + (clouds[..., 4:8] - clouds[..., 0:4]) \

@@ -27,10 +27,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cloudscape_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Flags of one source on top of NVCC_FLAGS. atmosphere.cu rounds as its
-# plain version's eager torch ops do, one product or sum at a time, so nvcc
-# must not contract a*b + c into an FMA there (its header says why).
-SOURCE_FLAGS = {"atmosphere.cu": ["-fmad=false"]}
+# Flags of one source on top of NVCC_FLAGS. atmosphere.cu and composite.cu
+# round as their plain versions' eager torch ops do, one product or sum at a
+# time, so nvcc must not contract a*b + c into an FMA there (their headers
+# say why).
+SOURCE_FLAGS = {"atmosphere.cu": ["-fmad=false"], "composite.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -144,6 +145,9 @@ def lib() -> ctypes.CDLL:
             handle.cs_sky_lut.restype = i
             handle.cs_transmittance_lut.argtypes = [i, i, i, i, i, p, p]
             handle.cs_transmittance_lut.restype = i
+            handle.cs_composite.argtypes = [p, ll, geom, p, p, p,
+                                            ctypes.POINTER(ctypes.c_float), i, p, p]
+            handle.cs_composite.restype = i
             _LIB = handle
     return _LIB
 

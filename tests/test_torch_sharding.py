@@ -48,7 +48,7 @@ from cloudscape_tpu_torch.models import march_fast as tmf
 from cloudscape_tpu_torch.models.density import MarchParams
 from cloudscape_tpu_torch.models.march import march
 from cloudscape_tpu_torch.models.packs import noise_pack_from_numpy
-from cloudscape_tpu_torch.ops import accum, compact, noise_kernel, segscan
+from cloudscape_tpu_torch.ops import accum, compact, composite_kernel, noise_kernel, segscan
 from cloudscape_tpu_torch.ops.octmap import texel_directions
 from cloudscape_tpu_torch.parallel import sharding as tsh
 from cloudscape_tpu_torch.parallel.sharding import P
@@ -524,14 +524,15 @@ def test_collective_timeout_fails_the_call():
 # ----------------------------------------------------------- launch counts
 
 
-@pytest.mark.parametrize("module", [accum, compact, segscan, noise_kernel])
+@pytest.mark.parametrize("module", [accum, compact, segscan, noise_kernel,
+                                    composite_kernel])
 def test_launch_counts_are_exact_from_threads(module):
     """Each wrapper's launch count (and K1–K3's launches by size) takes
     every increment from 8 threads (a bare `launches += 1` can lose some
     once shards launch from threads): 8 threads × 5,000 increments with a
     short switch interval."""
     threads, reps = 8, 5000
-    key = "base" if module is noise_kernel else None
+    key = {noise_kernel: "base", composite_kernel: "composite"}.get(module)
     # K1–K3 count each launch's element count; this one no launch has.
     size = 7
     before = module.launches[key] if key else module.launches

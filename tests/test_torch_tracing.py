@@ -10,6 +10,7 @@ made by the port's own generators (plain versions on the CPU).
 
 import copy
 import os
+import sys
 import threading
 import time
 
@@ -173,6 +174,7 @@ def test_ticks_record_tile_composite_and_prebake_spans(warm):
     assert stats["bake.tick"]["count"] == sum(stages.values())  # one step a tick here
     assert stats["prebake.cone"]["parent"] == "bake.tick"
     assert stats["composite_display"]["count"] == FRAMES
+    assert "composite.kernel" not in stats  # the CPU takes K12's plain version
     assert stats["tick.begin"]["count"] == FRAMES
     assert stats["engine.rotate"]["count"] == 1
     assert stats["display_pair.build"]["count"] == 1
@@ -252,9 +254,10 @@ READERS = {
     "cycle_dense_ms.cycle": ("cycle.dense",),
     "prebake_tick_ms.serve": ("bake.tick",),
     "v3_graph_share.serve": ("tile.v3", "v3.replay"),
+    "composite_kernel_share.serve": ("composite_display", "composite.kernel"),
 }
 # Readers of a share of spans rather than a mean (tested on their own below).
-SHARES = {"v3_graph_share.serve"}
+SHARES = {"v3_graph_share.serve", "composite_kernel_share.serve"}
 
 
 @pytest.mark.parametrize("metric", sorted(set(READERS) - SHARES))
@@ -350,3 +353,63 @@ def test_v3_graph_share_reader(monkeypatch):
     monkeypatch.undo()
     monkeypatch.delattr(profiling, "span_stats")
     assert read(layer) is None
+
+
+def test_composite_kernel_share_reader(monkeypatch):
+    """`composite_kernel_share.serve`: `composite.kernel` spans over
+    `composite_display` spans; 1.0 where every traced composite was one K12
+    launch, 0.0 where none was; None without a trace, without a traced
+    composite, or for a program without K12 (no `ops.composite_kernel`)."""
+    from skybench import run
+
+    read = run.reader("composite_kernel_share.serve", ROOT)
+    layer = {"trace": object()}
+    assert read({}) is None and read(layer) is None
+    with _cpu_profile():
+        for _ in range(3):
+            with span("composite_display"):
+                with span("composite.kernel"):
+                    pass
+    assert read(layer) == 1.0 and read({}) is None
+    with _cpu_profile():
+        with span("composite_display"):
+            pass
+    assert read(layer) == pytest.approx(3 / 4)
+    reset_spans()
+    with _cpu_profile():
+        with span("composite_display"):
+            pass
+    assert read(layer) == 0.0
+    monkeypatch.setitem(sys.modules, "cloudscape_tpu_torch.ops.composite_kernel", None)
+    assert read(layer) is None
+    monkeypatch.undo()
+    monkeypatch.delattr(profiling, "span_stats")
+    assert read(layer) is None
+
+
+@pytest.mark.card
+def test_fused_ticks_open_one_kernel_span_on_the_card():
+    """On the card each fused tick's composite is one K12 launch inside
+    one `composite.kernel` span, under its `composite_display`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card = torch.device("cuda")
+    noise = make_noise_pack(generate_base_noise(16, seed=1, device=card),
+                            generate_detail_noise(8, seed=2, device=card),
+                            generate_weather(64, seed=3, device=card))
+    eng = CloudSkyEngine(perf=PerfConfig(32, FRAMES, march_steps=16, light_steps=2),
+                         config=CloudConfig(cloud_coverage=0.6),
+                         sun=SunState(direction=(0.3, 0.5, -0.8)), noise=noise,
+                         cone_res=(8, 64, 64), device=card, kernel="fast3",
+                         tile_cull=True)
+    assert eng.can_run
+    view = texel_directions(24, device=card)
+    eng.render_frame(view, now=0.0)
+    with _cpu_profile():
+        for i in range(1, FRAMES + 1):
+            eng.render_frame(view, now=i / 60)
+    torch.cuda.synchronize()
+    stats = span_stats()
+    assert stats["composite_display"]["count"] == FRAMES
+    assert stats["composite.kernel"]["count"] == FRAMES
+    assert stats["composite.kernel"]["parent"] == "composite_display"

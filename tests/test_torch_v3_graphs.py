@@ -37,7 +37,7 @@ from cloudscape_tpu_torch.models import march
 from cloudscape_tpu_torch.models.march import RANDOM_VECTORS, device_constant
 from cloudscape_tpu_torch.models.packs import make_noise_pack
 from cloudscape_tpu_torch.ops import (_cuda, accum, atmosphere_kernel, brick, compact,
-                                      noise_kernel, segscan)
+                                      composite_kernel, noise_kernel, segscan)
 from cloudscape_tpu_torch.ops.noise import (generate_base_noise, generate_detail_noise,
                                             generate_weather)
 from cloudscape_tpu_torch.ops.octmap import texel_directions
@@ -132,7 +132,8 @@ def test_sample2d_one_uv_is_the_former_fetch(wrap):
 
 @pytest.mark.parametrize("module,arg", [
     (accum, 7), (compact, 7), (segscan, 7), (atmosphere_kernel, "sky"),
-    (noise_kernel, "base")], ids=["accum", "compact", "segscan", "atmosphere", "noise"])
+    (noise_kernel, "base"), (composite_kernel, "composite")],
+    ids=["accum", "compact", "segscan", "atmosphere", "noise", "composite"])
 def test_wrappers_count_nothing_while_capturing(monkeypatch, module, arg):
     """A wrapper's call while a graph is captured records its kernel and
     launches nothing, so its launch counter stays put; otherwise it counts
