@@ -2,7 +2,7 @@
 are set from.
 
     python3 -m skybench.control --workload <cell> --seeds 1,2,3 [--seconds 6]
-        [--as control|program|fault:<Fault>] [--dtype bfloat16|float32]
+        [--as control|program|fault:<Fault>|fault:<CutFault>] [--dtype bfloat16|float32]
 
 prints one JSON line a seed with the numbers the cell's check compares:
 
@@ -16,7 +16,8 @@ prints one JSON line a seed with the numbers the cell's check compares:
 - `program`: the cell's timed path, once a seed in one process (set-up, a
   window of --seconds, the check), as the benchmark runs it.
 - `fault:<Fault>`: the same with the timed path broken underneath by one
-  of the faults below.
+  of the faults below; `fault:<CutFault>` by one of `CUT_FAULTS`, which
+  only a cell whose mix cuts the scene can show.
 
 The benchmark's own runs never run this module. A hook object is how the
 faults reach into a run: the engine once built, and each tick's frame or
@@ -96,7 +97,41 @@ class Altered(Hooks):
         return torch.roll(out, out.shape[1] // 2, dims=1)
 
 
+class StaleCut(Hooks):
+    """A scene cut that leaves tiles of the old scene on show, the
+    program's own fault at a cut mid-cycle, made to happen at any cut:
+    after each tick that asked for a full sky init, the first half of the
+    displayed `from` map's tiles (in the engine's tile order) written back
+    as they stood before the cut."""
+
+    def __init__(self):
+        self.before = None
+
+    def on_engine(self, eng):
+        request = eng.request_full_sky_init
+
+        def keep_and_request():
+            self.before = eng.cloud_ring.clone()
+            request()
+
+        eng.request_full_sky_init = keep_and_request
+
+    def after_tick(self, eng, frame):
+        if self.before is not None:
+            region = eng.perf.update_region_size
+            per_row = eng.perf.texture_size // region
+            slot = eng.ring.texture_to_blend_from
+            for t in range(eng.perf.frames_to_update // 2):
+                y0, x0 = (t // per_row) * region, (t % per_row) * region
+                tile = (slot, slice(y0, y0 + region), slice(x0, x0 + region))
+                eng.cloud_ring[tile] = self.before[tile]
+            self.before = None
+        return frame
+
+
 FAULTS = {f.__name__: f for f in (Unchanged, HalfMean, Altered)}
+# Faults that a cell whose mix cuts the scene can have, and no other cell.
+CUT_FAULTS = {f.__name__: f for f in (StaleCut,)}
 
 
 def readings(workload: str, seeds, seconds: float = 6.0, hooks=None, device="cuda",
@@ -132,8 +167,9 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True, help="comma-separated seeds")
     ap.add_argument("--seconds", type=float, default=6.0)
+    faults = {**FAULTS, **CUT_FAULTS}
     ap.add_argument("--as", dest="what", default="control",
-                    help="control, program or fault:<" + "|".join(FAULTS) + ">")
+                    help="control, program or fault:<" + "|".join(faults) + ">")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -145,10 +181,10 @@ def main(argv=None) -> int:
         rows = control_readings(args.workload, seeds, getattr(torch, args.dtype))
     elif args.what == "program":
         rows = readings(args.workload, seeds, args.seconds)
-    elif args.what.startswith("fault:") and args.what[6:] in FAULTS:
+    elif args.what.startswith("fault:") and args.what[6:] in faults:
         rows = [dict(row, fault=args.what[6:]) for seed in seeds
                 for row in readings(args.workload, [seed], args.seconds,
-                                    hooks=FAULTS[args.what[6:]]())]
+                                    hooks=faults[args.what[6:]]())]
     else:
         ap.error(f"--as {args.what}: not control, program or fault:<name>")
     for row in rows:

@@ -1,8 +1,9 @@
 """Mean wall time (ms, device-complete) of the window's ticks that bake a
 stage of the next cycle: `_prebake_stage()`, read before the tick, names
-a stage other than the pending cycle's first tick ("fresh")."""
+a stage other than the pending cycle's first tick ("fresh"); a scene
+cut's tick ("cut") bakes no stage."""
 
-_NO_BAKE = ("bake:none", "bake:fresh", "bake:rotate")
+_NO_BAKE = ("bake:none", "bake:fresh", "bake:rotate", "cut")
 
 
 def read(layer: dict):

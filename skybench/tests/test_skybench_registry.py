@@ -8,8 +8,8 @@ import re
 
 import pytest
 
-from skybench import run
-from skybench.tests.conftest import ROOT, make_root
+from skybench import run, traffic
+from skybench.tests.conftest import ROOT, add_cut_tick_reader, add_serve_cell, make_root
 
 BENCH = run.load_benchmark(ROOT)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -87,3 +87,34 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     assert run.reader("ticks.serve", root)({"ticks": [1, 2, 3]}) == 3.0
     for p, data in before.items():
         assert open(os.path.join(root, p), "rb").read() == data
+
+
+def test_a_cut_cell_is_added_by_files_and_entries_alone(tmp_path):
+    """A scene-cut cell (broken-0.35 with a `cut` block, as `cut-0.35`),
+    its limits and a reader of its cut ticks beside the existing files:
+    no existing file under skybench/ is edited, and the cell resolves,
+    plans its cuts, checks the keys broken-0.35 checks and reads its cut
+    ticks."""
+    root = make_root(tmp_path, sizes={})
+    sky = os.path.join(root, "skybench")
+    before = {os.path.join(d, n): open(os.path.join(d, n), "rb").read()
+              for d, _, names in os.walk(sky) for n in names}
+    mix = json.load(open(os.path.join(sky, "traffic", "broken-0.35.json")))
+    cut = {"after_cycles": 1, "at_frame": 32, "time_skip_s": 3600.0}
+    limits = json.load(open(os.path.join(sky, "limits", "serve-768-f64.broken-0.35.json")))
+    cell = "serve-768-f64.cut-0.35"
+    add_serve_cell(root, cell, "serve-768-f64", "cut-0.35",
+                   dict(mix, serve=dict(mix["serve"], cut=cut)), limits, end_to_end=("frame_ms",))
+    add_cut_tick_reader(root, cell)
+    r = run.resolve(run.load_benchmark(root), cell, root)
+    assert r["traffic"]["kind"] == "serve" and r["kind"].END_TO_END[0] == "frame_ms"
+    assert r["end_to_end"] == ["frame_ms", "setup_s"]
+    assert set(r["config"]["limits"]) == {"map_snr_db", "frame_snr_db"}
+    assert [m["name"] for m in r["per_layer"]] == ["cut_tick_ms.serve"]
+    plan = traffic.serve_plan(r["traffic"], 2 ** 33 + 5, r["config"]["frames_to_update"])
+    assert plan.cut_period == 96 and plan.is_cut(96) and plan.where(96 + 40) == (1, 0, 40)
+    ticks = [(2.0, "bake:none", "v3"), (180.0, "cut", "dense"), (220.0, "cut", "dense")]
+    assert run.reader("cut_tick_ms.serve", root)({"ticks": ticks}) == 200.0
+    assert run.reader("cut_tick_ms.serve", root)({}) is None
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p

@@ -12,11 +12,21 @@ the same work. The seed moves only what leaves the work unchanged: where
 the sun starts and goes, where the camera looks, and which outputs of
 the window are checked (a uniform sample of the whole window, drawn by
 `Reservoir`).
+
+A `serve` mix may script scene cuts (a teleport, fast travel or a time
+skip in a game): `"cut": {"after_cycles": A, "at_frame": F,
+"time_skip_s": S}` in its `serve` block, A >= 1 and 0 <= F < frames.
+Cut j (j >= 1) falls at tick j * P, P = A * frames + F: the clock skips
+S seconds ahead, the sun is drawn afresh, and the kind asks the engine
+for a full sky init, which re-bases the cycle at that tick, as the warm
+start does at tick 0. The cut ticks and the skip come from the mix, so
+every seed does the same work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -34,8 +44,14 @@ def load(name: str, directory: str = TRAFFIC_DIR) -> dict:
         return json.load(f)
 
 
-def _rng(seed: int, stream: int) -> np.random.Generator:
-    return np.random.default_rng(np.random.SeedSequence([int(seed) & (2 ** 64 - 1), stream]))
+def _rng(seed: int, *stream: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence([int(seed) & (2 ** 64 - 1), *stream]))
+
+
+# The seed's stream of the suns that scene cuts draw (1: the plan, 2: a
+# cycle mix's quality scenes, 3: the checks' draws, 5: the serve check's
+# draw of a cut).
+CUT_SUN_STREAM = 4
 
 
 class Reservoir:
@@ -75,11 +91,17 @@ def wind_direction(mix: dict) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class ServePlan:
-    """The serving session of one seed: tick i runs at clock
-    t0 + i / fps, with the sun at `sun(i)` and the camera's view
-    `view_of(i)`. The check reads a pair of ticks, at `check_offsets`
-    into consecutive cycles c and c + 1, c a uniform draw over the
-    window's cycles."""
+    """The serving session of one seed: tick i runs at clock `now(i)`,
+    with the sun at `sun(i)` and the camera's view `view_of(i)`.
+
+    Without cuts (`cut_period` 0) the clock is t0 + i / fps and the sun
+    climbs `arc_per_tick` a tick from where the seed put it. With cuts,
+    cut j falls at tick j * cut_period (`is_cut`): every tick from it on
+    runs `time_skip_s` later, and the sun starts afresh from a draw of
+    its own (`cut_sun`) and climbs from there. `where(i)` answers for
+    every reader which segment (0 from the warm start, j from cut j),
+    local cycle and frame tick i falls in. The check's pair of ticks
+    starts at frame `check_offsets[0]`."""
 
     t0: float
     fps: float
@@ -92,18 +114,66 @@ class ServePlan:
     views: int
     ticks_per_view: float
     check_offsets: tuple
+    frames: int
+    seed: int
+    sun_elevation_range: tuple
+    cut_period: int = 0
+    time_skip_s: float = 0.0
+
+    def segment(self, i: int) -> int:
+        """The cuts at or before tick i: 0 before the first."""
+        return i // self.cut_period if self.cut_period else 0
+
+    def is_cut(self, i: int) -> bool:
+        return self.cut_period > 0 and i > 0 and i % self.cut_period == 0
+
+    def where(self, i: int) -> tuple:
+        """(segment, local cycle, frame) of tick i: the cycle re-based
+        at the segment's first tick."""
+        seg = self.segment(i)
+        return (seg,) + divmod(i - seg * self.cut_period, self.frames)
 
     def now(self, i: int) -> float:
-        return self.t0 + i / self.fps
+        t = self.t0 + i / self.fps
+        cuts = self.segment(i)
+        return t + self.time_skip_s * cuts if cuts else t
+
+    def cut_sun(self, j: int) -> tuple:
+        """(elevation, azimuth) in degrees at cut j."""
+        return _cut_sun(self.seed, j, *self.sun_elevation_range)
 
     def sun(self, i: int) -> tuple:
-        return sun_direction(self.sun_elevation0 + self.arc_per_tick * i, self.sun_azimuth)
+        seg = self.segment(i)
+        if seg == 0:
+            return sun_direction(self.sun_elevation0 + self.arc_per_tick * i, self.sun_azimuth)
+        elevation, azimuth = self.cut_sun(seg)
+        return sun_direction(elevation + self.arc_per_tick * (i - seg * self.cut_period),
+                             azimuth)
 
     def yaws(self) -> list:
         return [self.yaw0 + k * self.view_step for k in range(self.views)]
 
     def view_of(self, i: int) -> int:
         return int(i / self.ticks_per_view) % self.views
+
+
+@functools.lru_cache(maxsize=4096)
+def _cut_sun(seed: int, j: int, el_lo: float, el_hi: float) -> tuple:
+    r = _rng(seed, CUT_SUN_STREAM, j)
+    return float(r.uniform(el_lo, el_hi)), float(r.uniform(0.0, 360.0))
+
+
+def cut_period(mix: dict, frames: int) -> int:
+    """P, the ticks from one cut to the next (0 for a mix without cuts);
+    raises ValueError for a `cut` block out of range."""
+    cut = mix["serve"].get("cut")
+    if cut is None:
+        return 0
+    after, at = int(cut["after_cycles"]), int(cut["at_frame"])
+    if after < 1 or not 0 <= at < frames:
+        raise ValueError(f"cut after_cycles {after}, at_frame {at}: wants after_cycles >= 1 "
+                         f"and 0 <= at_frame < {frames}")
+    return after * frames + at
 
 
 def serve_plan(mix: dict, seed: int, frames: int) -> ServePlan:
@@ -114,6 +184,7 @@ def serve_plan(mix: dict, seed: int, frames: int) -> ServePlan:
     views = int(s["camera_views"])
     step = 360.0 / views
     fa, fb = (int(v) for v in r.integers(0, frames, size=2))
+    period = cut_period(mix, frames)
     return ServePlan(
         t0=float(mix["clock_origin_s"]), fps=float(s["fps"]),
         wind_direction=wind_direction(mix),
@@ -122,7 +193,9 @@ def serve_plan(mix: dict, seed: int, frames: int) -> ServePlan:
         arc_per_tick=float(s["sun_arc_deg_per_cycle"]) / frames,
         yaw0=float(r.uniform(0.0, 360.0)), view_step=step, views=views,
         ticks_per_view=step / float(s["camera_pan_deg_per_s"]) * float(s["fps"]),
-        check_offsets=(fa, fb))
+        check_offsets=(fa, fb), frames=frames, seed=int(seed),
+        sun_elevation_range=(float(el_lo), float(el_hi)), cut_period=period,
+        time_skip_s=float(s["cut"]["time_skip_s"]) if period else 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
